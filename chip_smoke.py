@@ -12,10 +12,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
 3. Kernels vs twins: each kernel runs at the main path's shapes on inputs
    made from a numpy seed and is compared with its plain PyTorch twin run on
    the same card; median times of 20 CUDA-event-timed runs of each.
-4. Main path: Query A (FASTA filter/project), its count, and Query B (GFF
-   filter → group-by) through ExonSession(device="cuda") on generated data,
-   checked against numpy computations from the generators' own arrays; every
-   kernel must have been launched by these queries.
+4. Main path, through ExonSession(device="cuda") on generated data at full
+   scale: Query A (FASTA filter/project), its count, Query B (GFF filter →
+   group-by), Query C (BAM reads ⋈ GFF genes on chromosome and 100 kb bin,
+   overlap filter, coordinate sort), its TopK ``limit(1000)``, and Query D
+   (mate pairing: R1 ⟕ R2 on the read name, coordinate sort). Each is
+   checked against numpy computations from the generators' own arrays. The
+   launch counts are set to 0 before each query and read after it; each
+   query must have launched every kernel of its path.
+5. Where the time goes in queries C and D: the join and the sort alone on
+   device batches already in memory, with the kernels and with every
+   wrapper's twin patched in (median of 5 host-clock runs ending in a
+   sync); then one run of each query under torch.profiler, with the device
+   time of its CUDA kernels and copies and the largest of them.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -23,6 +32,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -37,6 +47,9 @@ MEAN_LEN = 400                 # Swiss-Prot-like sequence length
 FASTA_RECORDS = 560_000        # Swiss-Prot scale (BASELINE config 1)
 GFF_FEATURES = 3_400_000       # GENCODE human scale (BASELINE config 2)
 GFF_SEED = 7
+N_TEMPLATES = 1_425_000        # 2,835,750 BAM records (BASELINE config 4)
+BAM_SEED = 13
+W = 100_000                    # Query C's bin width
 FLOAT_RTOL = 1e-12             # float64 sums: atomic order changes rounding
 REPS = 20
 
@@ -45,6 +58,20 @@ KERNELS = {
     "gather_var": ("exon_tpu/ops/layout.py:149", "gather_var.cu"),
     "like_match": ("exon_tpu/ops/strings.py:177", "like_match.cu"),
     "hash_aggregate": ("exon_tpu/ops/aggregate.py:80", "hash_aggregate.cu"),
+    "expand_segments": ("exon_tpu/ops/layout.py:308", "expand_segments.cu"),
+    "row_hash": ("exon_tpu/plan/physical.py:831", "row_hash.cu"),
+    "string_eq": ("exon_tpu/plan/expressions.py:763", "string_eq.cu"),
+    "sort_keys": ("exon_tpu/plan/physical.py:1372", "sort_keys.cu"),
+}
+# the kernels each main-path query runs
+PATH_KERNELS = {
+    "A": ("compact_mask", "gather_var", "like_match"),
+    "count": ("like_match",),
+    "B": ("hash_aggregate",),
+    "C": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
+    "C_top": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
+    "D": ("compact_mask", "gather_var", "expand_segments", "row_hash",
+          "string_eq", "sort_keys"),
 }
 
 
@@ -254,14 +281,122 @@ def check_hash(rng, torch) -> dict:
     return res
 
 
+def _names_column(names: np.ndarray, torch):
+    """Device (offsets, values) of a numpy bytes array of read names."""
+    lens = np.char.str_len(names).astype(np.int64)
+    offs = np.zeros(len(names) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    vals = np.frombuffer(b"".join(names.tolist()), np.uint8).copy()
+    return (torch.from_numpy(offs.astype(np.int32)).cuda(),
+            torch.from_numpy(vals).cuda())
+
+
+def check_expand(rng, torch) -> dict:
+    from exon_tpu_torch.kernels import expand_segments as k
+
+    # Query C: 131,072 reads per probe batch, ~1.27 gene slots per read
+    n_build = 60_991
+    counts = rng.poisson(1.27, N_ROWS).astype(np.int32)
+    ends = np.cumsum(counts)
+    lo = torch.from_numpy(rng.integers(0, n_build, N_ROWS).astype(np.int32))
+    args = (lo.cuda(), torch.from_numpy(counts).cuda(),
+            torch.from_numpy(ends - counts).cuda(), int(ends[-1]), n_build)
+    got, want = k.expand_segments(*args), k.expand_segments_plain(*args)
+    torch.cuda.synchronize()
+    _exact("expand_segments probe", got[0], want[0])
+    _exact("expand_segments build", got[1], want[1])
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.expand_segments(*args), torch),
+            "plain_ms": median_ms(lambda: k.expand_segments_plain(*args),
+                                  torch),
+            "shape": f"{N_ROWS} probe rows, {int(ends[-1])} slots"}
+
+
+def check_row_hash(torch, names) -> dict:
+    from exon_tpu_torch.kernels import row_hash as k
+
+    out = {}
+    for label, rows in (("probe", names[:N_ROWS]), ("build", names)):
+        offs, vals = _names_column(rows, torch)
+        _exact(f"row_hash {label}", k.row_hash(offs, vals),
+               k.row_hash_plain(offs, vals))
+        out[label] = {
+            "max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.row_hash(offs, vals), torch),
+            "plain_ms": median_ms(lambda: k.row_hash_plain(offs, vals),
+                                  torch),
+            "shape": f"{len(rows)} names, {vals.shape[0]} bytes"}
+    print(f"  row_hash build side: {out['build']['shape']}, kernel "
+          f"{out['build']['ms']:.4f} ms, twin {out['build']['plain_ms']:.4f} ms")
+    return out["probe"]
+
+
+def check_string_eq(rng, torch, names) -> dict:
+    from exon_tpu_torch.kernels import string_eq as k
+
+    # Query D: each R1 name against the R2 row its hash found, most equal
+    a = _names_column(names[:N_ROWS], torch) + (
+        torch.ones(N_ROWS, dtype=torch.bool, device="cuda"),)
+    b = _names_column(names, torch) + (
+        torch.ones(len(names), dtype=torch.bool, device="cuda"),)
+    ia = np.arange(N_ROWS, dtype=np.int32)
+    ib = np.where(rng.random(N_ROWS) < 0.9, ia,
+                  rng.integers(0, len(names), N_ROWS)).astype(np.int32)
+    ia, ib = torch.from_numpy(ia).cuda(), torch.from_numpy(ib).cuda()
+    got = k.string_eq(a, ia, b, ib)
+    _exact("string_eq", got, k.string_eq_plain(a, ia, b, ib))
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.string_eq(a, ia, b, ib), torch),
+            "plain_ms": median_ms(lambda: k.string_eq_plain(a, ia, b, ib),
+                                  torch),
+            "shape": f"{N_ROWS} pairs, {int(got.sum())} equal"}
+
+
+def check_sort_keys(rng, torch, names) -> dict:
+    from benchlib.gff_fixture import SEQNAMES
+    from exon_tpu_torch.kernels import sort_keys as k
+
+    out = {}
+    # Query C: ~1.5 M rows; reference, start, name, gene_start → 13 rows;
+    # Query D: ~1.43 M rows; reference, start, name → 11 rows
+    for label, n, gene in (("C", 1_500_000, True), ("D", 1_425_000, False)):
+        ref = _names_column(np.asarray([s.encode() for s in SEQNAMES])[
+            rng.integers(0, len(SEQNAMES), n)], torch)
+        name = _names_column(names[rng.integers(0, len(names), n)], torch)
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        start = torch.from_numpy(rng.integers(1, 248_000_000, n)).cuda()
+        specs = [k.VarKey(*ref, valid, 1), k.FixedKey(start, valid),
+                 k.VarKey(*name, valid, 5)]
+        if gene:
+            specs.append(k.FixedKey(start - 1000, valid))
+        got = k.sort_keys(specs, n, "cuda")
+        _exact(f"sort_keys {label}", got, k.sort_keys_plain(specs, n, "cuda"))
+        out[label] = {
+            "max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.sort_keys(specs, n, "cuda"), torch),
+            "plain_ms": median_ms(
+                lambda: k.sort_keys_plain(specs, n, "cuda"), torch),
+            "shape": f"{n} rows x {got.shape[0]} key rows"}
+    print(f"  sort_keys Query D shape: {out['D']['shape']}, kernel "
+          f"{out['D']['ms']:.4f} ms, twin {out['D']['plain_ms']:.4f} ms")
+    return out["C"]
+
+
 def phase_kernels(torch) -> dict:
+    from benchlib.bam_fixture import template_names
+
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
+    names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
     results = {
         "compact_mask": check_compact(rng, torch),
         "gather_var": check_gather(rng, torch, offs, vals),
         "like_match": check_like(torch, offs, vals),
         "hash_aggregate": check_hash(rng, torch),
+        "expand_segments": check_expand(rng, torch),
+        "row_hash": check_row_hash(torch, names),
+        "string_eq": check_string_eq(rng, torch, names),
+        "sort_keys": check_sort_keys(rng, torch, names),
     }
     for name, r in results.items():
         print(f"kernel {name}: matches twin ({r['shape']}); median of {REPS}: "
@@ -328,8 +463,186 @@ def _check_b(host, feats) -> None:
             fail(f"query B: column {name} differs")
 
 
+def _names_of(col) -> np.ndarray:
+    """A host VarColumn of names as a numpy bytes array."""
+    offs = col.offsets.astype(np.int64)
+    lens = np.diff(offs)
+    width = int(lens.max()) if len(lens) else 1
+    idx = offs[:-1, None] + np.arange(width)
+    mat = np.where(np.arange(width) < lens[:, None],
+                   col.values[np.minimum(idx, max(len(col.values) - 1, 0))], 0)
+    return np.ascontiguousarray(mat.astype(np.uint8)).view(f"S{width}").ravel()
+
+
+def _codes_of(col, names) -> np.ndarray:
+    """A host DictColumn as codes into ``names`` (-1 for NULL)."""
+    table = np.asarray([names.index(v) for v in col.vocab] or [0])
+    return np.where(col.validity, table[col.codes], -1)
+
+
+def _values_of(col) -> np.ndarray:
+    """A host column's values as numpy (strings as bytes or str)."""
+    from exon_tpu_torch.batch import DictColumn, VarColumn
+
+    if isinstance(col, VarColumn):
+        return _names_of(col)
+    if isinstance(col, DictColumn):
+        return np.asarray(list(col.vocab) or [""])[col.codes]
+    return col.values
+
+
+def _rank(names) -> np.ndarray:
+    """Byte order of each name: the order a string sort key gives them."""
+    return np.argsort(np.argsort(np.asarray(names)))
+
+
+def _expected_c(reads, feats):
+    """Query C from the generators' arrays: (read rows, gene rows, pairs
+    emitted by the equi-join before the overlap filter)."""
+    from benchlib.gff_fixture import FEATURE_TYPES
+
+    genes = np.flatnonzero(feats["type"] == FEATURE_TYPES.index("gene"))
+    gkey = feats["seqname"][genes] * 4096 + feats["start"][genes] // W
+    order = np.argsort(gkey, kind="stable")
+    rkey = reads["reference"] * 4096 + reads["start"] // W
+    lo = np.searchsorted(gkey[order], rkey, "left")
+    cnt = np.searchsorted(gkey[order], rkey, "right") - lo
+    ridx = np.repeat(np.arange(len(rkey)), cnt)
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    gidx = genes[order[np.repeat(lo, cnt) + np.arange(len(ridx)) - first]]
+    start = reads["start"][ridx]
+    keep = (start >= feats["start"][gidx]) & (start <= feats["end"][gidx])
+    return ridx[keep], gidx[keep], len(ridx)
+
+
+def _check_c(host, reads, feats, label: str) -> int:
+    from benchlib.gff_fixture import SEQNAMES
+
+    ridx, gidx, pairs = _expected_c(reads, feats)
+    if host.length != len(ridx):
+        fail(f"query {label}: {host.length} rows, expected {len(ridx)}")
+    got = {
+        "reference": _codes_of(host.column("reference"), SEQNAMES),
+        "start": host.column("start").values,
+        "name": _names_of(host.column("name")),
+        "gene_start": host.column("gene_start").values,
+        "end": host.column("end").values,
+        "seqname": _codes_of(host.column("seqname"), SEQNAMES),
+        "gene_end": host.column("gene_end").values,
+        "strand": _codes_of(host.column("strand"), ["+", "-"]),
+    }
+    want = {
+        "reference": reads["reference"][ridx], "start": reads["start"][ridx],
+        "name": reads["names"][reads["template"][ridx]],
+        "gene_start": feats["start"][gidx], "end": reads["end"][ridx],
+        "seqname": feats["seqname"][gidx], "gene_end": feats["end"][gidx],
+        "strand": feats["strand"][gidx],
+    }
+    rank = _rank(SEQNAMES)
+    order_keys = ("gene_start", "name", "start")
+    got_order = np.lexsort(tuple(got[k] for k in order_keys)
+                           + (rank[got["reference"]],))
+    if not np.array_equal(got_order, np.arange(host.length)):
+        fail(f"query {label}: rows are not in (reference, start, name, "
+             "gene_start) order")
+    # rows that tie on every sort key compare as a set: order both sides
+    # by every column before comparing
+    def full(d):
+        return np.lexsort(tuple(d[k] for k in reversed(list(want))))
+
+    g, w = full(got), full(want)
+    for k in want:
+        if not np.array_equal(got[k][g], want[k][w]):
+            fail(f"query {label}: column {k} differs")
+    print(f"query {label}: {pairs} join pairs, {host.length} rows after the "
+          "overlap filter, every column and the order match numpy")
+    return pairs
+
+
+def _check_d(host, reads) -> int:
+    from benchlib.bam_fixture import FLAG_R2
+    from benchlib.gff_fixture import SEQNAMES
+
+    r1 = np.flatnonzero(reads["flag"] != FLAG_R2)
+    names = reads["names"][reads["template"][r1]]
+    order = np.lexsort((names, reads["start"][r1],
+                        _rank(SEQNAMES)[reads["reference"][r1]]))
+    r1, names = r1[order], names[order]
+    mate = reads["mate_start"][r1]
+    paired = mate > 0
+    if host.length != len(r1):
+        fail(f"query D: {host.length} rows, expected {len(r1)}")
+    checks = {
+        "name": (_names_of(host.column("name")), names),
+        "reference": (_codes_of(host.column("reference"), SEQNAMES),
+                      reads["reference"][r1]),
+        "start": (host.column("start").values, reads["start"][r1]),
+        "flag": (host.column("flag").values, reads["flag"][r1]),
+        "mate_start": (host.column("mate_start").values[paired],
+                       mate[paired]),
+        "mate_flag": (host.column("mate_flag").values[paired],
+                      np.full(paired.sum(), FLAG_R2)),
+        "mate_name": (_names_of(host.column("mate_name"))[paired],
+                      names[paired]),
+    }
+    for k, (g, w) in checks.items():
+        if not np.array_equal(g, w):
+            fail(f"query D: column {k} differs")
+    for k in ("mate_name", "mate_start", "mate_flag"):
+        if not np.array_equal(host.column(k).validity, paired):
+            fail(f"query D: NULL mates of {k} differ")
+    n_null = int((~paired).sum())
+    print(f"query D: {host.length} rows, {n_null} with NULL mates; every "
+          "column and the order match numpy")
+    return n_null
+
+
+def _decode_seconds(df) -> float:
+    """Host decode alone: the plan's scans iterated without the device."""
+    from exon_tpu_torch.plan.physical import ScanExec
+
+    plan = df._execute(df.logical_plan())
+    scans, stack = [], [plan]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, ScanExec):
+            scans.append(p)
+        stack.extend(p.children())
+    t = time.perf_counter()
+    for scan in scans:
+        for _b in scan.source():
+            pass
+    return time.perf_counter() - t
+
+
+def _query_c(T, session, bam, gf):
+    c = T.col
+    reads = session.read_bam(bam).select("name", "reference", "start", "end")
+    genes = (session.read_gff(gf).filter(c("type") == "gene")
+             .select(c("seqname"), c("start").alias("gene_start"),
+                     c("end").alias("gene_end"), c("strand")))
+    return (reads.join(genes, on=[("reference", "seqname"),
+                                  (c("start") / W, c("gene_start") / W)])
+            .filter((c("start") >= c("gene_start"))
+                    & (c("start") <= c("gene_end")))
+            .sort("reference", "start", "name", "gene_start"))
+
+
+def _query_d(T, session, bam):
+    c = T.col
+    r1 = session.read_bam(bam).filter((c("flag") / 64) % 2 == 1).select(
+        "name", "reference", "start", "flag")
+    r2 = (session.read_bam(bam).filter((c("flag") / 128) % 2 == 1)
+          .select(c("name").alias("mate_name"),
+                  c("start").alias("mate_start"),
+                  c("flag").alias("mate_flag")))
+    return r1.join(r2, on=[("name", "mate_name")], how="left").sort(
+        "reference", "start", "name")
+
+
 def phase_main_path(torch) -> dict:
     import exon_tpu_torch as T
+    from benchlib.bam_fixture import bam_reads, make_bam
     from benchlib.fasta_records import fasta_file_size, fasta_records
     from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import gff_features, make_gff
@@ -342,51 +655,207 @@ def phase_main_path(torch) -> dict:
         fail("FASTA fixture does not match the replayed records")
     gf = make_gff(GFF_FEATURES, GFF_SEED)
     feats = gff_features(GFF_FEATURES, GFF_SEED)
+    bam = make_bam(N_TEMPLATES, BAM_SEED)
+    reads = bam_reads(N_TEMPLATES, BAM_SEED)
+    n_bam = len(reads["start"])
     print(f"data: {fa} ({os.path.getsize(fa)} bytes, {FASTA_RECORDS} records)"
-          f", {gf} ({os.path.getsize(gf)} bytes, {GFF_FEATURES} features); "
+          f", {gf} ({os.path.getsize(gf)} bytes, {GFF_FEATURES} features), "
+          f"{bam} ({os.path.getsize(bam)} bytes, {n_bam} records); "
           f"{time.perf_counter() - t0:.1f} s to generate")
     sel = _expected_a(flat, offs)
 
     session = T.ExonSession(device="cuda")
     pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
         T.col("sequence").like("%KK%")
-    kernels.reset_launch_counts()
-    stats = {}
+    queries = {
+        "A": (lambda: session.read_fasta(fa).filter(pred).select(
+            "id", "sequence").collect_host(), FASTA_RECORDS),
+        "count": (lambda: session.read_fasta(fa).filter(pred).count(),
+                  FASTA_RECORDS),
+        "B": (lambda: session.read_gff(gf).filter(
+            T.col("type") == "exon").aggregate(
+            ["seqname"], [T.count().alias("n"), T.min_(T.col("start")),
+                          T.max_(T.col("end")),
+                          T.sum_(T.col("end") - T.col("start")),
+                          T.avg(T.col("end") - T.col("start"))]
+        ).collect_host(), GFF_FEATURES),
+        "C": (lambda: _query_c(T, session, bam, gf).collect_host(),
+              n_bam + GFF_FEATURES),
+        "C_top": (lambda: _query_c(T, session, bam, gf).limit(
+            1000).collect_host(), n_bam + GFF_FEATURES),
+        "D": (lambda: _query_d(T, session, bam).collect_host(), 2 * n_bam),
+    }
+    results, stats, counts = {}, {}, {}
+    for q, (run, rows_in) in queries.items():
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        results[q] = run()
+        torch.cuda.synchronize()
+        stats[q] = [time.perf_counter() - t, rows_in]
+        counts[q] = kernels.launch_counts()
+        missing = [k for k in PATH_KERNELS[q] if counts[q][k] == 0]
+        if missing:
+            fail(f"query {q} never launched its kernels {missing}")
+        print(f"launches in query {q}: "
+              f"{ {k: v for k, v in counts[q].items() if v} }")
+
+    _check_a(results["A"], flat, offs, sel)
+    if results["count"] != len(sel):
+        fail(f"count: {results['count']}, expected {len(sel)}")
+    _check_b(results["B"], feats)
+    _check_c(results["C"], reads, feats, "C")
+    top, full = results["C_top"], results["C"]
+    if top.length != 1000:
+        fail(f"query C_top: {top.length} rows, expected 1000")
+    for name in top.schema.names:
+        a, b = top.column(name), full.column(name)
+        if not (np.array_equal(_values_of(a), _values_of(b)[:1000])
+                and np.array_equal(a.validity, b.validity[:1000])):
+            fail(f"query C_top: column {name} differs from query C's first "
+                 "1000 rows")
+    print("query C_top: the first 1000 rows of query C")
+    _check_d(results["D"], reads)
+    decode = {"C": _decode_seconds(_query_c(T, session, bam, gf)),
+              "D": _decode_seconds(_query_d(T, session, bam))}
+    decode["C_top"] = decode["C"]
+    for q, (sec, rows_in) in stats.items():
+        out = results[q] if q == "count" else results[q].length
+        share = f", host decode alone {decode[q]:.3f} s " \
+            f"({100 * decode[q] / sec:.1f} % of wall)" if q in decode else ""
+        print(f"query {q}: {out} rows out, {sec:.3f} s wall, "
+              f"{rows_in / sec:,.0f} input rows/s (host decode included)"
+              f"{share}")
+    print("main path: queries A, count, B, C, C_top and D match the "
+          "generators' arrays")
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: where the time goes in queries C and D
+# ---------------------------------------------------------------------------
+
+
+def _find(plan, cls):
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, cls):
+            return p
+        stack.extend(p.children())
+    fail(f"no {cls.__name__} in the plan")
+
+
+@contextlib.contextmanager
+def _twins():
+    """Every kernel wrapper on the join and sort path replaced by its plain
+    twin, where the operators look it up."""
+    from exon_tpu_torch.kernels import (compact_mask, expand_segments,
+                                        gather_var, row_hash, sort_keys,
+                                        string_eq)
+    from exon_tpu_torch.ops import layout
+    from exon_tpu_torch.plan import join_exec, physical
+
+    swaps = [(join_exec, "expand_segments", expand_segments),
+             (join_exec, "string_eq", string_eq),
+             (physical, "row_hash", row_hash),
+             (physical, "sort_keys", sort_keys),
+             (layout, "gather_var", gather_var),
+             (layout, "compact_mask", compact_mask)]
+    saved = [getattr(mod, name) for mod, name, _k in swaps]
+    for mod, name, k in swaps:
+        setattr(mod, name, getattr(k, f"{name}_plain"))
+    try:
+        yield
+    finally:
+        for (mod, name, _k), f in zip(swaps, saved):
+            setattr(mod, name, f)
+
+
+def _host_ms(fn, torch, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` ending in a sync, after one warm
+    run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(times))
+
+
+def _join_and_sort_ms(df, torch, label: str) -> None:
+    """The query's join and its sort on device batches already in memory
+    (no scan), with the kernels and with every wrapper's twin."""
+    from exon_tpu_torch.plan import join_exec, physical
+
+    class InMemory(physical.PhysicalPlan):
+        def __init__(self, plan):
+            self.out_schema, self.held = plan.schema(), list(plan.batches())
+
+        def schema(self):
+            return self.out_schema
+
+        def batches(self):
+            return iter(self.held)
+
+    plan = df._execute(df.logical_plan())
+    sort, join = _find(plan, physical.SortExec), _find(plan, join_exec.JoinExec)
+    join.left, join.right = InMemory(join.left), InMemory(join.right)
+    sort.input = InMemory(sort.input)
+    for part, run in (("join", lambda: list(join.batches())),
+                      ("sort", lambda: list(sort.batches()))):
+        rows = sum(b.length for b in run())
+        ms = _host_ms(run, torch)
+        with _twins():
+            plain_rows = sum(b.length for b in run())
+            plain_ms = _host_ms(run, torch)
+        if plain_rows != rows:
+            fail(f"query {label} {part}: {rows} rows with kernels, "
+                 f"{plain_rows} with twins")
+        print(f"query {label} {part} alone: {rows} rows out; median of 5: "
+              f"kernels {ms:.2f} ms, twins {plain_ms:.2f} ms")
+
+
+def _device_profile(run, torch, label: str) -> None:
+    """One run of the query under torch.profiler: wall, and the device time
+    of its CUDA kernels and copies (each counted once)."""
+    from torch.profiler import ProfilerActivity, profile
 
     t = time.perf_counter()
-    host_a = session.read_fasta(fa).filter(pred).select(
-        "id", "sequence").collect_host()
-    torch.cuda.synchronize()
-    stats["A"] = (time.perf_counter() - t, FASTA_RECORDS, host_a.length)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if device_ms <= 0:
+        fail(f"query {label}: the profile shows no device time")
+    htod = [e for e in rows if e.key.startswith("Memcpy HtoD")]
+    print(f"query {label} profiled: {wall:.3f} s wall, {device_ms:.1f} ms "
+          f"on the device ({100 * device_ms / (1e3 * wall):.2f} % of wall), "
+          f"HtoD {sum(e.self_device_time_total for e in htod) / 1e3:.1f} ms "
+          f"in {sum(e.count for e in htod)} copies")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms x {e.count:5d}  "
+              f"{e.key[:80]}")
 
-    t = time.perf_counter()
-    n_count = session.read_fasta(fa).filter(pred).count()
-    torch.cuda.synchronize()
-    stats["count"] = (time.perf_counter() - t, FASTA_RECORDS, 1)
 
-    t = time.perf_counter()
-    host_b = session.read_gff(gf).filter(T.col("type") == "exon").aggregate(
-        ["seqname"], [T.count().alias("n"), T.min_(T.col("start")),
-                      T.max_(T.col("end")),
-                      T.sum_(T.col("end") - T.col("start")),
-                      T.avg(T.col("end") - T.col("start"))]).collect_host()
-    torch.cuda.synchronize()
-    stats["B"] = (time.perf_counter() - t, GFF_FEATURES, host_b.length)
-    counts = kernels.launch_counts()
+def phase_breakdown(torch) -> None:
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import make_bam
+    from benchlib.gff_fixture import make_gff
 
-    _check_a(host_a, flat, offs, sel)
-    if n_count != len(sel):
-        fail(f"count: {n_count}, expected {len(sel)}")
-    _check_b(host_b, feats)
-    print(f"launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    for q, (sec, rows_in, rows_out) in stats.items():
-        print(f"query {q}: {rows_out} rows out, {sec:.3f} s wall, "
-              f"{rows_in / sec:,.0f} input rows/s (host decode included)")
-    print("main path: queries A, count and B match the generators' arrays")
-    return counts
+    session = T.ExonSession(device="cuda")
+    bam, gf = make_bam(N_TEMPLATES, BAM_SEED), make_gff(GFF_FEATURES, GFF_SEED)
+    queries = {"C": lambda: _query_c(T, session, bam, gf),
+               "D": lambda: _query_d(T, session, bam)}
+    for label, query in queries.items():
+        _join_and_sort_ms(query(), torch, label)
+        _device_profile(lambda: query().collect_host(), torch, label)
 
 
 def main() -> int:
@@ -402,6 +871,7 @@ def main() -> int:
     phase_build()
     results = phase_kernels(torch)
     counts = phase_main_path(torch)
+    phase_breakdown(torch)
     kernels = []
     for k, (replaces, src) in KERNELS.items():
         r = results[k]

@@ -1,18 +1,20 @@
 """exon_tpu_torch: the exon-tpu query engine on PyTorch and CUDA.
 
-A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. This first
-slice runs the DataFrame API over FASTA and GFF files: Scan → Filter →
-Project and Scan → (Filter →) Aggregate, with hand-written CUDA kernels for
-filter compaction, var-width gather, LIKE and the grouped hash aggregate
-(``exon_tpu_torch.kernels``). It imports torch and numpy only; pyarrow is
-needed only by ``collect_arrow``.
+A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. It runs the
+DataFrame API over FASTA, GFF and BAM files: Scan → Filter → Project,
+(Filter →) Aggregate, inner and left equi-joins, Sort, TopK and Limit, with
+hand-written CUDA kernels for filter compaction, var-width gather, LIKE, the
+grouped hash aggregate, join pair expansion, row hashing, string equality
+and sort keys (``exon_tpu_torch.kernels``). It imports torch and numpy
+only; pyarrow is needed only by ``collect_arrow``.
 """
 
 from .batch import Batch
 from .datatypes import Schema
 from .dataframe import DataFrame
 from .errors import ExonError
-from .plan.expressions import AggregateCall, FunctionCall, col, lit
+from .plan.expressions import (AggregateCall, FunctionCall, NullsOrder, col,
+                               lit)
 from .session import ExonSession
 
 
@@ -38,5 +40,6 @@ def avg(child):
 
 __all__ = [
     "ExonSession", "DataFrame", "Batch", "Schema", "col", "lit",
-    "FunctionCall", "count", "sum_", "min_", "max_", "avg", "ExonError",
+    "FunctionCall", "NullsOrder", "count", "sum_", "min_", "max_", "avg",
+    "ExonError",
 ]

@@ -231,17 +231,41 @@ def _concat_columns(parts: list) -> Column:
     return DictColumn(np.concatenate(codes), valid, tuple(vocab))
 
 
-def _empty_column(dtype: DataType) -> Column:
-    none = np.zeros(0, np.bool_)
+def take_host(batch: Batch, idx: np.ndarray) -> Batch:
+    """Row gather over a host batch (numpy arrays), the numpy take that
+    stands in for pyarrow's in the sort's run merge."""
+    from .formats.textutil import gather_slices
+
+    cols = []
+    for c in batch.columns:
+        valid = np.asarray(c.validity)[idx]
+        if isinstance(c, FixedColumn):
+            cols.append(FixedColumn(np.asarray(c.values)[idx], valid))
+        elif isinstance(c, DictColumn):
+            cols.append(DictColumn(np.asarray(c.codes)[idx], valid, c.vocab))
+        else:
+            offs = np.asarray(c.offsets).astype(np.int64)
+            vals, new_offs = gather_slices(np.asarray(c.values),
+                                           offs[:-1][idx], offs[1:][idx])
+            cols.append(VarColumn(vals, new_offs.astype(np.int32), valid))
+    return Batch(batch.schema, cols, len(idx))
+
+
+def _empty_column(dtype: DataType, n: int = 0) -> Column:
+    """A host column of n NULL rows (no rows by default)."""
+    none = np.zeros(n, np.bool_)
     if dtype.kind == TypeKind.DICTIONARY:
-        return DictColumn(np.zeros(0, np.int32), none, ())
+        return DictColumn(np.zeros(n, np.int32), none, ())
     if dtype.is_var_width:
-        return VarColumn(np.zeros(0, np.uint8), np.zeros(1, np.int32), none)
-    return FixedColumn(np.zeros(0, numpy_dtype(dtype)), none)
+        return VarColumn(np.zeros(0, np.uint8), np.zeros(n + 1, np.int32),
+                         none)
+    return FixedColumn(np.zeros(n, numpy_dtype(dtype)), none)
 
 
-def empty_batch(schema: Schema) -> Batch:
-    return Batch(schema, [_empty_column(f.dtype) for f in schema.all_fields], 0)
+def empty_batch(schema: Schema, n: int = 0) -> Batch:
+    """A host batch of n rows, every value NULL (no rows by default)."""
+    return Batch(schema, [_empty_column(f.dtype, n)
+                          for f in schema.all_fields], n)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """DataFrame API over logical plans.
 
 Counterpart of exon_tpu/dataframe.py for ``filter``, ``select``,
-``aggregate``, ``count``, ``collect_arrow`` and ``collect_host``, the host
-result accessor that needs no pyarrow. Sort, joins, unions and writers are
-not ported yet (ROADMAP Queue 1).
+``aggregate``, ``sort`` (:54), ``limit``, ``join`` (:66), ``count``,
+``collect_arrow`` and ``collect_host``, the host result accessor that needs
+no pyarrow. Unions and writers are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -43,8 +43,33 @@ class DataFrame:
         return DataFrame(self._session,
                          L.Aggregate(group_exprs, calls, names, self._plan))
 
+    def sort(self, *keys) -> "DataFrame":
+        """Keys are column names, expressions, or (key, ascending) pairs."""
+        norm = []
+        for k in keys:
+            if isinstance(k, tuple):
+                norm.append((col(k[0]) if isinstance(k[0], str) else k[0],
+                             k[1]))
+            else:
+                norm.append((col(k) if isinstance(k, str) else k, True))
+        return DataFrame(self._session, L.Sort(norm, self._plan))
+
     def limit(self, fetch: int, skip: int = 0) -> "DataFrame":
         return DataFrame(self._session, L.Limit(skip, fetch, self._plan))
+
+    def join(self, right: "DataFrame", on, how: str = "inner") -> "DataFrame":
+        """Equi-join; ``on`` lists column names or (left, right) pairs of
+        names or expressions. ``how`` is inner or left."""
+        pairs = []
+        for item in on:
+            if isinstance(item, str):
+                pairs.append((col(item), col(item)))
+            else:
+                lk, rk = item
+                pairs.append((col(lk) if isinstance(lk, str) else lk,
+                              col(rk) if isinstance(rk, str) else rk))
+        return DataFrame(self._session,
+                         L.Join(self._plan, right._plan, pairs, how))
 
     # -- sinks --------------------------------------------------------------
 

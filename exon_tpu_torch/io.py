@@ -1,15 +1,20 @@
-"""Local file access for table scans: plain or gzip files (stdlib only).
+"""Local file access for table scans: plain, gzip or BGZF files (stdlib
+only).
 
 A small counterpart of exon_tpu/io (``resolve_table_files``,
-object_store.py:187, and ``infer_compression``, compression.py:38) for the
-local paths the slice reads. Object stores, zstd and BGZF-indexed reads are
-not ported yet (ROADMAP Queue 1, other decoders).
+object_store.py:187, ``infer_compression``, compression.py:38, and BGZF's
+``decompress_all``, bgzf.py:157) for the local paths the port reads. Object
+stores, zstd and BGZF-indexed reads are not ported yet (ROADMAP Queue 1,
+other decoders).
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 _COMPRESSED = (".gz", ".bgz")
 
@@ -33,6 +38,47 @@ def resolve_table_files(url: str, extension: str | None = None) -> list[str]:
     if not files:
         raise FileNotFoundError(f"no files for table at {url}")
     return files
+
+
+def _bgzf_blocks(data) -> list[tuple[int, int]] | None:
+    """(deflate start, end) of every BGZF block, read from the block
+    headers' BC subfields; None when the stream is not BGZF-framed."""
+    blocks, pos, n = [], 0, len(data)
+    while pos < n:
+        if data[pos:pos + 4] != b"\x1f\x8b\x08\x04" or pos + 18 > n:
+            return None
+        xlen = struct.unpack_from("<H", data, pos + 10)[0]
+        i, end, bsize = pos + 12, pos + 12 + xlen, None
+        while i + 4 <= end:
+            slen = struct.unpack_from("<H", data, i + 2)[0]
+            if data[i:i + 2] == b"BC":
+                bsize = struct.unpack_from("<H", data, i + 4)[0] + 1
+                break
+            i += 4 + slen
+        if bsize is None:
+            return None
+        blocks.append((pos + 12 + xlen, pos + bsize - 8))
+        pos += bsize
+    return blocks
+
+
+def bgzf_decompress(data: bytes) -> bytes:
+    """Decompress a whole BGZF (or any multi-member gzip) stream.
+
+    Counterpart of exon_tpu/io/bgzf.py ``decompress_all`` (:157) without
+    its native libdeflate path: BGZF blocks are inflated independently, by
+    a pool of threads (zlib releases the GIL), and joined in order; a
+    stream without BGZF block headers goes through ``gzip.decompress``."""
+    blocks = _bgzf_blocks(data)
+    if blocks is None:
+        return gzip.decompress(data)
+    view = memoryview(data)
+
+    def inflate(span: tuple[int, int]) -> bytes:
+        return zlib.decompress(view[span[0]:span[1]], -15)
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return b"".join(pool.map(inflate, blocks, chunksize=64))
 
 
 def read_file(path: str) -> bytes:

@@ -10,13 +10,18 @@ and ``reset_launch_counts()`` sets them to zero.
 
 from __future__ import annotations
 
-from . import compact_mask, gather_var, hash_aggregate, like_match
+from . import (compact_mask, expand_segments, gather_var, hash_aggregate,
+               like_match, row_hash, sort_keys, string_eq)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
     "gather_var": gather_var,
     "like_match": like_match,
     "hash_aggregate": hash_aggregate,
+    "expand_segments": expand_segments,
+    "row_hash": row_hash,
+    "string_eq": string_eq,
+    "sort_keys": sort_keys,
 }
 
 
@@ -27,4 +32,3 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
-

@@ -39,6 +39,11 @@ SIGNATURES = {
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                             _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
                             _P, _P],
+    "exon_expand_segments": [_P, _P, _P, _I64, _I64, _P, _P, _P],
+    "exon_row_hash": [_P, _P, _I64, _P, _P],
+    "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],
+    "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
 }
 
 _lib = None

@@ -6,10 +6,12 @@ the work of ``take_offsets`` :111, ``relayout_values`` :127 and
 ``byte_row_ids`` :27), ``take_fixed``/``take_dict`` (:91, :101) are
 ``index_select``, and ``take_batch``/``filter_batch`` (:204, :222) compose
 them. Batches are exact, so a take returns exactly ``count`` rows.
+``dict_to_var`` (:275) is a gather_var over the vocabulary.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..batch import Batch, Column, DictColumn, FixedColumn, VarColumn
@@ -62,3 +64,27 @@ def filter_batch(batch: Batch, mask: torch.Tensor) -> Batch:
     one compaction, one host read of the count, one gather per column."""
     idx, count = mask_to_indices(mask)
     return take_batch(batch, idx[: int(count)])
+
+
+def slice_batch(batch: Batch, start: int, stop: int) -> Batch:
+    """Rows [start, stop) of a device batch (a gather, as LIMIT's
+    ``_jit_limit_slice`` in exon_tpu/plan/physical.py:1504)."""
+    return take_batch(batch, torch.arange(start, stop, dtype=torch.int32,
+                                          device=batch.device))
+
+
+def dict_to_var(col: DictColumn) -> VarColumn:
+    """Decode dictionary codes into a var-width column: a gather_var over
+    the vocabulary with the codes as indices; NULL rows become empty, as in
+    exon_tpu/ops/layout.py ``dict_to_var`` (:275)."""
+    dev = col.codes.device
+    enc = [s.encode() for s in col.vocab] + [b""]  # the last row for NULLs
+    offs = np.zeros(len(enc) + 1, np.int32)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    flat = np.frombuffer(b"".join(enc), np.uint8).copy()
+    idx = torch.where(col.validity,
+                      col.codes.clamp(0, max(len(col.vocab) - 1, 0)),
+                      len(col.vocab)).to(torch.int32)
+    offsets, values = gather_var(torch.from_numpy(offs).to(dev),
+                                 torch.from_numpy(flat).to(dev), idx)
+    return VarColumn(values, offsets, col.validity)

@@ -207,6 +207,23 @@ class FunctionCall(Expr):
 
 
 @dataclasses.dataclass(eq=False)
+class NullsOrder(Expr):
+    """ORDER BY key wrapper carrying an explicit NULLS FIRST/LAST
+    (exon_tpu/plan/expressions.py:297). The sort unwraps it; it is never
+    evaluated as a value."""
+
+    child: Expr
+    first: bool
+
+    def children(self):
+        return [self.child]
+
+    def display_name(self) -> str:
+        return (self.child.display_name()
+                + (" nulls first" if self.first else " nulls last"))
+
+
+@dataclasses.dataclass(eq=False)
 class AggregateCall(Expr):
     """count(*) / count(x) / sum / min / max / avg over an optional child."""
 

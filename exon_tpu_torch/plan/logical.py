@@ -1,8 +1,9 @@
-"""Logical plan nodes: Scan / Filter / Project / Aggregate / Limit.
+"""Logical plan nodes: Scan / Filter / Project / Aggregate / Sort / Limit /
+Join.
 
-Counterpart of exon_tpu/plan/logical.py:18-131 for the nodes the slice
-plans. Sort, Join, Window, Union, Values and CopyTo are not ported yet
-(ROADMAP Queue 1).
+Counterpart of exon_tpu/plan/logical.py:18-152 for the nodes the port
+plans. Window, Union, Values and CopyTo are not ported yet (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -89,6 +90,41 @@ class Aggregate(LogicalPlan):
             else:
                 fields.append(Field(name, dt.int64, True))
         return Schema(tuple(fields))
+
+
+@dataclasses.dataclass
+class Sort(LogicalPlan):
+    keys: list  # [(Expr, ascending)]
+    input: LogicalPlan
+    fetch: Optional[int] = None
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+
+@dataclasses.dataclass
+class Join(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+    on: list  # [(left Expr, right Expr)]
+    how: str = "inner"  # inner | left
+    filter: Optional[Expr] = None
+    # right-child column → output name, pinned at plan time so projection
+    # pushdown can't shift the collision suffixes downstream refs rely on
+    right_names: Optional[dict] = None
+
+    def children(self):
+        return [self.left, self.right]
+
+    def schema(self) -> Schema:
+        from .join_exec import join_schema
+
+        out, _ = join_schema(self.left.schema(), self.right.schema(),
+                             self.right_names)
+        return out
 
 
 @dataclasses.dataclass

@@ -1,9 +1,11 @@
 """Physical operators: streaming batch execution on a torch device.
 
 Counterpart of exon_tpu/plan/physical.py: ``ScanExec``, ``FilterExec`` and
-``ProjectExec`` (:85-190) and ``AggregateExec`` with its ungrouped (:322)
-and grouped (:361) paths. Each operator transforms an iterator of batches;
-there is no jit step cache: torch runs each batch eagerly.
+``ProjectExec`` (:85-190), ``AggregateExec`` with its ungrouped (:322)
+and grouped (:361) paths, the join keys (:745-805), ``concat_batches``
+(:946), ``SortExec`` with its run merge (:1006-1313) and ``LimitExec``
+(:1515). Each operator transforms an iterator of batches; there is no jit
+step cache: torch runs each batch eagerly.
 
 The grouped path keys rows on int64 parts as ``_group_key_i64`` (:745) does:
 fixed-width keys are used as int64 (floats by their bits), dictionary keys
@@ -18,6 +20,7 @@ different strings raises instead of merging them.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -25,13 +28,15 @@ import torch
 
 from .. import datatypes as dt
 from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
-                     concat_host, empty_batch, fixed_column)
+                     concat_host, empty_batch, fixed_column, take_host)
 from ..errors import ExecutionError
 from ..kernels import hash_aggregate as hk
+from ..kernels.row_hash import row_hash
+from ..kernels.sort_keys import FixedKey, VarKey, sort_keys
 from ..ops import aggregate as agg_ops
 from ..ops import layout as layout_ops
-from .expressions import (AggregateCall, Expr, _as_values, _validity_of,
-                          as_bool_mask, eval_expr)
+from .expressions import (AggregateCall, Expr, NullsOrder, _as_values,
+                          _validity_of, as_bool_mask, eval_expr)
 
 
 class PhysicalPlan:
@@ -156,6 +161,65 @@ def _hash_bytes_host(s: bytes) -> int:
     return h - (1 << 64) if h >= (1 << 63) else h
 
 
+def _key_part(v, vocab_of: dict) -> torch.Tensor:
+    """The int64 key part of one evaluated key column, before NULLs are
+    masked (exon_tpu/plan/physical.py:760-787): fixed-width values as int64
+    (floats by their bits), dictionary codes mapped through the content hash
+    of their vocabulary strings, var-width rows through the row_hash kernel.
+    ``vocab_of`` maps every string hash seen so far to its string; a hash
+    shared by two different strings raises, so equal dictionary parts mean
+    equal strings."""
+    if isinstance(v, DictColumn):
+        hashes = []
+        for s in v.vocab:
+            h = _hash_bytes_host(s.encode())
+            if vocab_of.setdefault(h, s) != s:
+                raise ExecutionError(
+                    f"keys {vocab_of[h]!r} and {s!r} share the 64-bit "
+                    "content hash")
+            hashes.append(h)
+        table = torch.tensor(hashes or [0], dtype=torch.int64)
+        return table.to(v.codes.device)[
+            v.codes.long().clamp(0, table.shape[0] - 1)]
+    if isinstance(v, FixedColumn):
+        return v.values.to(torch.float64).view(torch.int64) \
+            if v.values.dtype.is_floating_point else v.values.to(torch.int64)
+    if isinstance(v, VarColumn):
+        return row_hash(v.offsets, v.values)
+    raise NotImplementedError(
+        f"{type(v).__name__} keys are not ported yet (ROADMAP Queue 1)")
+
+
+def join_key_parts(exprs, batch: Batch, vocab_of: dict):
+    """Per-part join keys (``_group_key_i64`` / ``_group_key_valid``,
+    exon_tpu/plan/physical.py:745,796, without the fold).
+
+    Returns (parts int64 [P, n] with NULL parts set to ``_NULL_KEY_SENT``,
+    valid bool [n]: every part non-NULL, the evaluated key columns)."""
+    parts, cols = [], []
+    valid = torch.ones(batch.length, dtype=torch.bool, device=batch.device)
+    for e in exprs:
+        v = eval_expr(e, batch)
+        if not isinstance(v, (FixedColumn, VarColumn, DictColumn)):
+            v = FixedColumn(_to_column(v, batch).values,
+                            torch.ones_like(valid))
+        parts.append(torch.where(v.validity, _key_part(v, vocab_of),
+                                 _NULL_KEY_SENT))
+        valid = valid & v.validity
+        cols.append(v)
+    return torch.stack(parts), valid, cols
+
+
+def fold_key(parts: torch.Tensor) -> torch.Tensor:
+    """One int64 key per row from [P, n] parts, the fold of
+    exon_tpu/plan/physical.py:788-792 (int64 multiply and add wrap as the
+    uint64 ones do). The join searches on it and then verifies every part."""
+    key = parts[0]
+    for p in parts[1:]:
+        key = key * _FNV_PRIME + p
+    return key
+
+
 @dataclasses.dataclass
 class AggregateExec(PhysicalPlan):
     """Group-by + aggregate: count, sum, min, max and avg."""
@@ -274,22 +338,8 @@ class AggregateExec(PhysicalPlan):
         parts, valid, is_dict = [], [], []
         for e in self.group_exprs:
             v = eval_expr(e, b)
-            if isinstance(v, DictColumn):
-                hashes = []
-                for s in v.vocab:
-                    h = _hash_bytes_host(s.encode())
-                    if vocab_of.setdefault(h, s) != s:
-                        raise ExecutionError(
-                            f"group keys {vocab_of[h]!r} and {s!r} share the "
-                            "64-bit content hash")
-                    hashes.append(h)
-                table = torch.tensor(hashes or [0], dtype=torch.int64)
-                p = table.to(v.codes.device)[
-                    v.codes.long().clamp(0, table.shape[0] - 1)]
-            elif isinstance(v, FixedColumn):
-                p = v.values.to(torch.float64).view(torch.int64) \
-                    if v.values.dtype.is_floating_point \
-                    else v.values.to(torch.int64)
+            if isinstance(v, (DictColumn, FixedColumn)):
+                p = _key_part(v, vocab_of)
             elif isinstance(v, VarColumn):
                 raise NotImplementedError(
                     "var-width group keys need the row-hash kernel "
@@ -375,3 +425,255 @@ class AggregateExec(PhysicalPlan):
                 vals.cpu().numpy().astype(dt.numpy_dtype(f.dtype)),
                 valid.cpu().numpy()))
         return Batch(self.out_schema, cols, g).to_device(res.keys.device)
+
+
+# ---------------------------------------------------------------------------
+# Concatenation
+# ---------------------------------------------------------------------------
+
+
+def concat_batches(schema: Schema, batches: list[Batch], device) -> Batch:
+    """Row-concatenate device batches with ``torch.cat`` (the JAX package
+    goes through host Arrow, exon_tpu/plan/physical.py:946). Dictionary
+    vocabularies are unified on the host in first-seen order and each
+    batch's codes remapped through a small device table; var-width offsets
+    are rebased after one host read of every batch's byte total."""
+    batches = [b for b in batches if b.length]
+    if not batches:
+        return empty_batch(schema).to_device(device)
+    if len(batches) == 1:
+        return batches[0]
+    cols = [_cat_columns([b.columns[i] for b in batches])
+            for i in range(len(schema.all_fields))]
+    return Batch(schema, cols, sum(b.length for b in batches))
+
+
+def _cat_columns(parts: list):
+    first = parts[0]
+    valid = torch.cat([p.validity for p in parts])
+    if isinstance(first, FixedColumn):
+        return FixedColumn(torch.cat([p.values for p in parts]), valid)
+    if isinstance(first, VarColumn):
+        totals = torch.stack([p.offsets[-1] for p in parts]).tolist()
+        bases = np.cumsum([0] + totals).tolist()
+        if bases[-1] >= 1 << 31:
+            raise ExecutionError(f"concatenated var-width column holds "
+                                 f"{bases[-1]} bytes; int32 offsets address "
+                                 "fewer than 2^31")
+        offs = [first.offsets[:1]] + [p.offsets[1:] + base
+                                      for p, base in zip(parts, bases)]
+        return VarColumn(torch.cat([p.values for p in parts]),
+                         torch.cat(offs).to(torch.int32), valid)
+    vocab: dict = {}
+    codes = []
+    for p in parts:
+        remap = torch.tensor([vocab.setdefault(s, len(vocab))
+                              for s in p.vocab] or [0], dtype=torch.int32)
+        remap = remap.to(p.codes.device)
+        codes.append(remap[p.codes.long().clamp(0, remap.shape[0] - 1)])
+    return DictColumn(torch.cat(codes), valid, tuple(vocab))
+
+
+# ---------------------------------------------------------------------------
+# Sort / Limit
+# ---------------------------------------------------------------------------
+
+_I64_SIGN = np.int64(-(1 << 63))  # the 1<<63 bit pattern in two's complement
+
+
+@dataclasses.dataclass
+class SortExec(PhysicalPlan):
+    """ORDER BY as an external run sort (exon_tpu/plan/physical.py:1006).
+
+    Input batches accumulate into runs of ``EXON_TPU_SORT_RUN_ROWS`` rows
+    (default 2^21, read as the JAX package reads it). Each run sorts on the
+    device: the sort_keys kernel writes its int64 key matrix and a chain of
+    stable ``torch.sort``s orders it, least significant key row first, as
+    ``_jit_sort_run`` (:1353-1367) does. One run is the result as it is;
+    several are moved to the host with their key matrices and merged
+    pairwise in numpy, earlier runs winning ties (:1244-1313). ``fetch``
+    (TopK) truncates every run. The JAX package's host-sort shortcut
+    (:1056-1073) is not ported: every run sorts on the device, with the same
+    key encoding, so the results are the same."""
+
+    keys: list  # [(Expr, ascending)]
+    input: PhysicalPlan
+    fetch: Optional[int] = None
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def batches(self) -> Iterator[Batch]:
+        run_rows = int(os.environ.get("EXON_TPU_SORT_RUN_ROWS", 1 << 21))
+        self._chunks_seen = None
+        runs: list = []  # (Batch, key matrix [C, n], chunk widths)
+        acc: list[Batch] = []
+        acc_rows = 0
+        for b in self.input.batches():
+            if b.length == 0:
+                continue
+            acc.append(b)
+            acc_rows += b.length
+            if acc_rows >= run_rows:
+                runs.append(self._sorted_run(acc))
+                acc, acc_rows = [], 0
+        if acc:
+            runs.append(self._sorted_run(acc))
+        if not runs:
+            return
+        if len(runs) == 1:
+            yield runs[0][0]
+            return
+        device = runs[0][0].device
+        host_runs = [(b.to_host(), k.T.cpu().numpy(), c) for b, k, c in runs]
+        merged = _merge_runs(host_runs, [a for _e, a in self.keys])[0]
+        if self.fetch is not None and merged.length > self.fetch:
+            merged = take_host(merged, np.arange(self.fetch))
+        yield merged.to_device(device)
+
+    def _key_specs(self, batch: Batch) -> list:
+        """The sort_keys specs of one run; var-width keys (dictionaries
+        decoded to bytes, so keys compare across runs) get enough 8-byte
+        chunks for their longest row, widened to earlier runs' widths."""
+        specs, var_lens = [], []
+        for e, asc in self.keys:
+            nulls_first = None
+            if isinstance(e, NullsOrder):
+                nulls_first, e = e.first, e.child
+            v = eval_expr(e, batch)
+            if isinstance(v, DictColumn):
+                v = layout_ops.dict_to_var(v)
+            if isinstance(v, VarColumn):
+                specs.append(VarKey(v.offsets, v.values, v.validity, 0, asc,
+                                    nulls_first))
+                var_lens.append((v.offsets[1:] - v.offsets[:-1]).max())
+            elif isinstance(v, FixedColumn):
+                specs.append(FixedKey(v.values, v.validity, asc, nulls_first))
+            else:
+                col = _to_column(v, batch)
+                specs.append(FixedKey(col.values, col.validity, asc,
+                                      nulls_first))
+        maxlens = iter(torch.stack(var_lens).tolist() if var_lens else [])
+        prev = self._chunks_seen
+        for j, s in enumerate(specs):
+            if isinstance(s, VarKey):
+                s.nchunks = max(1, (next(maxlens) + 7) // 8,
+                                prev[j] if prev else 0)
+        self._chunks_seen = [s.nchunks if isinstance(s, VarKey) else 0
+                             for s in specs]
+        return specs
+
+    def _sorted_run(self, acc: list) -> tuple:
+        combined = concat_batches(self.schema(), acc, acc[0].device)
+        n = combined.length
+        mat = sort_keys(self._key_specs(combined), n, combined.device)
+        perm = torch.arange(n, device=combined.device)
+        # row 0 is the padding flag, all zero here: its stable sort is the
+        # identity, so the chain starts at row 1
+        for k in reversed(mat[1:]):
+            perm = perm[torch.sort(k[perm], stable=True).indices]
+        if self.fetch is not None:
+            perm = perm[: self.fetch]
+        out = layout_ops.take_batch(combined, perm.to(torch.int32))
+        return out, mat[1:, perm], list(self._chunks_seen)
+
+
+def _key_bytes(key_cols: np.ndarray) -> np.ndarray:
+    """[n, C] int64 key matrix → 'S(8C)' byte strings whose bytewise order
+    equals the column-lexicographic int64 order (physical.py:1244)."""
+    n, c = key_cols.shape
+    u = (key_cols ^ _I64_SIGN).view(np.uint64)
+    be = np.ascontiguousarray(u.astype(">u8"))
+    return be.view(f"S{8 * c}").reshape(n)
+
+
+def _pad_key_matrix(keys: np.ndarray, chunks: list, target: list,
+                    specs_asc: list) -> np.ndarray:
+    """Insert zero-chunk constant columns so a narrower run's key matrix
+    matches the widest run's layout (physical.py:1253). Layout per key:
+    validity + chunks for var-width keys, validity + value otherwise."""
+    if chunks == target:
+        return keys
+    cols = []
+    pos = 0
+    for (nc, tnc), asc in zip(zip(chunks, target), specs_asc):
+        if nc == 0:
+            cols.append(keys[:, pos:pos + 2])
+            pos += 2
+            continue
+        cols.append(keys[:, pos:pos + 1 + nc])
+        pos += 1 + nc
+        if tnc > nc:
+            const = _I64_SIGN if asc else np.int64(-1) - _I64_SIGN
+            cols.append(np.full((keys.shape[0], tnc - nc), const, np.int64))
+    return np.concatenate(cols, axis=1)
+
+
+def _merge_runs(runs: list, asc_flags: list) -> tuple:
+    """Pairwise stable merge of sorted (host batch, key matrix, chunk
+    widths) runs; earlier runs win ties (physical.py:1277)."""
+    items = list(runs)
+    while len(items) > 1:
+        nxt = [_merge_two(items[i], items[i + 1], asc_flags)
+               for i in range(0, len(items) - 1, 2)]
+        if len(items) % 2:
+            nxt.append(items[-1])
+        items = nxt
+    return items[0]
+
+
+def _merge_two(a: tuple, b: tuple, asc_flags: list) -> tuple:
+    ta, ka, ca = a
+    tb, kb, cb = b
+    target = [max(x, y) for x, y in zip(ca, cb)]
+    ka = _pad_key_matrix(ka, ca, target, asc_flags)
+    kb = _pad_key_matrix(kb, cb, target, asc_flags)
+    sa, sb = _key_bytes(ka), _key_bytes(kb)
+    na, nb = len(sa), len(sb)
+    pos_a = np.arange(na, dtype=np.int64) + np.searchsorted(sb, sa,
+                                                            side="left")
+    pos_b = np.arange(nb, dtype=np.int64) + np.searchsorted(sa, sb,
+                                                            side="right")
+    take = np.empty(na + nb, np.int64)
+    take[pos_a] = np.arange(na, dtype=np.int64)
+    take[pos_b] = na + np.arange(nb, dtype=np.int64)
+    tab = take_host(concat_host(ta.schema, [ta, tb]), take)
+    keys = np.empty((na + nb, ka.shape[1]), np.int64)
+    keys[pos_a] = ka
+    keys[pos_b] = kb
+    return tab, keys, target
+
+
+@dataclasses.dataclass
+class LimitExec(PhysicalPlan):
+    """OFFSET/LIMIT over the batch stream (exon_tpu/plan/physical.py:1515)."""
+
+    skip: int
+    fetch: Optional[int]
+    input: PhysicalPlan
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def batches(self) -> Iterator[Batch]:
+        skip, fetch = self.skip, self.fetch
+        for b in self.input.batches():
+            n = b.length
+            if skip >= n:
+                skip -= n
+                continue
+            take = n - skip if fetch is None else min(n - skip, fetch)
+            if take <= 0:
+                return
+            yield layout_ops.slice_batch(b, skip, skip + take)
+            skip = 0
+            if fetch is not None:
+                fetch -= take
+                if fetch <= 0:
+                    return

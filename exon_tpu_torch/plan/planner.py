@@ -3,10 +3,11 @@
 Counterpart of exon_tpu/plan/planner.py: ``infer_expr_field`` (:34) for the
 ported expressions, ``optimize`` (:166) reduced to projection pushdown into
 the scan (:411) and identity-projection elision (:175), and
-``create_physical_plan`` (:551-584) for Scan / Filter / Project / Aggregate,
-with the same fusion of a Filter directly under an Aggregate into the
-aggregate's ``pre_filter``. LIMIT is planned but not executed yet: its
-physical operator comes with sort/limit (ROADMAP Queue 1, sort/limit).
+``create_physical_plan`` (:551-622, :642-661) for Scan / Filter / Project /
+Aggregate / Sort / Limit / Join, with the same fusion of a Filter directly
+under an Aggregate into the aggregate's ``pre_filter`` and of a Limit over
+a Sort into a TopK sort. Projection pushdown runs through Sort and Join
+(:460-501). The distributed branches are not ported (ROADMAP Queue 2, K13).
 """
 
 from __future__ import annotations
@@ -120,9 +121,45 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
                                required(p.input, need))
         if isinstance(p, L.Limit):
             return L.Limit(p.skip, p.fetch, required(p.input, needed))
+        if isinstance(p, L.Sort):
+            need = None if needed is None else set(needed)
+            if need is not None:
+                for e, _asc in p.keys:
+                    need |= expr_columns(e)
+            return L.Sort(p.keys, required(p.input, need), p.fetch)
+        if isinstance(p, L.Join):
+            return L.Join(*_join_needs(p, needed, required), p.on, p.how,
+                          p.filter, p.right_names)
         raise PlanError(f"cannot optimize {type(p).__name__}")
 
     return required(plan, None)
+
+
+def _join_needs(p: L.Join, needed: Optional[set], required) -> tuple:
+    """The join's children narrowed to the columns above it and its keys
+    (exon_tpu/plan/planner.py:476-501)."""
+    lneed = rneed = None
+    if needed is not None:
+        lschema, rschema = p.left.schema(), p.right.schema()
+        on_cols: set = set()
+        for le, re in p.on:
+            on_cols |= expr_columns(le) | expr_columns(re)
+        if p.filter is not None:
+            on_cols |= expr_columns(p.filter)
+        all_need = needed | on_cols
+        lneed = {n for n in all_need if lschema.has_field(n)}
+        rneed = {n for n in all_need if rschema.has_field(n)}
+        # renamed output columns map back to the right child's bare names
+        reverse = {v: k for k, v in (p.right_names or {}).items()}
+        for n in all_need:
+            if rschema.has_field(n):
+                continue
+            bare = reverse.get(n)
+            if bare is None and n.endswith("_right"):
+                bare = n[:-len("_right")]
+            if bare is not None and rschema.has_field(bare):
+                rneed.add(bare)
+    return required(p.left, lneed), required(p.right, rneed)
 
 
 def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
@@ -133,8 +170,13 @@ def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
     if isinstance(plan, L.Aggregate):
         return L.Aggregate(plan.group_exprs, plan.agg_exprs, plan.agg_names,
                            kids[0])
+    if isinstance(plan, L.Sort):
+        return L.Sort(plan.keys, kids[0], plan.fetch)
     if isinstance(plan, L.Limit):
         return L.Limit(plan.skip, plan.fetch, kids[0])
+    if isinstance(plan, L.Join):
+        return L.Join(kids[0], kids[1], plan.on, plan.how, plan.filter,
+                      plan.right_names)
     return plan
 
 
@@ -163,7 +205,24 @@ def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
         child = create_physical_plan(inner, device)
         return P.AggregateExec(plan.group_exprs, plan.agg_exprs, plan.schema(),
                                child, pre_filter=pre_filter)
+    if isinstance(plan, L.Sort):
+        return P.SortExec(plan.keys, create_physical_plan(plan.input, device),
+                          plan.fetch)
     if isinstance(plan, L.Limit):
-        raise NotImplementedError(
-            "LIMIT is not ported yet (ROADMAP Queue 1, sort/limit)")
+        # Limit(Sort) → SortExec with fetch (TopK): each sort run truncates
+        # to skip + fetch rows (exon_tpu/plan/planner.py:612-620)
+        if plan.fetch is not None and isinstance(plan.input, L.Sort) and \
+                plan.input.fetch is None:
+            child = P.SortExec(plan.input.keys,
+                               create_physical_plan(plan.input.input, device),
+                               fetch=plan.skip + plan.fetch)
+            return P.LimitExec(plan.skip, plan.fetch, child)
+        return P.LimitExec(plan.skip, plan.fetch,
+                           create_physical_plan(plan.input, device))
+    if isinstance(plan, L.Join):
+        from .join_exec import JoinExec
+
+        return JoinExec(create_physical_plan(plan.left, device),
+                        create_physical_plan(plan.right, device),
+                        plan.on, plan.how, plan.filter, plan.schema())
     raise PlanError(f"cannot lower {type(plan).__name__}")

@@ -1,6 +1,7 @@
 """ExonSession: the port's entry point.
 
-Counterpart of exon_tpu/session.py for ``read_fasta`` and ``read_gff``. The
+Counterpart of exon_tpu/session.py for ``read_fasta``, ``read_gff`` and
+``read_bam``. The
 session names the torch device every operator runs on: ``"cuda"`` by
 default, which raises when there is no card; CPU execution (the kernels'
 plain twins) must be asked for with ``device="cpu"``. SQL, the other
@@ -46,6 +47,9 @@ class ExonSession:
 
     def read_gff(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("GFF", url, options, **kw)
+
+    def read_bam(self, url: str, options=None, **kw) -> DataFrame:
+        return self._read("BAM", url, options, **kw)
 
     def sql(self, query: str) -> DataFrame:
         raise NotImplementedError(

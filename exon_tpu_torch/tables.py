@@ -1,7 +1,8 @@
 """Table providers over the port's host decoders.
 
-Counterpart of ``FileTable.scan`` (exon_tpu/tables.py:181-288) for FASTA and
-GFF. A scan decodes each file on the host and returns a ``ScanExec`` over the
+Counterpart of ``FileTable.scan`` (exon_tpu/tables.py:181-288) for FASTA,
+GFF and BAM (without the .bai region pruning of exon_tpu/providers.py
+``BamTable``: no filter is pushed into a scan). A scan decodes each file on the host and returns a ``ScanExec`` over the
 host batches; the ScanExec moves them to the session's device. No filter is
 pushed into the scan (prefix-LIKE pushdown, tables.py:163-169, is not
 ported), so every predicate runs as a device operator.
@@ -13,7 +14,7 @@ import dataclasses
 from typing import Callable, Iterator, Optional, Sequence
 
 from .batch import Batch, Schema
-from .formats import fasta, gff
+from .formats import bam, fasta, gff
 from .io import read_file, resolve_table_files
 from .plan.expressions import Expr
 from .plan.physical import ScanExec
@@ -31,6 +32,8 @@ FORMATS = {
     "FASTA": FormatSpec("FASTA", fasta.fasta_schema, fasta.decode_host,
                         fasta.FastaOptions),
     "GFF": FormatSpec("GFF", gff.gff_schema, gff.decode_host, gff.GffOptions),
+    # exon_tpu/tables.py:642-656
+    "BAM": FormatSpec("BAM", bam.bam_schema, bam.decode_host, bam.BamOptions),
 }
 
 

@@ -10,9 +10,13 @@ import torch
 
 from exon_tpu_torch import kernels
 from exon_tpu_torch.kernels import compact_mask as kc
+from exon_tpu_torch.kernels import expand_segments as ke
 from exon_tpu_torch.kernels import gather_var as kg
 from exon_tpu_torch.kernels import hash_aggregate as hk
 from exon_tpu_torch.kernels import like_match as kl
+from exon_tpu_torch.kernels import row_hash as kr
+from exon_tpu_torch.kernels import sort_keys as kk
+from exon_tpu_torch.kernels import string_eq as ks
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 from exon_tpu_torch.ops.strings import tokenize_like
 
@@ -46,6 +50,12 @@ def test_cpu_tensors_run_the_twins_without_launching():
     agg.add_batch(keys, torch.ones_like(keys, dtype=torch.uint8), mask,
                   [None], [mask], 0)
     assert agg.finalize().num_groups > 0
+    lo, counts, starts, total = _pairs(rng, 64, 10, "cpu")
+    ke.expand_segments(lo, counts, starts, total, 10)
+    kr.row_hash(offs, vals)
+    ks.string_eq((offs, vals, mask), idx[: int(count)], (offs, vals, mask),
+                 idx[: int(count)])
+    kk.sort_keys([kk.VarKey(offs, vals, mask, 2)], 64, "cpu")
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 0)
 
 
@@ -92,6 +102,66 @@ def test_like_match_kernel_matches_twin(card, pattern, ci):
     chunks = tokenize_like(pattern)
     assert torch.equal(kl.like_match(offs, vals, chunks, ci),
                        kl.like_match_plain(offs, vals, chunks, ci))
+
+
+def _pairs(rng, n_probe, n_build, device):
+    """Match ranges of a join probe: lo, counts (some 0), their layout."""
+    counts = rng.integers(0, 4, n_probe).astype(np.int32)
+    lo = rng.integers(0, n_build, n_probe).astype(np.int32)
+    ends = np.cumsum(counts)
+    return (torch.from_numpy(lo).to(device),
+            torch.from_numpy(counts).to(device),
+            torch.from_numpy(ends - counts).to(device), int(ends[-1]))
+
+
+@pytest.mark.cuda
+def test_expand_segments_kernel_matches_twin(card):
+    lo, counts, starts, total = _pairs(np.random.default_rng(5), 20_000, 900,
+                                       card)
+    got = ke.expand_segments(lo, counts, starts, total, 900)
+    want = ke.expand_segments_plain(lo, counts, starts, total, 900)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_row_hash_kernel_matches_twin(card):
+    offs, vals = _var(np.random.default_rng(6), 5000, card)
+    assert torch.equal(kr.row_hash(offs, vals), kr.row_hash_plain(offs, vals))
+
+
+@pytest.mark.cuda
+def test_string_eq_kernel_matches_twin(card):
+    rng = np.random.default_rng(7)
+    offs, vals = _var(rng, 3000, card)
+    valid = torch.from_numpy(rng.random(3000) < 0.9).to(card)
+    col = (offs, vals, valid)
+    ia = torch.from_numpy(rng.integers(0, 3000, 20_000).astype(np.int32))
+    ib = ia.clone()
+    ib[::2] = torch.from_numpy(rng.integers(0, 3000, 10_000).astype(np.int32))
+    ia, ib = ia.to(card), ib.to(card)
+    got = ks.string_eq(col, ia, col, ib)
+    assert torch.equal(got, ks.string_eq_plain(col, ia, col, ib))
+    assert 0 < int(got.sum()) < got.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asc,nulls_first", [(True, None), (False, None),
+                                             (True, True), (False, False)])
+def test_sort_keys_kernel_matches_twin(card, asc, nulls_first):
+    rng = np.random.default_rng(8)
+    n = 4000
+    offs, vals = _var(rng, n, card)
+
+    def valid():
+        return torch.from_numpy(rng.random(n) < 0.9).to(card)
+
+    specs = [kk.VarKey(offs, vals, valid(), 7, asc, nulls_first)]
+    for dt in (torch.int64, torch.int32, torch.float64, torch.float32,
+               torch.bool, torch.int16):
+        v = torch.from_numpy(rng.standard_normal(n) * 1e6).to(card)
+        specs.append(kk.FixedKey(v.to(dt), valid(), asc, nulls_first))
+    assert torch.equal(kk.sort_keys(specs, n, card),
+                       kk.sort_keys_plain(specs, n, card))
 
 
 @pytest.mark.cuda

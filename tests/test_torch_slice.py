@@ -8,6 +8,7 @@ import pytest
 
 import exon_tpu as J
 import exon_tpu_torch as T
+from benchlib.bam_fixture import make_bam
 from benchlib.gff_fixture import make_gff
 from exon_tpu.plan.expressions import FunctionCall as JFunctionCall
 
@@ -108,12 +109,15 @@ def test_query_b_host_result_matches_arrow(tmp_path, sessions):
 def test_out_of_slice_raises(tmp_path, sessions):
     ts, _js = sessions
     path = make_gff(100, seed=1, path=str(tmp_path / "c.gff3"))
+    bam = make_bam(20, seed=1, path=str(tmp_path / "c.bam"))
     with pytest.raises(NotImplementedError, match="SQL"):
         ts.sql("SELECT 1")
-    with pytest.raises(NotImplementedError, match="LIMIT"):
-        ts.read_gff(path).limit(3).collect_arrow()
     with pytest.raises(NotImplementedError, match="attributes"):
         ts.read_gff(path).collect_arrow()
+    with pytest.raises(NotImplementedError, match="quality_score"):
+        ts.read_bam(bam).select("name", "quality_score").collect_arrow()
+    assert ts.read_gff(path).select("seqname").limit(3).collect_host() \
+        .length == 3
 
 
 def test_cuda_session_needs_a_card():

@@ -1,7 +1,8 @@
 """exon_tpu_torch stands alone: in a subprocess where jax, pyarrow,
 exon_tpu and triton cannot be imported, the package imports and runs
-Query B on the CPU through the pyarrow-free host accessor. The check is
-exact against numpy on the generator's arrays."""
+Query B, and a small Query D (mate pairing: a left join on the read name and
+a sort), on the CPU through the pyarrow-free host accessor. The checks are
+exact against numpy on the generators' arrays."""
 
 import os
 import subprocess
@@ -50,3 +51,49 @@ def test_port_runs_without_jax_pyarrow_or_exon_tpu(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "standalone ok" in proc.stdout
+
+
+SCRIPT_D = textwrap.dedent("""
+    import sys
+    for name in ("jax", "pyarrow", "exon_tpu", "triton"):
+        sys.modules[name] = None
+    import numpy as np
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import bam_reads, make_bam
+    from benchlib.gff_fixture import SEQNAMES
+
+    path = make_bam(300, seed=4, path=sys.argv[1])
+    c = T.col
+    s = T.ExonSession(device="cpu", device_batch_size=128)
+    r1 = s.read_bam(path).filter((c("flag") / 64) % 2 == 1).select(
+        "name", "reference", "start", "flag")
+    r2 = s.read_bam(path).filter((c("flag") / 128) % 2 == 1).select(
+        c("name").alias("mate_name"), c("start").alias("mate_start"))
+    host = r1.join(r2, on=[("name", "mate_name")], how="left").sort(
+        "reference", "start", "name").collect_host()
+    r = bam_reads(300, seed=4)
+    first = r["flag"] != 147
+    # reference sorts by its name's bytes: chr1 < chr10 < ... < chrY
+    order = np.lexsort((r["names"][r["template"][first]], r["start"][first],
+                        np.asarray(SEQNAMES)[r["reference"][first]]))
+    assert host.length == 300
+    assert host.column("start").values.tolist() == \\
+        r["start"][first][order].tolist()
+    mates = host.column("mate_start")
+    want = r["mate_start"][first][order]
+    assert mates.validity.tolist() == (want > 0).tolist()
+    assert mates.values[want > 0].tolist() == want[want > 0].tolist()
+    leaked = [m for m in ("jax", "pyarrow", "exon_tpu", "triton")
+              if sys.modules.get(m) is not None]
+    assert not leaked, leaked
+    print("standalone ok", host.length)
+""")
+
+
+def test_port_joins_and_sorts_without_jax_pyarrow_or_exon_tpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_D,
+                           str(tmp_path / "p.bam")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone ok 300" in proc.stdout
