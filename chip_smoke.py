@@ -10,21 +10,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
    and pyarrow are installed (informational: the port needs neither).
 2. Build: compile the CUDA kernels from exon_tpu_torch/kernels/csrc.
 3. Kernels vs twins: each kernel runs at the main path's shapes on inputs
-   made from a numpy seed and is compared with its plain PyTorch twin run on
-   the same card; median times of 20 CUDA-event-timed runs of each.
+   made from a numpy seed (the device-decode kernels on the first 128 MiB
+   chunk of Query A's FASTA file) and is compared with its plain PyTorch
+   twin run on the same card; median times of 20 CUDA-event-timed runs of
+   each, of one PyTorch call that computes the same function where there is
+   one, and the least time the card could take (bytes moved / 3.35 TB/s).
 4. Main path, through ExonSession(device="cuda") on generated data at full
-   scale: Query A (FASTA filter/project), its count, Query B (GFF filter →
-   group-by), Query C (BAM reads ⋈ GFF genes on chromosome and 100 kb bin,
-   overlap filter, coordinate sort), its TopK ``limit(1000)``, and Query D
-   (mate pairing: R1 ⟕ R2 on the read name, coordinate sort). Each is
-   checked against numpy computations from the generators' own arrays. The
-   launch counts are set to 0 before each query and read after it; each
-   query must have launched every kernel of its path.
+   scale: Query A (FASTA filter/project) and its count, both on the device
+   decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
+   on chromosome and 100 kb bin, overlap filter, coordinate sort), its TopK
+   ``limit(1000)``, Query D (mate pairing: R1 ⟕ R2 on the read name,
+   coordinate sort), and Query E (a FASTQ adapter screen, 4 M reads of
+   150 bp) and its count. Each is checked against numpy computations from
+   the generators' own arrays. The launch counts are set to 0 before each
+   query and read after it; each query must have launched every kernel of
+   its path. Then the device-decoded FASTA and FASTQ files are held to the
+   numpy host decode byte for byte, and each query's scans are timed alone:
+   the device decode (read, copy, kernels, synced) and the host decode.
 5. Where the time goes in queries C and D: the join and the sort alone on
    device batches already in memory, with the kernels and with every
    wrapper's twin patched in (median of 5 host-clock runs ending in a
-   sync); then one run of each query under torch.profiler, with the device
-   time of its CUDA kernels and copies and the largest of them.
+   sync), beside the bound of their input and output bytes; then one run
+   of each query, and of queries A and E, under torch.profiler, with the
+   device time of its CUDA kernels and copies and the largest of them.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -50,8 +58,11 @@ GFF_SEED = 7
 N_TEMPLATES = 1_425_000        # 2,835,750 BAM records (BASELINE config 4)
 BAM_SEED = 13
 W = 100_000                    # Query C's bin width
+FASTQ_READS = 4_000_000        # 150 bp reads, ~1.4 GB of text (Query E)
+FASTQ_SEED = 17
 FLOAT_RTOL = 1e-12             # float64 sums: atomic order changes rounding
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 
 KERNELS = {
     "compact_mask": ("exon_tpu/ops/layout.py:75", "compact_mask.cu"),
@@ -62,22 +73,37 @@ KERNELS = {
     "row_hash": ("exon_tpu/plan/physical.py:831", "row_hash.cu"),
     "string_eq": ("exon_tpu/plan/expressions.py:763", "string_eq.cu"),
     "sort_keys": ("exon_tpu/plan/physical.py:1372", "sort_keys.cu"),
+    "line_index": ("exon_tpu/ops/device_text.py:37", "line_index.cu"),
+    "text_records": ("exon_tpu/ops/device_text.py:92", "text_records.cu"),
+    "gather_spans": ("exon_tpu/ops/device_text.py:57", "gather_spans.cu"),
 }
+DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
 PATH_KERNELS = {
-    "A": ("compact_mask", "gather_var", "like_match"),
-    "count": ("like_match",),
+    "A": DECODE + ("compact_mask", "gather_var", "like_match"),
+    "count": DECODE + ("compact_mask", "like_match"),
     "B": ("hash_aggregate",),
     "C": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
     "C_top": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
     "D": ("compact_mask", "gather_var", "expand_segments", "row_hash",
           "string_eq", "sort_keys"),
+    "E": DECODE + ("like_match", "compact_mask", "gather_var"),
+    "E_count": DECODE + ("like_match",),
 }
+ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def bound_ms(nbytes: float) -> float:
+    """The least time the card could take to move ``nbytes`` (each input
+    read once, each output written once) at its memory rate. Every kernel
+    here does a few integer operations per byte, which the card's integer
+    rate finishes well inside this time, so bytes bound them all."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def median_ms(fn, torch) -> float:
@@ -165,6 +191,8 @@ def check_compact(rng, torch) -> dict:
     return {"max_abs_err": err,
             "ms": median_ms(lambda: k.compact_mask(mask), torch),
             "plain_ms": median_ms(lambda: k.compact_mask_plain(mask), torch),
+            "library_ms": median_ms(lambda: torch.nonzero(mask), torch),
+            "bytes": N_ROWS + 4 * N_ROWS + 4,  # mask in; every slot, count out
             "shape": f"{N_ROWS} rows"}
 
 
@@ -178,7 +206,11 @@ def check_gather(rng, torch, offs, vals) -> dict:
     torch.cuda.synchronize()
     err = _exact("gather_var offsets", o1, o2) + _exact("gather_var values",
                                                         v1, v2)
-    return {"max_abs_err": err,
+    m, taken = idx.shape[0], v1.shape[0]
+    return {"max_abs_err": err, "library_ms": None,
+            # indices, the taken rows' offset pairs and bytes in; offsets
+            # and bytes out
+            "bytes": 4 * m + 8 * m + taken + 4 * (m + 1) + taken,
             "ms": median_ms(lambda: k.gather_var(offs, vals, idx), torch),
             "plain_ms": median_ms(lambda: k.gather_var_plain(offs, vals, idx),
                                   torch),
@@ -206,8 +238,27 @@ def check_like(torch, offs, vals) -> dict:
               f"kernel {times[pattern][0]:.4f} ms, twin "
               f"{times[pattern][1]:.4f} ms")
     return {"max_abs_err": 0.0, "ms": times["%KK%"][0],
-            "plain_ms": times["%KK%"][1],
+            "plain_ms": times["%KK%"][1], "library_ms": None,
+            # offsets in, each row's bytes up to its first KK, a bool out
+            "bytes": 4 * (N_ROWS + 1) + _bytes_to_first_kk(offs, vals)
+            + N_ROWS,
             "shape": f"{N_ROWS} rows, {vals.shape[0]} bytes, '%KK%'"}
+
+
+def _bytes_to_first_kk(offs, vals) -> int:
+    """Bytes a '%KK%' match must read: each row up to the end of its first
+    'KK', or all of it."""
+    o = offs.cpu().numpy().astype(np.int64)
+    v = vals.cpu().numpy()
+    kk = np.flatnonzero((v[:-1] == ord("K")) & (v[1:] == ord("K")))
+    row = np.searchsorted(o, kk, side="right") - 1
+    inside = kk + 2 <= o[row + 1]
+    need = np.diff(o)
+    first = np.full(len(need), np.iinfo(np.int64).max)
+    np.minimum.at(first, row[inside], kk[inside] + 2)
+    hit = first < np.iinfo(np.int64).max
+    need[hit] = first[hit] - o[:-1][hit]
+    return int(need.sum())
 
 
 def check_hash(rng, torch) -> dict:
@@ -271,10 +322,15 @@ def check_hash(rng, torch) -> dict:
             return float(np.median(times[1:]))
 
         ms, plain = timed(hk.insert), timed(hk.insert_plain)
+        # key part, its validity, mask, the int and float values and their
+        # validity in; per group the key and 7 (value, count) pairs out
+        nbytes = 27 * n + got.num_groups * (8 + 7 * 16)
         print(f"  hash_aggregate {label}: {got.num_groups} groups, "
               f"{n} rows, kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+              f"bound {bound_ms(nbytes):.4f} ms, "
               f"max float-sum diff {err:.3e}")
         out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "library_ms": None, "bytes": nbytes,
                       "shape": f"{n} rows, {got.num_groups} groups"}
     res = dict(out["25 keys"])
     res["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
@@ -305,10 +361,15 @@ def check_expand(rng, torch) -> dict:
     torch.cuda.synchronize()
     _exact("expand_segments probe", got[0], want[0])
     _exact("expand_segments build", got[1], want[1])
+    rows = torch.arange(N_ROWS, device="cuda")
     return {"max_abs_err": 0.0,
             "ms": median_ms(lambda: k.expand_segments(*args), torch),
             "plain_ms": median_ms(lambda: k.expand_segments_plain(*args),
                                   torch),
+            "library_ms": median_ms(
+                lambda: torch.repeat_interleave(rows, args[1]), torch),
+            # lo, counts, starts in; a probe and a build index per slot out
+            "bytes": 12 * N_ROWS + 8 * int(ends[-1]),
             "shape": f"{N_ROWS} probe rows, {int(ends[-1])} slots"}
 
 
@@ -325,9 +386,12 @@ def check_row_hash(torch, names) -> dict:
             "ms": median_ms(lambda: k.row_hash(offs, vals), torch),
             "plain_ms": median_ms(lambda: k.row_hash_plain(offs, vals),
                                   torch),
+            "library_ms": None,
+            "bytes": 4 * (len(rows) + 1) + vals.shape[0] + 8 * len(rows),
             "shape": f"{len(rows)} names, {vals.shape[0]} bytes"}
     print(f"  row_hash build side: {out['build']['shape']}, kernel "
-          f"{out['build']['ms']:.4f} ms, twin {out['build']['plain_ms']:.4f} ms")
+          f"{out['build']['ms']:.4f} ms, twin {out['build']['plain_ms']:.4f} ms"
+          f", bound {bound_ms(out['build']['bytes']):.4f} ms")
     return out["probe"]
 
 
@@ -345,11 +409,31 @@ def check_string_eq(rng, torch, names) -> dict:
     ia, ib = torch.from_numpy(ia).cuda(), torch.from_numpy(ib).cuda()
     got = k.string_eq(a, ia, b, ib)
     _exact("string_eq", got, k.string_eq_plain(a, ia, b, ib))
-    return {"max_abs_err": 0.0,
+    compared = _compared_bytes(names[:N_ROWS][ia.cpu().numpy()],
+                               names[ib.cpu().numpy()])
+    return {"max_abs_err": 0.0, "library_ms": None,
+            # both indices, both rows' offset pairs and validity, the bytes
+            # a comparison must read; a bool out
+            "bytes": 8 * N_ROWS + 16 * N_ROWS + 2 * N_ROWS + compared
+            + N_ROWS,
             "ms": median_ms(lambda: k.string_eq(a, ia, b, ib), torch),
             "plain_ms": median_ms(lambda: k.string_eq_plain(a, ia, b, ib),
                                   torch),
             "shape": f"{N_ROWS} pairs, {int(got.sum())} equal"}
+
+
+def _compared_bytes(a: np.ndarray, b: np.ndarray) -> int:
+    """Bytes a row-pair equality must read: nothing when the lengths
+    differ, else both rows up to their first differing byte, or whole."""
+    la, lb = np.char.str_len(a), np.char.str_len(b)
+    width = max(a.dtype.itemsize, b.dtype.itemsize)
+    ma = np.frombuffer(a.astype(f"S{width}").tobytes(), np.uint8).reshape(
+        len(a), width)
+    mb = np.frombuffer(b.astype(f"S{width}").tobytes(), np.uint8).reshape(
+        len(b), width)
+    differ = ma != mb
+    first = np.where(differ.any(axis=1), differ.argmax(axis=1) + 1, la)
+    return int(2 * np.where(la == lb, np.minimum(first, la), 0).sum())
 
 
 def check_sort_keys(rng, torch, names) -> dict:
@@ -371,20 +455,107 @@ def check_sort_keys(rng, torch, names) -> dict:
             specs.append(k.FixedKey(start - 1000, valid))
         got = k.sort_keys(specs, n, "cuda")
         _exact(f"sort_keys {label}", got, k.sort_keys_plain(specs, n, "cuda"))
+        # per key its validity; fixed keys 8 bytes a row, string keys their
+        # offset pair and up to 8 bytes per key row; the key matrix out
+        key_in = sum(9 * n if isinstance(sp, k.FixedKey) else
+                     9 * n + int(torch.clamp(sp.offsets[1:] - sp.offsets[:-1],
+                                             max=8 * sp.nchunks).sum())
+                     for sp in specs)
         out[label] = {
-            "max_abs_err": 0.0,
+            "max_abs_err": 0.0, "library_ms": None,
+            "bytes": key_in + 8 * got.numel(),
             "ms": median_ms(lambda: k.sort_keys(specs, n, "cuda"), torch),
             "plain_ms": median_ms(
                 lambda: k.sort_keys_plain(specs, n, "cuda"), torch),
             "shape": f"{n} rows x {got.shape[0]} key rows"}
     print(f"  sort_keys Query D shape: {out['D']['shape']}, kernel "
-          f"{out['D']['ms']:.4f} ms, twin {out['D']['plain_ms']:.4f} ms")
+          f"{out['D']['ms']:.4f} ms, twin {out['D']['plain_ms']:.4f} ms, "
+          f"bound {bound_ms(out['D']['bytes']):.4f} ms")
     return out["C"]
+
+
+def _fasta_chunk(torch):
+    """Query A's first device chunk (the first span that split_chunks cuts
+    from its file, up to 128 MiB) on the card, and whether it ends in a
+    newline."""
+    from benchlib.fixtures import make_fasta
+    from exon_tpu_torch.formats.fasta_device import split_chunks
+    from exon_tpu_torch.io import read_file
+
+    data = read_file(make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42))
+    lo, hi = split_chunks(data)[0]
+    chunk = np.frombuffer(data, np.uint8, count=hi - lo, offset=lo).copy()
+    return torch.from_numpy(chunk).cuda(), data[hi - 1] == ord("\n")
+
+
+def check_line_index(torch, chunk) -> tuple[dict, object]:
+    from exon_tpu_torch.kernels import line_index as k
+
+    got = k.line_index(chunk)
+    _exact("line_index", got, k.line_index_plain(chunk))
+    n, lines = chunk.shape[0], got.shape[0]
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.line_index(chunk), torch),
+            "plain_ms": median_ms(lambda: k.line_index_plain(chunk), torch),
+            "library_ms": median_ms(lambda: torch.nonzero(chunk == 10),
+                                    torch),
+            "bytes": n + 4 * lines,  # the chunk in, a position per newline
+            "shape": f"{n} bytes, {lines} newlines"}, got
+
+
+def check_text_records(torch, chunk, nl, ends_in_newline) -> tuple[dict,
+                                                                    object]:
+    from exon_tpu_torch.kernels import text_records as k
+
+    n_lines = nl.shape[0] + (0 if ends_in_newline else 1)
+    args = (chunk, nl, n_lines, False, True)
+    got, want = k.text_records(*args), k.text_records_plain(*args)
+    for field in ("start", "end", "is_hdr", "body", "split", "name_len",
+                  "desc_len", "bad"):
+        _exact(f"text_records {field}", getattr(got, field),
+               getattr(want, field))
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.text_records(*args), torch),
+            "plain_ms": median_ms(lambda: k.text_records_plain(*args), torch),
+            "library_ms": None,
+            # the chunk and the newlines in; per line start, end, header
+            # flag, body, split, name and description lengths out
+            "bytes": chunk.shape[0] + 4 * nl.shape[0] + 25 * n_lines + 4,
+            "shape": f"{chunk.shape[0]} bytes, {n_lines} lines, "
+                     f"{int(got.is_hdr.sum())} headers"}, got
+
+
+def check_gather_spans(torch, chunk, lines) -> dict:
+    from exon_tpu_torch.kernels import gather_spans as k
+    from exon_tpu_torch.ops.device_text import lengths_to_offsets
+
+    # Query A's sequence column: one span per line, a header's empty
+    dst = lengths_to_offsets(lines.body)
+    stops = torch.where(lines.is_hdr, lines.start, lines.end)
+    total = int(dst[-1])
+    args = (chunk, lines.start, stops, dst[:-1], total, (13,))
+    _exact("gather_spans", k.gather_spans(*args), k.gather_spans_plain(*args))
+    m = lines.start.shape[0]
+    span_bytes = int((stops - lines.start).sum())
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: k.gather_spans(*args), torch),
+            "plain_ms": median_ms(lambda: k.gather_spans_plain(*args), torch),
+            "library_ms": None,
+            # starts, stops, offsets and the spans' bytes in; kept bytes out
+            "bytes": 12 * m + span_bytes + total,
+            "shape": f"{m} spans, {span_bytes} bytes in, {total} out"}
 
 
 def phase_kernels(torch) -> dict:
     from benchlib.bam_fixture import template_names
 
+    chunk, ends_in_newline = _fasta_chunk(torch)
+    decode = {}
+    decode["line_index"], nl = check_line_index(torch, chunk)
+    decode["text_records"], lines = check_text_records(torch, chunk, nl,
+                                                       ends_in_newline)
+    decode["gather_spans"] = check_gather_spans(torch, chunk, lines)
+    del chunk, nl, lines
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
     names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
@@ -397,10 +568,15 @@ def phase_kernels(torch) -> dict:
         "row_hash": check_row_hash(torch, names),
         "string_eq": check_string_eq(rng, torch, names),
         "sort_keys": check_sort_keys(rng, torch, names),
+        **decode,
     }
     for name, r in results.items():
+        r["bound_ms"] = bound_ms(r["bytes"])
+        lib = "" if r["library_ms"] is None else \
+            f", library call {r['library_ms']:.4f} ms"
         print(f"kernel {name}: matches twin ({r['shape']}); median of {REPS}: "
-              f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+              f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms{lib}; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)")
     return results
 
 
@@ -597,8 +773,38 @@ def _check_d(host, reads) -> int:
     return n_null
 
 
-def _decode_seconds(df) -> float:
-    """Host decode alone: the plan's scans iterated without the device."""
+def _check_e(host, r: dict, rows: np.ndarray) -> None:
+    from benchlib.fastq_fixture import READ_LEN
+
+    if host.length != len(rows):
+        fail(f"query E: {host.length} rows, expected {len(rows)}")
+    if not np.array_equal(_names_of(host.column("name")), r["names"][rows]):
+        fail("query E: names differ from the generated reads")
+    for name, key in (("sequence", "sequences"),
+                      ("quality_scores", "qualities")):
+        c = host.column(name)
+        if not (np.array_equal(c.offsets, READ_LEN * np.arange(len(rows) + 1))
+                and c.values.tobytes() == r[key][rows].tobytes()):
+            fail(f"query E: {name} differs from the generated reads")
+    planted = int((r["adapter_at"] >= 0).sum())
+    print(f"query E: {host.length} reads hold the adapter ({planted} "
+          "planted); names, sequences and qualities match the generator")
+
+
+@contextlib.contextmanager
+def _host_decode():
+    """Scans built inside decode on the host (the JAX package's own
+    switch, EXON_TPU_HOST_DECODE)."""
+    os.environ["EXON_TPU_HOST_DECODE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["EXON_TPU_HOST_DECODE"]
+
+
+def _scan_seconds(df, torch) -> float:
+    """The plan's scans alone: their decode streams iterated (device
+    batches for a device decode, host batches otherwise), then a sync."""
     from exon_tpu_torch.plan.physical import ScanExec
 
     plan = df._execute(df.logical_plan())
@@ -612,7 +818,28 @@ def _decode_seconds(df) -> float:
     for scan in scans:
         for _b in scan.source():
             pass
+    torch.cuda.synchronize()
     return time.perf_counter() - t
+
+
+def _decode_matches_host(label: str, read, torch) -> None:
+    """Every column of a whole file decoded on the device equals the numpy
+    host decode's, byte for byte (values, offsets, validity)."""
+    dev = read().collect_host()
+    with _host_decode():
+        host = read().collect_host()
+    if dev.length != host.length or dev.schema != host.schema:
+        fail(f"{label}: device decode gives {dev.length} rows, host decode "
+             f"{host.length}")
+    for name in host.schema.names:
+        a, b = dev.column(name), host.column(name)
+        if not (np.array_equal(a.offsets, b.offsets)
+                and a.values.tobytes() == b.values.tobytes()
+                and np.array_equal(a.validity, b.validity)):
+            fail(f"{label}: column {name} differs between the device and the "
+                 "host decode")
+    print(f"{label}: device decode equals the numpy host decode byte for "
+          f"byte ({host.length} rows, columns {host.schema.names})")
 
 
 def _query_c(T, session, bam, gf):
@@ -644,6 +871,7 @@ def phase_main_path(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import bam_reads, make_bam
     from benchlib.fasta_records import fasta_file_size, fasta_records
+    from benchlib.fastq_fixture import adapter_rows, fastq_reads, make_fastq
     from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import gff_features, make_gff
     from exon_tpu_torch import kernels
@@ -658,18 +886,28 @@ def phase_main_path(torch) -> dict:
     bam = make_bam(N_TEMPLATES, BAM_SEED)
     reads = bam_reads(N_TEMPLATES, BAM_SEED)
     n_bam = len(reads["start"])
+    fq = make_fastq(FASTQ_READS, FASTQ_SEED)
+    fq_reads = fastq_reads(FASTQ_READS, FASTQ_SEED)
     print(f"data: {fa} ({os.path.getsize(fa)} bytes, {FASTA_RECORDS} records)"
           f", {gf} ({os.path.getsize(gf)} bytes, {GFF_FEATURES} features), "
-          f"{bam} ({os.path.getsize(bam)} bytes, {n_bam} records); "
+          f"{bam} ({os.path.getsize(bam)} bytes, {n_bam} records), "
+          f"{fq} ({os.path.getsize(fq)} bytes, {FASTQ_READS} reads); "
           f"{time.perf_counter() - t0:.1f} s to generate")
     sel = _expected_a(flat, offs)
+    rows_e = adapter_rows(fq_reads)
 
     session = T.ExonSession(device="cuda")
     pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
         T.col("sequence").like("%KK%")
+    adapter = T.col("sequence").like(ADAPTER)
+    frames = {
+        "A": lambda: session.read_fasta(fa).filter(pred).select(
+            "id", "sequence"),
+        "E": lambda: session.read_fastq(fq).filter(adapter).select(
+            "name", "sequence", "quality_scores"),
+    }
     queries = {
-        "A": (lambda: session.read_fasta(fa).filter(pred).select(
-            "id", "sequence").collect_host(), FASTA_RECORDS),
+        "A": (lambda: frames["A"]().collect_host(), FASTA_RECORDS),
         "count": (lambda: session.read_fasta(fa).filter(pred).count(),
                   FASTA_RECORDS),
         "B": (lambda: session.read_gff(gf).filter(
@@ -684,6 +922,9 @@ def phase_main_path(torch) -> dict:
         "C_top": (lambda: _query_c(T, session, bam, gf).limit(
             1000).collect_host(), n_bam + GFF_FEATURES),
         "D": (lambda: _query_d(T, session, bam).collect_host(), 2 * n_bam),
+        "E": (lambda: frames["E"]().collect_host(), FASTQ_READS),
+        "E_count": (lambda: session.read_fastq(fq).filter(adapter).count(),
+                    FASTQ_READS),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -715,18 +956,33 @@ def phase_main_path(torch) -> dict:
                  "1000 rows")
     print("query C_top: the first 1000 rows of query C")
     _check_d(results["D"], reads)
-    decode = {"C": _decode_seconds(_query_c(T, session, bam, gf)),
-              "D": _decode_seconds(_query_d(T, session, bam))}
-    decode["C_top"] = decode["C"]
+    _check_e(results["E"], fq_reads, rows_e)
+    if results["E_count"] != len(rows_e):
+        fail(f"E_count: {results['E_count']}, expected {len(rows_e)}")
+    _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
+    _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
+    # each query's scans alone: the device decode where the format has one,
+    # and the numpy host decode of the same files
+    device_scan = {q: _scan_seconds(frames[q](), torch) for q in frames}
+    with _host_decode():
+        host_scan = {q: _scan_seconds(f(), torch) for q, f in (
+            *frames.items(), ("C", lambda: _query_c(T, session, bam, gf)),
+            ("D", lambda: _query_d(T, session, bam)))}
+    for q, base in (("count", "A"), ("E_count", "E"), ("C_top", "C")):
+        host_scan[q] = host_scan[base]
+        if base in device_scan:
+            device_scan[q] = device_scan[base]
     for q, (sec, rows_in) in stats.items():
-        out = results[q] if q == "count" else results[q].length
-        share = f", host decode alone {decode[q]:.3f} s " \
-            f"({100 * decode[q] / sec:.1f} % of wall)" if q in decode else ""
+        out = results[q] if q in ("count", "E_count") else results[q].length
+        share = "".join(
+            f", {what} alone {t[q]:.3f} s ({100 * t[q] / sec:.1f} % of wall)"
+            for what, t in (("device scan", device_scan),
+                            ("host decode", host_scan)) if q in t)
         print(f"query {q}: {out} rows out, {sec:.3f} s wall, "
-              f"{rows_in / sec:,.0f} input rows/s (host decode included)"
+              f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{share}")
-    print("main path: queries A, count, B, C, C_top and D match the "
-          "generators' arrays")
+    print("main path: queries A, count, B, C, C_top, D, E and E_count match "
+          "the generators' arrays")
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
@@ -804,9 +1060,13 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
     sort, join = _find(plan, physical.SortExec), _find(plan, join_exec.JoinExec)
     join.left, join.right = InMemory(join.left), InMemory(join.right)
     sort.input = InMemory(sort.input)
-    for part, run in (("join", lambda: list(join.batches())),
-                      ("sort", lambda: list(sort.batches()))):
-        rows = sum(b.length for b in run())
+    for part, run, inputs in (
+            ("join", lambda: list(join.batches()),
+             join.left.held + join.right.held),
+            ("sort", lambda: list(sort.batches()), sort.input.held)):
+        out = run()
+        rows = sum(b.length for b in out)
+        nbytes = _batch_bytes(inputs) + _batch_bytes(out)
         ms = _host_ms(run, torch)
         with _twins():
             plain_rows = sum(b.length for b in run())
@@ -815,7 +1075,19 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
             fail(f"query {label} {part}: {rows} rows with kernels, "
                  f"{plain_rows} with twins")
         print(f"query {label} {part} alone: {rows} rows out; median of 5: "
-              f"kernels {ms:.2f} ms, twins {plain_ms:.2f} ms")
+              f"kernels {ms:.2f} ms, twins {plain_ms:.2f} ms; bound "
+              f"{bound_ms(nbytes):.4f} ms (its input and output batches, "
+              f"{nbytes} bytes)")
+
+
+def _batch_bytes(batches) -> int:
+    """Bytes of every tensor of the batches' columns."""
+    total = 0
+    for b in batches:
+        for c in b.columns:
+            total += sum(t.nbytes for t in vars(c).values()
+                         if hasattr(t, "nbytes"))
+    return total
 
 
 def _device_profile(run, torch, label: str) -> None:
@@ -847,6 +1119,8 @@ def _device_profile(run, torch, label: str) -> None:
 def phase_breakdown(torch) -> None:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import make_bam
+    from benchlib.fastq_fixture import make_fastq
+    from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import make_gff
 
     session = T.ExonSession(device="cuda")
@@ -856,6 +1130,16 @@ def phase_breakdown(torch) -> None:
     for label, query in queries.items():
         _join_and_sort_ms(query(), torch, label)
         _device_profile(lambda: query().collect_host(), torch, label)
+    # the device-decoded queries: how much of their wall is on the card
+    fa = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
+    fq = make_fastq(FASTQ_READS, FASTQ_SEED)
+    pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
+        T.col("sequence").like("%KK%")
+    _device_profile(lambda: session.read_fasta(fa).filter(pred).select(
+        "id", "sequence").collect_host(), torch, "A")
+    _device_profile(lambda: session.read_fastq(fq).filter(
+        T.col("sequence").like(ADAPTER)).select(
+        "name", "sequence", "quality_scores").collect_host(), torch, "E")
 
 
 def main() -> int:
@@ -879,7 +1163,8 @@ def main() -> int:
                         "source": f"exon_tpu_torch/kernels/csrc/{src}",
                         "replaces": replaces, "launches": counts[k],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes", "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

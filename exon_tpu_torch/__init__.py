@@ -1,11 +1,12 @@
 """exon_tpu_torch: the exon-tpu query engine on PyTorch and CUDA.
 
 A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. It runs the
-DataFrame API over FASTA, GFF and BAM files: Scan → Filter → Project,
-(Filter →) Aggregate, inner and left equi-joins, Sort, TopK and Limit, with
-hand-written CUDA kernels for filter compaction, var-width gather, LIKE, the
-grouped hash aggregate, join pair expansion, row hashing, string equality
-and sort keys (``exon_tpu_torch.kernels``). It imports torch and numpy
+DataFrame API over FASTA, FASTQ, GFF and BAM files: Scan → Filter →
+Project, (Filter →) Aggregate, inner and left equi-joins, Sort, TopK and
+Limit, with hand-written CUDA kernels for FASTA/FASTQ decode on the device
+(newline index, per-line records, span gather), filter compaction,
+var-width gather, LIKE, the grouped hash aggregate, join pair expansion,
+row hashing, string equality and sort keys (``exon_tpu_torch.kernels``). It imports torch and numpy
 only; pyarrow is needed only by ``collect_arrow``.
 """
 

@@ -1,1 +1,2 @@
-"""Host decoders of the formats the port scans (FASTA, GFF)."""
+"""Decoders of the formats the port scans: numpy host decoders (FASTA,
+FASTQ, GFF, BAM) and device decoders (FASTA, FASTQ)."""

@@ -10,8 +10,9 @@ and ``reset_launch_counts()`` sets them to zero.
 
 from __future__ import annotations
 
-from . import (compact_mask, expand_segments, gather_var, hash_aggregate,
-               like_match, row_hash, sort_keys, string_eq)
+from . import (compact_mask, expand_segments, gather_spans, gather_var,
+               hash_aggregate, like_match, line_index, row_hash, sort_keys,
+               string_eq, text_records)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -22,6 +23,9 @@ KERNEL_MODULES = {
     "row_hash": row_hash,
     "string_eq": string_eq,
     "sort_keys": sort_keys,
+    "line_index": line_index,
+    "text_records": text_records,
+    "gather_spans": gather_spans,
 }
 
 

@@ -44,6 +44,11 @@ SIGNATURES = {
     "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],
     "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "exon_line_count": [_P, _I64, _P, _P],
+    "exon_line_scatter": [_P, _I64, _P, _P, _P],
+    "exon_text_records": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P],
+    "exon_gather_spans": [_P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
 }
 
 _lib = None

@@ -70,18 +70,21 @@ class PhysicalPlan:
 
 @dataclasses.dataclass
 class ScanExec(PhysicalPlan):
-    """Leaf scan: host decode stream → batches on ``device``."""
+    """Leaf scan: decode stream → batches on ``device``. Host batches are
+    moved there; a device decoder's batches pass through
+    (``to_device=False``, as exon_tpu/tables.py:288)."""
 
     out_schema: Schema
     source: Callable[[], Iterator[Batch]]
     device: object = "cpu"
+    to_device: bool = True
 
     def schema(self) -> Schema:
         return self.out_schema
 
     def batches(self) -> Iterator[Batch]:
-        for host_batch in self.source():
-            yield host_batch.to_device(self.device)
+        for b in self.source():
+            yield b.to_device(self.device) if self.to_device else b
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """ExonSession: the port's entry point.
 
-Counterpart of exon_tpu/session.py for ``read_fasta``, ``read_gff`` and
-``read_bam``. The
+Counterpart of exon_tpu/session.py for ``read_fasta``, ``read_fastq``,
+``read_gff`` and ``read_bam``. The
 session names the torch device every operator runs on: ``"cuda"`` by
 default, which raises when there is no card; CPU execution (the kernels'
 plain twins) must be asked for with ``device="cpu"``. SQL, the other
@@ -44,6 +44,9 @@ class ExonSession:
 
     def read_fasta(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("FASTA", url, options, **kw)
+
+    def read_fastq(self, url: str, options=None, **kw) -> DataFrame:
+        return self._read("FASTQ", url, options, **kw)
 
     def read_gff(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("GFF", url, options, **kw)

@@ -1,20 +1,25 @@
-"""Table providers over the port's host decoders.
+"""Table providers over the port's decoders.
 
 Counterpart of ``FileTable.scan`` (exon_tpu/tables.py:181-288) for FASTA,
-GFF and BAM (without the .bai region pruning of exon_tpu/providers.py
-``BamTable``: no filter is pushed into a scan). A scan decodes each file on the host and returns a ``ScanExec`` over the
-host batches; the ScanExec moves them to the session's device. No filter is
-pushed into the scan (prefix-LIKE pushdown, tables.py:163-169, is not
-ported), so every predicate runs as a device operator.
+FASTQ, GFF and BAM (without the .bai region pruning of
+exon_tpu/providers.py ``BamTable``: no filter is pushed into a scan). As in
+the JAX package (tables.py:212-217), a format with a device decoder (FASTA,
+FASTQ) is decoded on the session's device unless ``EXON_TPU_HOST_DECODE``
+is set, and its batches pass through the ``ScanExec`` as they come; the
+other formats decode on the host and the ``ScanExec`` moves their batches
+to the device. No filter is pushed into the scan (prefix-LIKE pushdown,
+tables.py:163-169, is not ported), so every predicate runs as a device
+operator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Iterator, Optional, Sequence
 
 from .batch import Batch, Schema
-from .formats import bam, fasta, gff
+from .formats import bam, fasta, fasta_device, fastq, gff
 from .io import read_file, resolve_table_files
 from .plan.expressions import Expr
 from .plan.physical import ScanExec
@@ -26,11 +31,16 @@ class FormatSpec:
     schema: Callable          # (options) -> Schema
     decode: Callable          # (bytes, options, projection) -> Iterator[Batch]
     default_options: Callable  # () -> options
+    # (bytes, options, projection, device) -> Iterator[Batch] on the device
+    device_decode: Optional[Callable] = None
 
 
 FORMATS = {
+    # exon_tpu/tables.py:516-536
     "FASTA": FormatSpec("FASTA", fasta.fasta_schema, fasta.decode_host,
-                        fasta.FastaOptions),
+                        fasta.FastaOptions, fasta_device.decode_fasta_device),
+    "FASTQ": FormatSpec("FASTQ", fastq.fastq_schema, fastq.decode_host,
+                        fastq.FastqOptions, fastq.decode_device),
     "GFF": FormatSpec("GFF", gff.gff_schema, gff.decode_host, gff.GffOptions),
     # exon_tpu/tables.py:642-656
     "BAM": FormatSpec("BAM", bam.bam_schema, bam.decode_host, bam.BamOptions),
@@ -71,9 +81,16 @@ class FileTable:
                                     getattr(self.options, "file_extension",
                                             None))
         fmt, options = self.fmt, self.options
+        use_device = (fmt.device_decode is not None
+                      and not os.environ.get("EXON_TPU_HOST_DECODE"))
 
         def source() -> Iterator[Batch]:
             for path in files:
-                yield from fmt.decode(read_file(path), options, projection)
+                if use_device:
+                    yield from fmt.device_decode(read_file(path), options,
+                                                 projection, device)
+                else:
+                    yield from fmt.decode(read_file(path), options,
+                                          projection)
 
-        return ScanExec(schema, source, device)
+        return ScanExec(schema, source, device, to_device=not use_device)

@@ -11,12 +11,15 @@ import torch
 from exon_tpu_torch import kernels
 from exon_tpu_torch.kernels import compact_mask as kc
 from exon_tpu_torch.kernels import expand_segments as ke
+from exon_tpu_torch.kernels import gather_spans as kgs
 from exon_tpu_torch.kernels import gather_var as kg
 from exon_tpu_torch.kernels import hash_aggregate as hk
 from exon_tpu_torch.kernels import like_match as kl
+from exon_tpu_torch.kernels import line_index as kli
 from exon_tpu_torch.kernels import row_hash as kr
 from exon_tpu_torch.kernels import sort_keys as kk
 from exon_tpu_torch.kernels import string_eq as ks
+from exon_tpu_torch.kernels import text_records as ktr
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 from exon_tpu_torch.ops.strings import tokenize_like
 
@@ -56,12 +59,39 @@ def test_cpu_tensors_run_the_twins_without_launching():
     ks.string_eq((offs, vals, mask), idx[: int(count)], (offs, vals, mask),
                  idx[: int(count)])
     kk.sort_keys([kk.VarKey(offs, vals, mask, 2)], 64, "cpu")
+    text = _text(rng, 300, "cpu", fastq=False)
+    nl = kli.line_index(text)
+    lines = ktr.text_records(text, nl, nl.shape[0] + 1, False, True)
+    dst = (torch.cumsum(lines.body, 0) - lines.body).to(torch.int32)
+    kgs.gather_spans(text, lines.start,
+                     torch.where(lines.is_hdr, lines.start, lines.end), dst,
+                     int(lines.body.sum()))
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 0)
 
 
 def test_other_devices_raise():
     with pytest.raises(RuntimeError, match="no kernel"):
         kc.compact_mask(torch.zeros(4, dtype=torch.bool, device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kli.line_index(torch.zeros(4, dtype=torch.uint8, device="meta"))
+
+
+def _text(rng, n_records: int, device, fastq: bool) -> torch.Tensor:
+    """FASTA or FASTQ text with CRLF lines, spaces in the headers and empty
+    lines, ending without a newline, as a uint8 tensor."""
+    parts = []
+    for i in range(n_records):
+        eol = b"\r\n" if i % 3 == 0 else b"\n"
+        hdr = b"r%d%s" % (i, b" d>%d\r" % i if i % 4 else b"")
+        body = np.frombuffer(b"ACGT\r", np.uint8)[
+            rng.integers(0, 5, rng.integers(0, 200))].tobytes()
+        if fastq:
+            parts += [b"@" + hdr, body, b"+", body[::-1]]
+        else:
+            parts += [b">" + hdr, body[:70], body[70:], b""]
+        parts[-1] += eol
+    text = b"\n".join(parts).rstrip(b"\r\n")
+    return torch.from_numpy(np.frombuffer(text, np.uint8).copy()).to(device)
 
 
 def test_wrappers_check_dtypes():
@@ -191,3 +221,44 @@ def test_hash_aggregate_kernel_matches_twin(card):
     for a in (1, 2, 4):
         assert torch.equal(got.acc[a], want.acc[a])
     torch.testing.assert_close(got.acc[3], want.acc[3], rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_line_index_kernel_matches_twin(card):
+    text = _text(np.random.default_rng(9), 3000, card, fastq=False)
+    for part in (text, text[:4095], text[:4097], text[:17], text[:0]):
+        assert torch.equal(kli.line_index(part), kli.line_index_plain(part))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fastq,want_hdr", [(False, True), (False, False),
+                                            (True, True)])
+def test_text_records_kernel_matches_twin(card, fastq, want_hdr):
+    text = _text(np.random.default_rng(10), 3000, card, fastq)
+    nl = kli.line_index_plain(text)
+    got = ktr.text_records(text, nl, nl.shape[0] + 1, fastq, want_hdr)
+    want = ktr.text_records_plain(text, nl, nl.shape[0] + 1, fastq, want_hdr)
+    for field in ("start", "end", "is_hdr", "body", "split", "name_len",
+                  "desc_len", "bad"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None and w is None) or torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+def test_gather_spans_kernel_matches_twin(card):
+    text = _text(np.random.default_rng(11), 3000, card, fastq=False)
+    nl = kli.line_index_plain(text)
+    lines = ktr.text_records_plain(text, nl, nl.shape[0] + 1, False, True)
+    dst = (torch.cumsum(lines.body, 0) - lines.body).to(torch.int32)
+    total = int(lines.body.sum())
+    stops = torch.where(lines.is_hdr, lines.start, lines.end)
+    got = kgs.gather_spans(text, lines.start, stops, dst, total, (13,))
+    assert torch.equal(got, kgs.gather_spans_plain(text, lines.start, stops,
+                                                   dst, total, (13,)))
+    assert int((got == 13).sum()) == 0 and got.shape[0] == total
+    hdr = torch.nonzero(lines.is_hdr).flatten()
+    start, split = lines.start[hdr] + 1, lines.split[hdr]
+    lens = lines.name_len[hdr]
+    dst = (torch.cumsum(lens, 0) - lens).to(torch.int32)
+    args = (text, start, split, dst, int(lens.sum()), (13, ord(">")))
+    assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))

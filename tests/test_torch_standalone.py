@@ -1,8 +1,9 @@
 """exon_tpu_torch stands alone: in a subprocess where jax, pyarrow,
 exon_tpu and triton cannot be imported, the package imports and runs
-Query B, and a small Query D (mate pairing: a left join on the read name and
-a sort), on the CPU through the pyarrow-free host accessor. The checks are
-exact against numpy on the generators' arrays."""
+Query B, a small Query D (mate pairing: a left join on the read name and
+a sort) and a small FASTQ adapter screen on the device decode path, on the
+CPU through the pyarrow-free host accessor. The checks are exact against
+numpy on the generators' arrays."""
 
 import os
 import subprocess
@@ -97,3 +98,40 @@ def test_port_joins_and_sorts_without_jax_pyarrow_or_exon_tpu(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "standalone ok 300" in proc.stdout
+
+
+SCRIPT_E = textwrap.dedent("""
+    import os, sys
+    for name in ("jax", "pyarrow", "exon_tpu", "triton"):
+        sys.modules[name] = None
+    os.environ.pop("EXON_TPU_HOST_DECODE", None)
+    import exon_tpu_torch as T
+    from benchlib.fastq_fixture import adapter_rows, fastq_reads, make_fastq
+
+    path = make_fastq(1500, seed=6, path=sys.argv[1])
+    s = T.ExonSession(device="cpu")
+    host = s.read_fastq(path).filter(
+        T.col("sequence").like("%AGATCGGAAGAGC%")).select(
+        "name", "sequence").collect_host()
+    r = fastq_reads(1500, seed=6)
+    rows = adapter_rows(r)
+    names = host.column("name")
+    got = [bytes(names.values[a:b]) for a, b in
+           zip(names.offsets[:-1], names.offsets[1:])]
+    assert got == r["names"][rows].tolist()
+    assert host.column("sequence").values.tobytes() == \\
+        r["sequences"][rows].tobytes()
+    leaked = [m for m in ("jax", "pyarrow", "exon_tpu", "triton")
+              if sys.modules.get(m) is not None]
+    assert not leaked, leaked
+    print("standalone ok", host.length)
+""")
+
+
+def test_port_decodes_fastq_on_the_device_path_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_E,
+                           str(tmp_path / "r.fastq")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone ok" in proc.stdout
