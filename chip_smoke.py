@@ -15,18 +15,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
    twin run on the same card; median times of 20 CUDA-event-timed runs of
    each, of one PyTorch call that computes the same function where there is
    one, and the least time the card could take (bytes moved / 3.35 TB/s).
+   The SQL kernels run at their queries' shapes: string_cmp over the ids of
+   that first chunk, parse_number (int and float mode) and format_int over
+   one 131,072-row batch of the GFF starts and ends as decimal text, and
+   once more over all 3.4 M of them (printed apart). K7 and K14, left to
+   PyTorch, are timed beside their bounds.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
    on chromosome and 100 kb bin, overlap filter, coordinate sort), its TopK
    ``limit(1000)``, Query D (mate pairing: R1 ⟕ R2 on the read name,
    coordinate sort), and Query E (a FASTQ adapter screen, 4 M reads of
-   150 bp) and its count. Each is checked against numpy computations from
+   150 bp) and its count, and three SQL queries through ExonSession.sql:
+   SQL_count (Query count's filter as SQL), SQL_range (an accession-range
+   pull of 100,000 FASTA records by ordered string compares) and SQL_gff
+   (CREATE EXTERNAL TABLE, then exon counts and CAST round-trip sums of
+   start and end per chromosome and CASE-mapped strand). Each is checked
+   against numpy computations from
    the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
    numpy host decode byte for byte, and each query's scans are timed alone:
    the device decode (read, copy, kernels, synced) and the host decode.
+   Each SQL query then runs beside its DataFrame twin (twin, SQL, SQL,
+   twin; the same result), with the time SQL takes to parse, bind and
+   plan alone.
 5. Where the time goes in queries C and D: the join and the sort alone on
    device batches already in memory, with the kernels and with every
    wrapper's twin patched in (median of 5 host-clock runs ending in a
@@ -76,6 +89,9 @@ KERNELS = {
     "line_index": ("exon_tpu/ops/device_text.py:37", "line_index.cu"),
     "text_records": ("exon_tpu/ops/device_text.py:92", "text_records.cu"),
     "gather_spans": ("exon_tpu/ops/device_text.py:57", "gather_spans.cu"),
+    "string_cmp": ("exon_tpu/plan/expressions.py:780", "string_cmp.cu"),
+    "parse_number": ("exon_tpu/plan/expressions.py:951", "parse_number.cu"),
+    "format_int": ("exon_tpu/plan/expressions.py:989", "format_int.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -89,8 +105,21 @@ PATH_KERNELS = {
           "string_eq", "sort_keys"),
     "E": DECODE + ("like_match", "compact_mask", "gather_var"),
     "E_count": DECODE + ("like_match",),
+    "SQL_count": DECODE + ("compact_mask", "like_match"),
+    "SQL_range": DECODE + ("string_cmp", "compact_mask", "gather_var"),
+    "SQL_gff": ("format_int", "parse_number", "hash_aggregate"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
+SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
+             "> 300 AND sequence LIKE '%KK%'")
+RANGE = (b"sp|P100000", b"sp|P200000")   # ids of records 100,000-199,999
+SQL_RANGE = ("SELECT id, sequence FROM fasta_scan('{fa}') WHERE id >= "
+             f"'{RANGE[0].decode()}' AND id < '{RANGE[1].decode()}'")
+SQL_CREATE = "CREATE EXTERNAL TABLE genes STORED AS GFF LOCATION '{gf}'"
+SQL_GFF = ("SELECT seqname, CASE WHEN strand = '+' THEN 'fwd' ELSE 'rev' END "
+           "AS dir, COUNT(*) AS n, SUM(CAST(CAST(start AS VARCHAR) AS BIGINT)) "
+           "AS s, SUM(CAST(CAST(\"end\" AS VARCHAR) AS DOUBLE)) AS e FROM genes "
+           "WHERE type = 'exon' GROUP BY seqname, dir")
 
 
 def fail(msg: str) -> None:
@@ -546,8 +575,184 @@ def check_gather_spans(torch, chunk, lines) -> dict:
             "shape": f"{m} spans, {span_bytes} bytes in, {total} out"}
 
 
+def _fasta_ids(n: int) -> np.ndarray:
+    """The first n ids of Query A's FASTA file, as make_fasta writes them."""
+    return np.asarray([b"sp|P%06d|PROT%d" % (i, i) for i in range(n)])
+
+
+def _cmp_bytes(rows: np.ndarray, literal: bytes) -> int:
+    """Bytes an ordered compare with ``literal`` must read: each row up to
+    its first byte that differs from the literal, or min(length, len(lit))."""
+    k = len(literal)
+    mat = np.frombuffer(rows.astype(f"S{k}").tobytes(), np.uint8).reshape(
+        len(rows), k)
+    lens = np.minimum(np.char.str_len(rows), k)
+    differ = (mat != np.frombuffer(literal, np.uint8)) & \
+        (np.arange(k) < lens[:, None])
+    return int(np.where(differ.any(axis=1), differ.argmax(axis=1) + 1,
+                        lens).sum())
+
+
+def check_string_cmp(torch, n: int) -> dict:
+    from exon_tpu_torch.kernels import string_cmp as k
+
+    # SQL_range: the n ids of Query A's first chunk, the batch the decode
+    # hands the filter, against both ends of the range
+    ids = _fasta_ids(n)
+    offs, vals = _names_column(ids, torch)
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    out = {}
+    for literal, op in ((RANGE[0], ">="), (RANGE[1], "<")):
+        got = k.string_cmp(offs, vals, valid, literal, op)
+        _exact(f"string_cmp {op} {literal!r}", got,
+               k.string_cmp_plain(offs, vals, valid, literal, op))
+        out[op] = {
+            "max_abs_err": 0.0, "library_ms": None, "hits": got,
+            # offset pairs and validity in, the bytes up to each row's first
+            # difference, a bool out
+            "bytes": 4 * (n + 1) + n + _cmp_bytes(ids, literal) + n,
+            "ms": median_ms(lambda: k.string_cmp(offs, vals, valid, literal,
+                                                 op), torch),
+            "plain_ms": median_ms(lambda: k.string_cmp_plain(
+                offs, vals, valid, literal, op), torch),
+            "shape": f"{n} ids, {vals.shape[0]} bytes, {op} {literal.decode()}"}
+    both = int((out[">="].pop("hits") & out["<"].pop("hits")).sum())
+    if both != 100_000:
+        fail(f"string_cmp: {both} ids in the range, expected 100000")
+    lt = out["<"]
+    print(f"  string_cmp < {RANGE[1].decode()}: kernel {lt['ms']:.4f} ms, "
+          f"twin {lt['plain_ms']:.4f} ms, bound {bound_ms(lt['bytes']):.4f} "
+          f"ms; {both} ids in the range")
+    return out[">="]
+
+
+def _decimal_column(values: np.ndarray, torch):
+    """Device (offsets, values, validity) of int64 values as decimal text,
+    made on the host by numpy."""
+    text = values.astype("S20")
+    offs, vals = _names_column(text, torch)
+    return offs, vals, torch.ones(len(values), dtype=torch.bool,
+                                  device="cuda")
+
+
+def _parse_number_case(torch, want: np.ndarray, floating: bool,
+                       label: str) -> dict:
+    from exon_tpu_torch.kernels import parse_number as k
+
+    col = _decimal_column(want, torch)
+    got, ok = k.parse_number(*col, floating)
+    plain, plain_ok = k.parse_number_plain(*col, floating)
+    _exact(f"parse_number {label} validity", ok, plain_ok)
+    _exact(f"parse_number {label}", got.view(torch.int64),
+           plain.view(torch.int64))
+    if not bool(ok.all()) or not np.array_equal(
+            got.cpu().numpy(), want.astype(got.cpu().numpy().dtype)):
+        fail(f"parse_number {label}: values differ from the generator's")
+    n, text = len(want), int(col[1].shape[0])
+    return {"max_abs_err": 0.0, "library_ms": None,
+            # offset pairs, validity and the text in; value and ok out
+            "bytes": 4 * (n + 1) + n + text + 8 * n + n,
+            "ms": median_ms(lambda: k.parse_number(*col, floating), torch),
+            "plain_ms": median_ms(lambda: k.parse_number_plain(*col, floating),
+                                  torch),
+            "shape": f"{n} numerals, {text} bytes, {label}"}
+
+
+def _format_int_case(torch, ints: np.ndarray) -> dict:
+    from exon_tpu_torch.kernels import format_int as k
+
+    vals = torch.from_numpy(ints).cuda()
+    valid = torch.ones(len(ints), dtype=torch.bool, device="cuda")
+    got, want = k.format_int(vals, valid), k.format_int_plain(vals, valid)
+    _exact("format_int offsets", got[0], want[0])
+    _exact("format_int text", got[1], want[1])
+    if got[1].cpu().numpy().tobytes() != b"".join(ints.astype("S20").tolist()):
+        fail("format_int: text differs from numpy's")
+    n, total = len(ints), int(got[1].shape[0])
+    return {"max_abs_err": 0.0, "library_ms": None,
+            # values and validity in; offsets and text out
+            "bytes": 8 * n + n + 4 * (n + 1) + total,
+            "ms": median_ms(lambda: k.format_int(vals, valid), torch),
+            "plain_ms": median_ms(lambda: k.format_int_plain(vals, valid),
+                                  torch),
+            "shape": f"{n} int64, {total} bytes of text"}
+
+
+def _print_case(name: str, r: dict) -> None:
+    print(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms, twin "
+          f"{r['plain_ms']:.4f} ms, bound {bound_ms(r['bytes']):.4f} ms")
+
+
+def check_parse_number(torch, feats) -> dict:
+    # SQL_gff: CAST(start AS BIGINT) and CAST("end" AS DOUBLE) of their
+    # text, on each 131,072-row batch of the scan (the filter only masks
+    # rows there); then once over all 3.4 M numerals
+    out = {}
+    for mode, key, floating in (("int", "start", False),
+                                ("float", "end", True)):
+        out[mode] = _parse_number_case(torch, feats[key][:N_ROWS], floating,
+                                       f"{key}, {mode} mode")
+        _print_case("parse_number whole file", _parse_number_case(
+            torch, feats[key], floating, f"{key}, {mode} mode"))
+    _print_case("parse_number batch", out["float"])
+    return out["int"]
+
+
+def check_format_int(torch, feats) -> dict:
+    # SQL_gff: CAST(start AS VARCHAR) on a 131,072-row batch; then once over
+    # all 3.4 M starts
+    _print_case("format_int whole file", _format_int_case(torch,
+                                                          feats["start"]))
+    return _format_int_case(torch, feats["start"][:N_ROWS])
+
+
+def check_library_programs(rng, torch, offs, vals) -> None:
+    """K7 and K14, which the port leaves to PyTorch (no hand kernel): the
+    ungrouped reductions of an aggregate without GROUP BY, the dictionary
+    decode to a var-width column and the row concatenation of batches, at
+    the main path's batch shape, each beside its bound."""
+    from benchlib.gff_fixture import SEQNAMES
+    from exon_tpu_torch import datatypes as dt
+    from exon_tpu_torch.batch import Batch, DictColumn, FixedColumn, VarColumn
+    from exon_tpu_torch.ops.aggregate import ungrouped_reduce
+    from exon_tpu_torch.ops.layout import dict_to_var
+    from exon_tpu_torch.plan.physical import concat_batches
+
+    n = N_ROWS
+    ints = torch.from_numpy(rng.integers(-10**9, 10**9, n)).cuda()
+    mask = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    for fn in ("count", "sum", "min", "max"):
+        ms = median_ms(lambda: ungrouped_reduce(ints, mask, fn), torch)
+        # the mask (and the values) in, one int64 out
+        nbytes = n + (0 if fn == "count" else 8 * n) + 8
+        print(f"K7 ungrouped_reduce {fn} ({n} rows): {ms:.4f} ms, bound "
+              f"{bound_ms(nbytes):.6f} ms ({nbytes} bytes)")
+    codes = torch.from_numpy(rng.integers(0, len(SEQNAMES), n)
+                             .astype(np.int32)).cuda()
+    col = DictColumn(codes, valid, tuple(SEQNAMES))
+    out = dict_to_var(col)
+    ms = median_ms(lambda: dict_to_var(col), torch)
+    # codes and validity in; offsets and text out
+    nbytes = 5 * n + 4 * (n + 1) + int(out.values.shape[0])
+    print(f"K14 dict_to_var ({n} rows, {len(SEQNAMES)} strings): {ms:.4f} ms, "
+          f"bound {bound_ms(nbytes):.6f} ms ({nbytes} bytes)")
+    schema = dt.Schema.of(dt.Field("sequence", dt.utf8),
+                          dt.Field("start", dt.int64))
+    batch = Batch(schema, [VarColumn(vals, offs, valid),
+                           FixedColumn(ints, valid)], n)
+    parts = [batch] * 12
+    ms = median_ms(lambda: concat_batches(schema, parts, "cuda"), torch)
+    one = vals.shape[0] + 4 * (n + 1) + 8 * n + 2 * n
+    nbytes = 2 * 12 * one  # every part read once, the result written once
+    print(f"K14 concat_batches (12 x {n} rows, {vals.shape[0]} bytes of text "
+          f"each): {ms:.4f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes} "
+          "bytes)")
+
+
 def phase_kernels(torch) -> dict:
     from benchlib.bam_fixture import template_names
+    from benchlib.gff_fixture import gff_features
 
     chunk, ends_in_newline = _fasta_chunk(torch)
     decode = {}
@@ -555,6 +760,7 @@ def phase_kernels(torch) -> dict:
     decode["text_records"], lines = check_text_records(torch, chunk, nl,
                                                        ends_in_newline)
     decode["gather_spans"] = check_gather_spans(torch, chunk, lines)
+    n_ids = int(lines.is_hdr.sum())  # records in the chunk
     del chunk, nl, lines
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
@@ -570,6 +776,11 @@ def phase_kernels(torch) -> dict:
         "sort_keys": check_sort_keys(rng, torch, names),
         **decode,
     }
+    feats = gff_features(GFF_FEATURES, GFF_SEED)
+    results["string_cmp"] = check_string_cmp(torch, n_ids)
+    results["parse_number"] = check_parse_number(torch, feats)
+    results["format_int"] = check_format_int(torch, feats)
+    check_library_programs(rng, torch, offs, vals)
     for name, r in results.items():
         r["bound_ms"] = bound_ms(r["bytes"])
         lib = "" if r["library_ms"] is None else \
@@ -595,19 +806,19 @@ def _expected_a(flat: np.ndarray, offs: np.ndarray):
     return np.flatnonzero((lens > 300) & has_kk)
 
 
-def _check_a(host, flat, offs, sel) -> None:
+def _check_a(host, flat, offs, sel, label: str = "A") -> None:
     from exon_tpu_torch.formats.textutil import gather_slices
 
     if host.length != len(sel):
-        fail(f"query A: {host.length} rows, expected {len(sel)}")
+        fail(f"query {label}: {host.length} rows, expected {len(sel)}")
     ids = b"".join(b"sp|P%06d|PROT%d" % (i, i) for i in sel.tolist())
     idc, seqc = host.column("id"), host.column("sequence")
     if idc.values.tobytes() != ids:
-        fail("query A: ids differ from the generated records")
+        fail(f"query {label}: ids differ from the generated records")
     vals, want_offs = gather_slices(flat, offs[:-1][sel], offs[1:][sel])
     if not (np.array_equal(seqc.offsets.astype(np.int64), want_offs)
             and np.array_equal(seqc.values, vals)):
-        fail("query A: sequences differ from the generated records")
+        fail(f"query {label}: sequences differ from the generated records")
 
 
 def _check_b(host, feats) -> None:
@@ -637,6 +848,98 @@ def _check_b(host, feats) -> None:
                             ("n", "min", "max", "sum", "avg")):
         if not col.validity.all() or not np.array_equal(col.values, w):
             fail(f"query B: column {name} differs")
+
+
+def _check_sql_gff(host, feats) -> None:
+    """SQL_gff against numpy: per (seqname, strand) over the exons, the
+    count and the exact sums of start and end (integers below 2^53, so the
+    float64 sum is exact in any order), groups in first-seen order."""
+    from benchlib.gff_fixture import FEATURE_TYPES, SEQNAMES
+
+    m = np.flatnonzero(feats["type"] == FEATURE_TYPES.index("exon"))
+    key = feats["seqname"][m] * 2 + feats["strand"][m]
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    want = {
+        "seqname": [SEQNAMES[k // 2] for k in uniq[order]],
+        "dir": [("fwd", "rev")[k % 2] for k in uniq[order]],
+        "n": np.bincount(inv)[order],
+        "s": np.bincount(inv, weights=feats["start"][m].astype(np.float64)
+                         )[order].astype(np.int64),
+        "e": np.bincount(inv, weights=feats["end"][m].astype(np.float64)
+                         )[order]}
+    if host.length != len(uniq):
+        fail(f"query SQL_gff: {host.length} groups, expected {len(uniq)}")
+    for name, w in want.items():
+        col = host.column(name)
+        got = [col.vocab[c] for c in col.codes.tolist()] \
+            if name in ("seqname", "dir") else col.values
+        if not col.validity.all() or not np.array_equal(got, w):
+            fail(f"query SQL_gff: column {name} differs from numpy")
+    print(f"query SQL_gff: {host.length} (seqname, dir) groups; counts and "
+          "the sums of start and end match numpy exactly")
+
+
+def _same_batch(a, b) -> bool:
+    """Two host batches hold the same values, validity and order."""
+    if a.length != b.length or a.schema.names != b.schema.names:
+        return False
+    return all(np.array_equal(_values_of(x), _values_of(y))
+               and np.array_equal(x.validity, y.validity)
+               for x, y in zip(a.columns, b.columns))
+
+
+def _sql_vs_dataframe(session, T, fa, gf, torch) -> None:
+    """Each SQL query beside its DataFrame twin: host-clock walls run as
+    twin, SQL, SQL, twin, the results equal, and SQL's own parse, bind and
+    plan time (session.sql, optimize and the physical plan, nothing run)."""
+    from exon_tpu_torch import datatypes as dt
+
+    c = T.col
+    strand = T.Case(None, [(c("strand") == "+", T.lit("fwd"))], T.lit("rev"))
+    pairs = {
+        "SQL_count": (
+            SQL_COUNT.format(fa=fa),
+            lambda: session.read_fasta(fa).filter(
+                (T.FunctionCall("length", [c("sequence")]) > 300)
+                & c("sequence").like("%KK%")).aggregate(
+                [], [T.count().alias("count(*)")])),
+        "SQL_range": (
+            SQL_RANGE.format(fa=fa),
+            lambda: session.read_fasta(fa).filter(
+                (c("id") >= RANGE[0].decode()) & (c("id") < RANGE[1].decode())
+            ).select("id", "sequence")),
+        "SQL_gff": (
+            SQL_GFF,
+            lambda: session.read_gff(gf).filter(c("type") == "exon").aggregate(
+                [c("seqname"), strand.alias("dir")],
+                [T.count().alias("n"),
+                 T.sum_(T.Cast(T.Cast(c("start"), dt.utf8), dt.int64)
+                        ).alias("s"),
+                 T.sum_(T.Cast(T.Cast(c("end"), dt.utf8), dt.float64)
+                        ).alias("e")])),
+    }
+    for label, (sql, twin) in pairs.items():
+        walls, outs = {"twin": [], "sql": []}, {}
+        for kind in ("twin", "sql", "sql", "twin"):
+            t = time.perf_counter()
+            outs[kind] = (twin() if kind == "twin" else session.sql(sql)
+                          ).collect_host()
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t)
+        if not _same_batch(outs["sql"], outs["twin"]):
+            fail(f"query {label}: SQL and its DataFrame twin differ")
+        plan_s = []
+        for _ in range(5):
+            t = time.perf_counter()
+            df = session.sql(sql)
+            df._execute(df.logical_plan())
+            plan_s.append(time.perf_counter() - t)
+        print(f"query {label} vs its DataFrame twin (same result): SQL walls "
+              f"{', '.join(f'{w:.3f}' for w in walls['sql'])} s, twin walls "
+              f"{', '.join(f'{w:.3f}' for w in walls['twin'])} s; SQL parse, "
+              f"bind and plan alone {1e3 * float(np.median(plan_s)):.3f} ms "
+              "(median of 5)")
 
 
 def _names_of(col) -> np.ndarray:
@@ -925,6 +1228,14 @@ def phase_main_path(torch) -> dict:
         "E": (lambda: frames["E"]().collect_host(), FASTQ_READS),
         "E_count": (lambda: session.read_fastq(fq).filter(adapter).count(),
                     FASTQ_READS),
+        "SQL_count": (lambda: int(session.sql(SQL_COUNT.format(fa=fa))
+                                  .collect_host().columns[0].values[0]),
+                      FASTA_RECORDS),
+        "SQL_range": (lambda: session.sql(SQL_RANGE.format(fa=fa))
+                      .collect_host(), FASTA_RECORDS),
+        "SQL_gff": (lambda: (session.sql(SQL_CREATE.format(gf=gf)),
+                             session.sql(SQL_GFF).collect_host())[1],
+                    GFF_FEATURES),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -959,6 +1270,12 @@ def phase_main_path(torch) -> dict:
     _check_e(results["E"], fq_reads, rows_e)
     if results["E_count"] != len(rows_e):
         fail(f"E_count: {results['E_count']}, expected {len(rows_e)}")
+    if results["SQL_count"] != len(sel):
+        fail(f"SQL_count: {results['SQL_count']}, expected {len(sel)}")
+    _check_a(results["SQL_range"], flat, offs, np.arange(100_000, 200_000),
+             "SQL_range")
+    print("query SQL_range: ids and sequences of records 100,000-199,999")
+    _check_sql_gff(results["SQL_gff"], feats)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -973,7 +1290,7 @@ def phase_main_path(torch) -> dict:
         if base in device_scan:
             device_scan[q] = device_scan[base]
     for q, (sec, rows_in) in stats.items():
-        out = results[q] if q in ("count", "E_count") else results[q].length
+        out = results[q] if isinstance(results[q], int) else results[q].length
         share = "".join(
             f", {what} alone {t[q]:.3f} s ({100 * t[q] / sec:.1f} % of wall)"
             for what, t in (("device scan", device_scan),
@@ -981,8 +1298,9 @@ def phase_main_path(torch) -> dict:
         print(f"query {q}: {out} rows out, {sec:.3f} s wall, "
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{share}")
-    print("main path: queries A, count, B, C, C_top, D, E and E_count match "
-          "the generators' arrays")
+    print("main path: queries A, count, B, C, C_top, D, E, E_count, "
+          "SQL_count, SQL_range and SQL_gff match the generators' arrays")
+    _sql_vs_dataframe(session, T, fa, gf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 

@@ -1,21 +1,24 @@
 """exon_tpu_torch: the exon-tpu query engine on PyTorch and CUDA.
 
-A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. It runs the
-DataFrame API over FASTA, FASTQ, GFF and BAM files: Scan → Filter →
-Project, (Filter →) Aggregate, inner and left equi-joins, Sort, TopK and
-Limit, with hand-written CUDA kernels for FASTA/FASTQ decode on the device
+A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. It runs
+SQL (``ExonSession.sql``: SELECT, CREATE EXTERNAL TABLE, the scan table
+functions, SHOW TABLES, DESCRIBE, DROP TABLE) and the DataFrame API over
+FASTA, FASTQ, GFF and BAM files: Scan → Filter → Project, (Filter →)
+Aggregate, inner and left equi-joins, Sort, TopK and Limit, CASE and CAST,
+with hand-written CUDA kernels for FASTA/FASTQ decode on the device
 (newline index, per-line records, span gather), filter compaction,
-var-width gather, LIKE, the grouped hash aggregate, join pair expansion,
-row hashing, string equality and sort keys (``exon_tpu_torch.kernels``). It imports torch and numpy
-only; pyarrow is needed only by ``collect_arrow``.
+var-width gather, LIKE, ordered string compares, number parsing and
+formatting, the grouped hash aggregate, join pair expansion, row hashing,
+string equality and sort keys (``exon_tpu_torch.kernels``). It imports
+torch and numpy only; pyarrow is needed only by ``collect_arrow``.
 """
 
 from .batch import Batch
 from .datatypes import Schema
 from .dataframe import DataFrame
 from .errors import ExonError
-from .plan.expressions import (AggregateCall, FunctionCall, NullsOrder, col,
-                               lit)
+from .plan.expressions import (AggregateCall, Case, Cast, FunctionCall,
+                               NullsOrder, col, lit)
 from .session import ExonSession
 
 
@@ -41,6 +44,6 @@ def avg(child):
 
 __all__ = [
     "ExonSession", "DataFrame", "Batch", "Schema", "col", "lit",
-    "FunctionCall", "NullsOrder", "count", "sum_", "min_", "max_", "avg",
-    "ExonError",
+    "FunctionCall", "NullsOrder", "Case", "Cast", "count", "sum_", "min_",
+    "max_", "avg", "ExonError",
 ]

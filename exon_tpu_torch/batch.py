@@ -251,6 +251,28 @@ def take_host(batch: Batch, idx: np.ndarray) -> Batch:
     return Batch(batch.schema, cols, len(idx))
 
 
+def host_pylists(batch: Batch) -> list[list]:
+    """Each column of a host batch as a list of Python values (None for
+    NULL, str for strings): what the SQL frontend reads of a subquery."""
+    out = []
+    for c in batch.columns:
+        valid = np.asarray(c.validity)[: batch.length].tolist()
+        if isinstance(c, FixedColumn):
+            vals = np.asarray(c.values)[: batch.length].tolist()
+        elif isinstance(c, DictColumn):
+            vocab = list(c.vocab) or [""]
+            codes = np.clip(np.asarray(c.codes)[: batch.length], 0,
+                            len(vocab) - 1)
+            vals = [vocab[k] for k in codes.tolist()]
+        else:
+            offs = np.asarray(c.offsets).tolist()
+            raw = np.asarray(c.values).tobytes()
+            vals = [raw[offs[i]:offs[i + 1]].decode()
+                    for i in range(batch.length)]
+        out.append([v if ok else None for v, ok in zip(vals, valid)])
+    return out
+
+
 def _empty_column(dtype: DataType, n: int = 0) -> Column:
     """A host column of n NULL rows (no rows by default)."""
     none = np.zeros(n, np.bool_)

@@ -2,8 +2,9 @@
 
 Counterpart of exon_tpu/dataframe.py for ``filter``, ``select``,
 ``aggregate``, ``sort`` (:54), ``limit``, ``join`` (:66), ``count``,
-``collect_arrow`` and ``collect_host``, the host result accessor that needs
-no pyarrow. Unions and writers are not ported yet (ROADMAP Queue 1).
+``collect_arrow``, ``to_pandas`` (:95) and ``collect_host``, the host
+result accessor that needs no pyarrow. Unions and writers are not ported
+yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ class DataFrame:
 
     def collect_arrow(self):
         return self._execute(self._plan).collect_arrow()
+
+    def to_pandas(self):
+        return self.collect_arrow().to_pandas()
 
     def collect_host(self) -> Batch:
         """The result as one host Batch of numpy arrays."""

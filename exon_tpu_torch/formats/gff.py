@@ -56,7 +56,7 @@ def decode_host(data, options, projection: Optional[list[str]] = None
     if "attributes" in proj:
         raise NotImplementedError(
             "GFF attributes (a map column) are not ported yet "
-            "(ROADMAP Queue 1, GFF attributes)")
+            "(ROADMAP Queue 1, item 3: GFF attributes)")
     out_schema = schema.project(proj)
     arr = to_u8(data)
     if len(arr) == 0:

@@ -10,9 +10,10 @@ and ``reset_launch_counts()`` sets them to zero.
 
 from __future__ import annotations
 
-from . import (compact_mask, expand_segments, gather_spans, gather_var,
-               hash_aggregate, like_match, line_index, row_hash, sort_keys,
-               string_eq, text_records)
+from . import (compact_mask, expand_segments, format_int, gather_spans,
+               gather_var, hash_aggregate, like_match, line_index,
+               parse_number, row_hash, sort_keys, string_cmp, string_eq,
+               text_records)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -26,6 +27,9 @@ KERNEL_MODULES = {
     "line_index": line_index,
     "text_records": text_records,
     "gather_spans": gather_spans,
+    "string_cmp": string_cmp,
+    "parse_number": parse_number,
+    "format_int": format_int,
 }
 
 

@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface and loaded with ``ctypes``. The
+The sources in ``csrc/`` are compiled for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. Nothing enables fast math: the
+float parse of ``parse_number.cu`` must round as the host does. The
 library lands in ``build/exon_tpu_torch/<hash>/`` at the repository root,
 where ``<hash>`` is a content hash of the sources, so an edited source is
 rebuilt on its next use and an unchanged one is built once.
@@ -23,8 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "exon_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -49,6 +53,10 @@ SIGNATURES = {
     "exon_text_records": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P],
     "exon_gather_spans": [_P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
+    "exon_string_cmp": [_P, _P, _P, _I64, _P, _I32, _I32, _P, _P],
+    "exon_parse_number": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P],
+    "exon_format_int_lengths": [_P, _P, _I64, _P, _P],
+    "exon_format_int_write": [_P, _P, _P, _I64, _P, _P],
 }
 
 _lib = None
@@ -64,7 +72,7 @@ def source_hash() -> str:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -89,16 +97,38 @@ def build() -> Path:
         build_log.update(seconds=0.0, cached=True, path=str(lib_path))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, tag = _nvcc(), f".tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs = [out_dir / f"{src.stem}{tag}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources(), objs)]
+    output, failed = [], []
+    try:
+        for src, proc in zip(sources(), procs):
+            _out, err = proc.communicate()
+            output.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libexon_tpu_torch_kernels{tag}.so"
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
     os.replace(tmp, lib_path)
-    build_log.update(seconds=seconds, cached=False, path=str(lib_path),
-                     output=proc.stderr)
+    build_log.update(seconds=time.perf_counter() - t0, cached=False,
+                     path=str(lib_path), output="".join(output))
     return lib_path
 
 

@@ -81,7 +81,7 @@ def equals_literal(col: VarColumn, lit: bytes) -> torch.Tensor:
     return like_match(col.offsets, col.values, [tuple(lit)], False)
 
 
-def _vocab_mask(col: DictColumn, hits: list[int]) -> torch.Tensor:
+def vocab_mask(col: DictColumn, hits: list[int]) -> torch.Tensor:
     table = torch.zeros(max(len(col.vocab), 1), dtype=torch.bool)
     table[hits] = True
     return table.to(col.codes.device)[col.codes.long().clamp(
@@ -89,12 +89,12 @@ def _vocab_mask(col: DictColumn, hits: list[int]) -> torch.Tensor:
 
 
 def dict_equals(col: DictColumn, lit: str) -> torch.Tensor:
-    return _vocab_mask(col, [i for i, s in enumerate(col.vocab) if s == lit])
+    return vocab_mask(col, [i for i, s in enumerate(col.vocab) if s == lit])
 
 
 def dict_isin(col: DictColumn, lits: list[str]) -> torch.Tensor:
     want = set(lits)
-    return _vocab_mask(col, [i for i, s in enumerate(col.vocab) if s in want])
+    return vocab_mask(col, [i for i, s in enumerate(col.vocab) if s in want])
 
 
 def dict_like(col: DictColumn, pattern: str, case_insensitive: bool,
@@ -102,4 +102,4 @@ def dict_like(col: DictColumn, pattern: str, case_insensitive: bool,
     """LIKE over a dictionary column: match the host vocabulary, then map
     codes (exon_tpu/plan/expressions.py _dict_to_mask_like :571)."""
     rx = like_regex(pattern, escape, case_insensitive)
-    return _vocab_mask(col, [i for i, s in enumerate(col.vocab) if rx.match(s)])
+    return vocab_mask(col, [i for i, s in enumerate(col.vocab) if rx.match(s)])

@@ -1,13 +1,23 @@
 """Expression trees and their evaluation over torch batches.
 
 Counterpart of exon_tpu/plan/expressions.py: the ``Expr`` classes and
-builders (:29-120) and ``eval_expr`` (:408) for column refs, literals,
+helpers (:29-375, with the JAX field names, so that the SQL parser's trees
+have the same ``repr``), ``eval_expr`` (:408) for column refs, literals,
 aliases, comparison / arithmetic / boolean operators with NULL propagation
-(:624), NOT, IS NULL, LIKE (:428-436), IN lists and ``length()`` (a UDF in
-exon_tpu/udfs.py:155). Dictionary columns compare through their host
-vocabulary, as ops/strings.py:290 and expressions.py:571 do. Expressions the
-slice does not carry (CASE, CAST, map/struct access, ordered string compares,
-the other UDFs) raise NotImplementedError naming their ROADMAP item.
+and literal folding (:624), NOT, IS NULL, LIKE (:428-436), IN lists, CASE
+(:495), CAST (:799) and ``length()`` (a UDF in exon_tpu/udfs.py:155), and
+``split_conjunction``/``conjoin`` (:1032,1038). Dictionary columns compare
+and cast through their host vocabulary, as ops/strings.py:290 and
+expressions.py:571 do. Ordered compares of a var-width column with a
+literal run the string_cmp kernel, CAST of strings to numbers the
+parse_number kernel and CAST of integers to strings the format_int kernel.
+Expressions the slice does not carry (map/struct access, windows, the other
+UDFs) raise NotImplementedError naming their ROADMAP item.
+
+Two JAX faults are not copied (ROADMAP Queue 3): a NULL row never passes a
+string compare (F8: the JAX var compares treat it as ''), and an ordered
+compare of a dictionary column with a literal outside its vocabulary
+compares the strings (F9: the JAX rank lookup is approximate).
 
 Evaluation returns a Column, a torch tensor of per-row values (all valid),
 or a Python scalar (a literal).
@@ -18,10 +28,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
+from .. import datatypes as dt
 from ..batch import Batch, DictColumn, FixedColumn, VarColumn
 from ..errors import PlanError
+from ..kernels.format_int import format_int
+from ..kernels.parse_number import parse_number
+from ..kernels.string_cmp import string_cmp
+from ..ops import layout as layout_ops
 from ..ops import strings as str_ops
 
 
@@ -121,6 +137,37 @@ class ColumnRef(Expr):
 
 
 @dataclasses.dataclass(eq=False)
+class FieldAccess(Expr):
+    """Struct-field extraction ``tags."PG"``, parsed for every dotted
+    identifier; the planner turns a table qualifier back into a ColumnRef
+    (exon_tpu/plan/expressions.py:129)."""
+
+    child: Expr
+    field: str
+
+    def children(self):
+        return [self.child]
+
+    def display_name(self) -> str:
+        return self.field
+
+
+@dataclasses.dataclass(eq=False)
+class Subscript(Expr):
+    """``expr[index]``: map value, list element or struct field
+    (exon_tpu/plan/expressions.py:145)."""
+
+    child: Expr
+    index: Expr
+
+    def children(self):
+        return [self.child, self.index]
+
+    def display_name(self) -> str:
+        return f"{self.child.display_name()}[{self.index.display_name()}]"
+
+
+@dataclasses.dataclass(eq=False)
 class Literal(Expr):
     value: Any
 
@@ -195,6 +242,15 @@ class InList(Expr):
 
 
 @dataclasses.dataclass(eq=False)
+class Cast(Expr):
+    child: Expr
+    dtype: dt.DataType
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass(eq=False)
 class FunctionCall(Expr):
     name: str
     args: list
@@ -230,6 +286,8 @@ class AggregateCall(Expr):
     fn: str
     child: Optional[Expr]  # None → count(*)
     distinct: bool = False
+    # extra literal arguments (e.g. string_agg separator)
+    extra: tuple = ()
 
     def children(self):
         return [self.child] if self.child is not None else []
@@ -237,6 +295,92 @@ class AggregateCall(Expr):
     def display_name(self) -> str:
         inner = self.child.display_name() if self.child else "*"
         return f"{self.fn}({inner})"
+
+
+@dataclasses.dataclass(repr=True, eq=False)
+class Case(Expr):
+    """CASE [operand] WHEN … THEN … [ELSE …] END
+    (exon_tpu/plan/expressions.py:273): a chain of ``torch.where``s; string
+    literal results become a DictColumn whose codes select the branch."""
+
+    operand: Optional[Expr]
+    whens: list  # [(when_expr, then_expr)]
+    else_: Optional[Expr]
+
+    def children(self):
+        out = [self.operand] if self.operand is not None else []
+        for w, t in self.whens:
+            out.extend([w, t])
+        if self.else_ is not None:
+            out.append(self.else_)
+        return out
+
+    def display_name(self) -> str:
+        return "case"
+
+
+@dataclasses.dataclass(repr=True, eq=False)
+class WindowCall(Expr):
+    """fn(...) OVER (PARTITION BY … [ORDER BY …])
+    (exon_tpu/plan/expressions.py:313); planned into a Window node, which
+    the port does not lower yet (ROADMAP Queue 1, item 7)."""
+
+    fn: str
+    child: Optional[Expr]
+    partition_by: list
+    order_by: list  # [(expr, asc)]
+    offset: int = 1      # lag/lead offset; ntile bucket count
+    default: object = None
+    # None = the default frame, or ("rows", lo, hi) relative to the row
+    frame: object = None
+
+    def children(self):
+        out = [self.child] if self.child is not None else []
+        out.extend(self.partition_by)
+        out.extend(e for e, _ in self.order_by)
+        return out
+
+    def display_name(self) -> str:
+        inner = self.child.display_name() if self.child else ""
+        return f"{self.fn}({inner}) over(…)"
+
+
+@dataclasses.dataclass(repr=True, eq=False)
+class Subquery(Expr):
+    """Scalar subquery, resolved by the SQL frontend before planning."""
+
+    stmt: object  # sql.ast.SelectStmt
+
+    def children(self):
+        return []
+
+    def display_name(self) -> str:
+        return "(subquery)"
+
+
+@dataclasses.dataclass(repr=True, eq=False)
+class ExistsSubquery(Expr):
+    stmt: object
+    negated: bool = False
+
+    def children(self):
+        return []
+
+    def display_name(self) -> str:
+        return "exists(subquery)"
+
+
+@dataclasses.dataclass(repr=True, eq=False)
+class InSubquery(Expr):
+    child: Expr
+    stmt: object
+    negated: bool = False
+
+    def children(self):
+        return [self.child]
+
+    def display_name(self) -> str:
+        return "in(subquery)"
 
 
 # ---------------------------------------------------------------------------
@@ -288,16 +432,212 @@ def eval_expr(expr: Expr, batch: Batch):
             for x in vals:
                 m |= arr == x
         return ~m if expr.negated else m
+    if isinstance(expr, Cast):
+        return _eval_cast(eval_expr(expr.child, batch), expr.dtype, batch)
+    if isinstance(expr, Case):
+        return _eval_case(expr, batch)
     if isinstance(expr, FunctionCall):
         if expr.name.lower() not in LENGTH_FUNCTIONS:
             raise NotImplementedError(
                 f"function {expr.name!r} is not ported yet "
-                "(ROADMAP Queue 1, UDFs and SQL functions)")
+                "(ROADMAP Queue 1, item 8: UDFs and SQL functions)")
         (arg,) = [eval_expr(a, batch) for a in expr.args]
         return _length(arg)
-    raise NotImplementedError(
-        f"{type(expr).__name__} expressions are not ported yet "
-        "(ROADMAP Queue 1, Scan/Filter/Project and expressions)")
+    if isinstance(expr, (FieldAccess, Subscript)):
+        raise NotImplementedError(
+            "struct, map and list access is not ported yet (ROADMAP Queue 1, "
+            "items 2-3: list and map columns)")
+    if isinstance(expr, WindowCall):
+        raise NotImplementedError(
+            "window functions are not ported yet (ROADMAP Queue 1, item 7)")
+    raise PlanError(f"cannot evaluate {expr!r}")
+
+
+def _full(n: int, v, device) -> torch.Tensor:
+    """A column of one Python scalar, typed as the JAX package types it
+    under x64 (bool, int64, float64)."""
+    dtype = torch.bool if isinstance(v, (bool, np.bool_)) else \
+        torch.float64 if isinstance(v, (float, np.floating)) else torch.int64
+    return torch.full((n,), v, dtype=dtype, device=device)
+
+
+def _eval_case(expr: Case, batch: Batch):
+    """One where-chain, first true branch wins (exon_tpu/plan/expressions.py
+    :495-568). String THEN/ELSE literals become a DictColumn whose vocab is
+    in order of first appearance."""
+    cap, dev = batch.capacity, batch.device
+    conds = []
+    for w, _t in expr.whens:
+        c = BinaryOp("=", expr.operand, w) if expr.operand is not None else w
+        conds.append(as_bool_mask(eval_expr(c, batch), batch))
+    results = [t for _w, t in expr.whens]
+    if expr.else_ is not None:
+        results.append(expr.else_)
+
+    def is_str_lit(e):
+        return isinstance(e, Literal) and (isinstance(e.value, str)
+                                           or e.value is None)
+
+    if results and all(is_str_lit(r) for r in results):
+        vocab: list = []
+        codes_for = []
+        for r in results:
+            if r.value is None:
+                codes_for.append(-1)
+            else:
+                if r.value not in vocab:
+                    vocab.append(r.value)
+                codes_for.append(vocab.index(r.value))
+        else_code = codes_for[-1] if expr.else_ is not None else -1
+        codes = torch.full((cap,), else_code, dtype=torch.int32, device=dev)
+        valid = torch.full((cap,), else_code >= 0, dtype=torch.bool,
+                           device=dev)
+        taken = torch.zeros(cap, dtype=torch.bool, device=dev)
+        for m, code in zip(conds, codes_for):
+            pick = m & ~taken
+            codes = torch.where(pick, code, codes)
+            valid = torch.where(pick, code >= 0, valid)
+            taken = taken | m
+        return DictColumn(codes.clamp(0, max(len(vocab) - 1, 0)),
+                          valid & batch.row_mask(), tuple(vocab))
+
+    # numeric / boolean path
+    vals_valid = []
+    for r in results:
+        v = eval_expr(r, batch)
+        if isinstance(v, (VarColumn, DictColumn)):
+            raise PlanError("CASE with non-literal string results "
+                            "is not supported")
+        arr = _as_values(v, batch)
+        if not isinstance(arr, torch.Tensor):
+            if isinstance(r, Literal) and r.value is None:
+                # jnp.zeros(cap): float64 under x64
+                vals_valid.append((torch.zeros(cap, dtype=torch.float64,
+                                               device=dev),
+                                   torch.zeros(cap, dtype=torch.bool,
+                                               device=dev)))
+                continue
+            arr = _full(cap, arr, dev)
+        vals_valid.append((arr, _validity_of(v, batch)))
+    out_dt = vals_valid[0][0].dtype
+    for a, _v in vals_valid[1:]:
+        out_dt = torch.promote_types(out_dt, a.dtype)
+    if expr.else_ is not None:
+        out, valid = vals_valid[-1]
+        out = out.to(out_dt)
+        branch_vv = vals_valid[:-1]
+    else:
+        out = torch.zeros(cap, dtype=out_dt, device=dev)
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        branch_vv = vals_valid
+    taken = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for m, (arr, av) in zip(conds, branch_vv):
+        pick = m & ~taken
+        out = torch.where(pick, arr.to(out_dt), out)
+        valid = torch.where(pick, av, valid)
+        taken = taken | m
+    return FixedColumn(out, valid & batch.row_mask())
+
+
+_TORCH_DTYPES = {
+    dt.TypeKind.INT8: torch.int8, dt.TypeKind.INT16: torch.int16,
+    dt.TypeKind.INT32: torch.int32, dt.TypeKind.INT64: torch.int64,
+    dt.TypeKind.UINT8: torch.uint8, dt.TypeKind.FLOAT32: torch.float32,
+    dt.TypeKind.FLOAT64: torch.float64, dt.TypeKind.BOOL: torch.bool,
+}
+
+
+def _torch_dtype(dtype: dt.DataType) -> torch.dtype:
+    tdt = _TORCH_DTYPES.get(dtype.kind)
+    if tdt is None:
+        raise NotImplementedError(
+            f"CAST to {dtype} is not ported yet (ROADMAP Queue 1, item 2)")
+    return tdt
+
+
+def _eval_cast(v, dtype: dt.DataType, batch: Batch):
+    """CAST (exon_tpu/plan/expressions.py:799-843). Literals cast on the
+    host; strings parse on the parse_number kernel (a dictionary column
+    through its vocabulary, then its codes); integers and booleans format
+    on the format_int kernel."""
+    from ..datatypes import numpy_dtype
+
+    is_utf8 = dtype.kind in (dt.TypeKind.UTF8, dt.TypeKind.LARGE_UTF8)
+    if isinstance(v, str):
+        if dtype.is_fixed_width:
+            npdt = numpy_dtype(dtype)
+            try:
+                return np.asarray(
+                    float(v) if np.issubdtype(npdt, np.floating)
+                    else int(v), dtype=npdt).item()
+            except ValueError:
+                raise PlanError(
+                    f"cannot cast string '{v}' to {dtype}") from None
+        return v
+    if isinstance(v, (int, float, bool)):
+        if is_utf8:
+            if isinstance(v, bool):
+                return "true" if v else "false"
+            return str(v)
+        if dtype.is_fixed_width:
+            return np.asarray(v).astype(numpy_dtype(dtype)).item()
+    if dtype.is_fixed_width and isinstance(v, DictColumn):
+        return _cast_dict_to_number(v, dtype)
+    if isinstance(v, DictColumn):
+        v = layout_ops.dict_to_var(v)
+    if dtype.is_fixed_width and isinstance(v, VarColumn):
+        return _cast_utf8_to_number(v, dtype)
+    if is_utf8:
+        if isinstance(v, VarColumn):
+            return v
+        vals = _as_values(v, batch)
+        if not isinstance(vals, torch.Tensor) or \
+                vals.dtype.is_floating_point:
+            raise PlanError("cast of floats to VARCHAR not supported on "
+                            "device")
+        offsets, values = format_int(vals.to(torch.int64),
+                                     _validity_of(v, batch))
+        return VarColumn(values, offsets, _validity_of(v, batch))
+    if dtype.is_fixed_width:
+        arr = _as_values(v, batch)
+        out = arr.to(_torch_dtype(dtype))
+        if isinstance(v, FixedColumn):
+            # a cast carries NULLs through
+            return FixedColumn(out, v.validity)
+        return out
+    raise PlanError(f"cast to {dtype} not supported on device")
+
+
+def _cast_utf8_to_number(v: VarColumn, dtype: dt.DataType) -> FixedColumn:
+    """parse_number in int or float mode, then the JAX ``astype`` to the
+    target (exon_tpu/plan/expressions.py:951-986)."""
+    tdt = _torch_dtype(dtype)
+    vals, ok = parse_number(v.offsets, v.values, v.validity,
+                            tdt.is_floating_point)
+    return FixedColumn(vals.to(tdt), ok)
+
+
+def _cast_dict_to_number(v: DictColumn, dtype: dt.DataType) -> FixedColumn:
+    """Parse the vocabulary once, by the same kernel and rules, then map
+    the codes: the JAX ``dict_to_var`` + parse gives the same values."""
+    dev = v.codes.device
+    enc = [s.encode() for s in v.vocab]
+    offs = np.zeros(len(enc) + 1, np.int32)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    flat = np.frombuffer(b"".join(enc), np.uint8).copy()
+    vocab = VarColumn(torch.from_numpy(flat).to(dev),
+                      torch.from_numpy(offs).to(dev),
+                      torch.ones(len(enc), dtype=torch.bool, device=dev))
+    parsed = _cast_utf8_to_number(vocab, dtype)
+    if not enc:
+        return FixedColumn(torch.zeros(v.capacity, device=dev,
+                                       dtype=_torch_dtype(dtype)),
+                           torch.zeros(v.capacity, dtype=torch.bool,
+                                       device=dev))
+    codes = v.codes.long().clamp(0, len(enc) - 1)
+    ok = parsed.validity[codes] & v.validity
+    zero = torch.zeros((), dtype=parsed.values.dtype, device=dev)
+    return FixedColumn(torch.where(ok, parsed.values[codes], zero), ok)
 
 
 def _length(v) -> torch.Tensor:
@@ -358,9 +698,7 @@ def _arith(op: str, a, b):
     if op == "*":
         return a * b
     if _is_scalar(a) and _is_scalar(b):
-        raise NotImplementedError(
-            "literal '/' and '%' folding is not ported yet "
-            "(ROADMAP Queue 1, Scan/Filter/Project and expressions)")
+        return _fold(op, a, b)
     floating = any(isinstance(x, float) or (isinstance(x, torch.Tensor)
                                             and x.dtype.is_floating_point)
                    for x in (a, b))
@@ -375,6 +713,24 @@ def _arith(op: str, a, b):
         safe = torch.where(torch.as_tensor(b) == 0, 1, b)
         return torch.fmod(torch.as_tensor(a), safe)
     raise PlanError(f"unknown operator {op}")
+
+
+def _fold(op: str, a, b):
+    """'/' and '%' of two literals, with the JAX package's arithmetic
+    (exon_tpu/plan/expressions.py:646-658): integer division divides as
+    doubles and truncates, a zero divisor becomes 1, and the remainder takes
+    the dividend's sign."""
+    floating = isinstance(a, float) or isinstance(b, float)
+    if op == "/":
+        if not floating:
+            return int(np.float64(a) / np.float64(b if b != 0 else 1))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return float(np.float64(a) / np.float64(b))
+    bz = b if b != 0 else (1.0 if isinstance(b, float) else 1)
+    r = np.remainder(a, bz)
+    if r != 0 and np.sign(a) != np.sign(bz):
+        r = r - bz
+    return r.item() if isinstance(r, np.generic) else r
 
 
 def _eval_binary(expr: BinaryOp, batch: Batch):
@@ -405,20 +761,30 @@ def _eval_binary(expr: BinaryOp, batch: Batch):
 
 
 def _eval_string_cmp(op: str, lv, rv):
+    """A string column against a literal (exon_tpu/plan/expressions.py
+    :670-703). NULL rows never pass (F8); a dictionary column's ordered
+    compare compares its vocabulary strings on the host (F9)."""
     swap = {"<": ">", ">": "<", "<=": ">=", ">=": "<=", "=": "=", "!=": "!="}
     if isinstance(lv, str):
         lv, rv, op = rv, lv, swap[op]
-    if not isinstance(rv, str) or op not in ("=", "!="):
+    if not isinstance(rv, str):
         raise NotImplementedError(
-            "ordered string compares and column-vs-column string compares "
-            "are not ported yet (ROADMAP Queue 2, K2)")
+            "column-vs-column string compares are not ported yet "
+            "(ROADMAP Queue 1, item 8)")
     if isinstance(lv, DictColumn):
-        m = str_ops.dict_equals(lv, rv)
-    elif isinstance(lv, VarColumn):
-        m = str_ops.equals_literal(lv, rv.encode())
-    else:
-        raise PlanError(f"string compare over {type(lv)}")
-    return ~m & lv.validity if op == "!=" else m
+        if op == "=":
+            return str_ops.dict_equals(lv, rv)
+        if op == "!=":
+            return ~str_ops.dict_equals(lv, rv) & lv.validity
+        lit, cmp = rv.encode(), _CMP[op]
+        hits = [i for i, s in enumerate(lv.vocab) if cmp(s.encode(), lit)]
+        return str_ops.vocab_mask(lv, hits) & lv.validity
+    if isinstance(lv, VarColumn):
+        if op in ("=", "!="):
+            m = str_ops.equals_literal(lv, rv.encode())
+            return (~m if op == "!=" else m) & lv.validity
+        return string_cmp(lv.offsets, lv.values, lv.validity, rv.encode(), op)
+    raise PlanError(f"string compare over {type(lv)}")
 
 
 # ---------------------------------------------------------------------------
@@ -436,4 +802,19 @@ def expr_columns(expr: Expr) -> set[str]:
             walk(c)
 
     walk(expr)
+    return out
+
+
+def split_conjunction(expr: Expr) -> list[Expr]:
+    if isinstance(expr, BinaryOp) and expr.op == "and":
+        return split_conjunction(expr.left) + split_conjunction(expr.right)
+    return [expr]
+
+
+def conjoin(exprs: list[Expr]) -> Optional[Expr]:
+    if not exprs:
+        return None
+    out = exprs[0]
+    for e in exprs[1:]:
+        out = BinaryOp("and", out, e)
     return out

@@ -1,9 +1,10 @@
 """Logical plan nodes: Scan / Filter / Project / Aggregate / Sort / Limit /
-Join.
+Join / Values, and the nodes the SQL frontend builds that the port does
+not lower yet: Window, Union, Repeat, CopyTo and Explain.
 
-Counterpart of exon_tpu/plan/logical.py:18-152 for the nodes the port
-plans. Window, Union, Values and CopyTo are not ported yet (ROADMAP
-Queue 1).
+Counterpart of exon_tpu/plan/logical.py:18-245. ``create_physical_plan``
+raises NotImplementedError for Window, Union and Repeat (ROADMAP Queue 1,
+item 7), CopyTo (item 10) and Explain (item 11).
 """
 
 from __future__ import annotations
@@ -138,3 +139,85 @@ class Limit(LogicalPlan):
 
     def schema(self) -> Schema:
         return self.input.schema()
+
+
+@dataclasses.dataclass
+class Window(LogicalPlan):
+    """Append window-function result columns (names) to the input."""
+
+    calls: list  # [WindowCall]
+    names: list[str]
+    input: LogicalPlan
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        raise NotImplementedError(
+            "window functions are not ported yet (ROADMAP Queue 1, item 7)")
+
+
+@dataclasses.dataclass
+class Union(LogicalPlan):
+    inputs: list[LogicalPlan]
+
+    def children(self):
+        return list(self.inputs)
+
+    def schema(self) -> Schema:
+        return self.inputs[0].schema()
+
+
+@dataclasses.dataclass
+class Repeat(LogicalPlan):
+    """Emit each input row ``count_expr`` times (clipped at 0): the multiset
+    expansion behind INTERSECT ALL / EXCEPT ALL."""
+
+    count_expr: object  # Expr
+    input: LogicalPlan
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+
+@dataclasses.dataclass
+class Values(LogicalPlan):
+    """Literal rows (SELECT without FROM, statement results)."""
+
+    out_schema: Schema
+    rows: list[tuple]
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+
+@dataclasses.dataclass
+class CopyTo(LogicalPlan):
+    """COPY (query) TO 'url' STORED AS <format>."""
+
+    input: LogicalPlan
+    target_url: str
+    file_format: str
+    options: dict
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return Schema.of(Field("count", dt.int64, False))
+
+
+@dataclasses.dataclass
+class Explain(LogicalPlan):
+    input: LogicalPlan
+    analyze: bool = False
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return Schema.of(Field("plan_type", dt.utf8, False),
+                         Field("plan", dt.utf8, False))

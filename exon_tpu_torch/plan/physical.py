@@ -36,7 +36,7 @@ from ..kernels.sort_keys import FixedKey, VarKey, sort_keys
 from ..ops import aggregate as agg_ops
 from ..ops import layout as layout_ops
 from .expressions import (AggregateCall, Expr, NullsOrder, _as_values,
-                          _validity_of, as_bool_mask, eval_expr)
+                          _full, _validity_of, as_bool_mask, eval_expr)
 
 
 class PhysicalPlan:
@@ -123,13 +123,18 @@ class ProjectExec(PhysicalPlan):
 
 
 def _to_column(v, batch: Batch):
+    """An evaluated expression as a column (exon_tpu/plan/physical.py:168):
+    a Python scalar fills every row, a string repeats its bytes."""
     if isinstance(v, (FixedColumn, VarColumn, DictColumn)):
         return v
     if isinstance(v, str):
-        raise NotImplementedError(
-            "constant string columns are not ported yet (ROADMAP Queue 1)")
+        b, cap = v.encode(), batch.capacity
+        vals = torch.from_numpy(np.tile(np.frombuffer(b, np.uint8), cap))
+        offs = torch.arange(cap + 1, dtype=torch.int32) * len(b)
+        return VarColumn(vals.to(batch.device), offs.to(batch.device),
+                         batch.row_mask())
     if not isinstance(v, torch.Tensor):
-        v = torch.full((batch.capacity,), v, device=batch.device)
+        v = _full(batch.capacity, v, batch.device)
     return FixedColumn(v, batch.row_mask())
 
 
@@ -680,3 +685,37 @@ class LimitExec(PhysicalPlan):
                 fetch -= take
                 if fetch <= 0:
                     return
+
+
+@dataclasses.dataclass
+class ValuesExec(PhysicalPlan):
+    """Literal rows as one batch (exon_tpu/plan/physical.py:1570), built on
+    the host from Python values (None is NULL) and moved to ``device``."""
+
+    out_schema: Schema
+    rows: list
+    device: object = "cpu"
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def batches(self) -> Iterator[Batch]:
+        from ..batch import utf8_column
+
+        n = len(self.rows)
+        cols = []
+        for j, f in enumerate(self.out_schema.all_fields):
+            vals = [r[j] for r in self.rows]
+            if f.dtype.is_var_width or f.dtype.kind == dt.TypeKind.DICTIONARY:
+                cols.append(utf8_column([None if v is None else str(v)
+                                         for v in vals]))
+            elif f.dtype.is_fixed_width:
+                valid = np.asarray([v is not None for v in vals], np.bool_)
+                arr = np.asarray([0 if v is None else v for v in vals],
+                                 dtype=dt.numpy_dtype(f.dtype))
+                cols.append(FixedColumn(arr, valid))
+            else:
+                raise NotImplementedError(
+                    f"{f.dtype} literals are not ported yet (ROADMAP Queue "
+                    "1, item 2: list columns)")
+        yield Batch(self.out_schema, cols, n).to_device(self.device)

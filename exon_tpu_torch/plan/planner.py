@@ -1,13 +1,15 @@
 """Type inference, a minimal optimizer and lowering to physical operators.
 
 Counterpart of exon_tpu/plan/planner.py: ``infer_expr_field`` (:34) for the
-ported expressions, ``optimize`` (:166) reduced to projection pushdown into
-the scan (:411) and identity-projection elision (:175), and
-``create_physical_plan`` (:551-622, :642-661) for Scan / Filter / Project /
-Aggregate / Sort / Limit / Join, with the same fusion of a Filter directly
-under an Aggregate into the aggregate's ``pre_filter`` and of a Limit over
-a Sort into a TopK sort. Projection pushdown runs through Sort and Join
-(:460-501). The distributed branches are not ported (ROADMAP Queue 2, K13).
+ported expressions, ``optimize`` (:166) reduced to resolving table
+qualifiers (:231), projection pushdown into the scan (:411) and
+identity-projection elision (:175), and ``create_physical_plan`` (:551-668)
+for Scan / Filter / Project / Aggregate / Sort / Limit / Join / Values,
+with the same fusion of a Filter directly under an Aggregate into the
+aggregate's ``pre_filter`` and of a Limit over a Sort into a TopK sort.
+Projection pushdown runs through Sort and Join (:460-501). Window, Union,
+Repeat, CopyTo and Explain raise NotImplementedError naming their ROADMAP
+item; the distributed branches are not ported (ROADMAP Queue 2, K13).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from ..errors import PlanError
 from . import logical as L
 from . import physical as P
 from .expressions import (LENGTH_FUNCTIONS, AggregateCall, Alias, BinaryOp,
-                          ColumnRef, Expr, FunctionCall, InList, IsNull, Like,
-                          Literal, Not, expr_columns)
+                          Case, Cast, ColumnRef, Expr, FieldAccess,
+                          FunctionCall, InList, IsNull, Like, Literal, Not,
+                          expr_columns)
 
 _NUMERIC_ORDER = ["int8", "int16", "int32", "int64", "float32", "float64"]
 
@@ -47,6 +50,15 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
         raise PlanError(f"literal type {type(v)}")
     if isinstance(expr, (Like, IsNull, InList, Not)):
         return Field(expr.display_name(), dt.bool_, True)
+    if isinstance(expr, Cast):
+        return Field(expr.display_name(), expr.dtype, True)
+    if isinstance(expr, Case):
+        return _case_field(expr, schema)
+    if isinstance(expr, FieldAccess) and isinstance(expr.child, ColumnRef) \
+            and not schema.has_field(expr.child.name) \
+            and schema.has_field(expr.field):
+        # a table-qualified ref (a.seqname) before resolution
+        return schema.field(expr.field)
     if isinstance(expr, BinaryOp):
         if expr.op in ("=", "!=", "<", "<=", ">", ">=", "and", "or"):
             return Field(expr.display_name(), dt.bool_, True)
@@ -69,8 +81,31 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
             return Field(expr.display_name(), dt.float64, True)
         inner = infer_expr_field(expr.child, schema)
         return Field(expr.display_name(), inner.dtype, True)
+    if isinstance(expr, FunctionCall):
+        raise NotImplementedError(
+            f"function {expr.name!r} is not ported yet (ROADMAP Queue 1, "
+            "item 8: UDFs and SQL functions)")
     raise NotImplementedError(
         f"cannot type {expr!r}: not ported yet (ROADMAP Queue 1)")
+
+
+def _case_field(expr: Case, schema: Schema) -> Field:
+    """CASE's type (exon_tpu/plan/planner.py:120-135): utf8 when every
+    non-NULL result is a string, else the widest numeric result."""
+    results = [t for _w, t in expr.whens]
+    if expr.else_ is not None:
+        results.append(expr.else_)
+    fields = [infer_expr_field(r, schema) for r in results
+              if not (isinstance(r, Literal) and r.value is None)]
+    if not fields:
+        return Field("case", dt.utf8, True)
+    if all(f.dtype.kind.value in ("utf8", "dictionary") for f in fields):
+        return Field("case", dt.utf8, True)
+    order = ["bool"] + _NUMERIC_ORDER
+    out = max((f.dtype for f in fields),
+              key=lambda d: order.index(d.kind.value)
+              if d.kind.value in order else 0)
+    return Field("case", out, True)
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +114,49 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
 
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    return _elide_identity_projects(_push_projection(plan))
+    return _elide_identity_projects(_push_projection(
+        _resolve_field_access(plan)))
+
+
+def _resolve_field_access(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Strip the table qualifier of a parse-time dotted ref
+    (exon_tpu/plan/planner.py:231); the port has no struct or map columns
+    (ROADMAP Queue 1, items 2-3), so every dot over a column name is a
+    qualifier."""
+    import dataclasses as _dc
+
+    def resolve(e: Expr) -> Expr:
+        if isinstance(e, FieldAccess):
+            child = resolve(e.child)
+            if isinstance(child, ColumnRef):
+                return ColumnRef(e.field)
+            return FieldAccess(child, e.field)
+        if not e.children():
+            return e
+        return _dc.replace(e, **{f.name: walk(getattr(e, f.name))
+                                 for f in _dc.fields(e)})
+
+    def walk(v):
+        # CASE keeps (when, then) pairs in a list
+        if isinstance(v, Expr):
+            return resolve(v)
+        if isinstance(v, (list, tuple)):
+            return type(v)(walk(x) for x in v)
+        return v
+
+    kids = [_resolve_field_access(c) for c in plan.children()]
+    if isinstance(plan, L.Filter):
+        return L.Filter(resolve(plan.predicate), kids[0])
+    if isinstance(plan, L.Project):
+        return L.Project([resolve(e) for e in plan.exprs], kids[0])
+    if isinstance(plan, L.Aggregate):
+        return L.Aggregate([resolve(e) for e in plan.group_exprs],
+                           [resolve(e) for e in plan.agg_exprs],
+                           plan.agg_names, kids[0])
+    if isinstance(plan, L.Sort):
+        return L.Sort([(resolve(e), asc) for e, asc in plan.keys], kids[0],
+                      plan.fetch)
+    return _with_children(plan, kids)
 
 
 def _elide_identity_projects(plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -130,7 +207,7 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(p, L.Join):
             return L.Join(*_join_needs(p, needed, required), p.on, p.how,
                           p.filter, p.right_names)
-        raise PlanError(f"cannot optimize {type(p).__name__}")
+        return _with_children(p, [required(c, None) for c in p.children()])
 
     return required(plan, None)
 
@@ -177,6 +254,17 @@ def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
     if isinstance(plan, L.Join):
         return L.Join(kids[0], kids[1], plan.on, plan.how, plan.filter,
                       plan.right_names)
+    if isinstance(plan, L.Window):
+        return L.Window(plan.calls, plan.names, kids[0])
+    if isinstance(plan, L.Union):
+        return L.Union(kids)
+    if isinstance(plan, L.Repeat):
+        return L.Repeat(plan.count_expr, kids[0])
+    if isinstance(plan, L.CopyTo):
+        return L.CopyTo(kids[0], plan.target_url, plan.file_format,
+                        plan.options)
+    if isinstance(plan, L.Explain):
+        return L.Explain(kids[0], plan.analyze)
     return plan
 
 
@@ -225,4 +313,17 @@ def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
         return JoinExec(create_physical_plan(plan.left, device),
                         create_physical_plan(plan.right, device),
                         plan.on, plan.how, plan.filter, plan.schema())
+    if isinstance(plan, L.Values):
+        return P.ValuesExec(plan.out_schema, plan.rows, device)
+    if isinstance(plan, (L.Window, L.Union, L.Repeat)):
+        raise NotImplementedError(
+            f"{type(plan).__name__} (windows, UNION / INTERSECT / EXCEPT, "
+            "FULL JOIN, GROUPING SETS) is not ported yet (ROADMAP Queue 1, "
+            "item 7: remaining operators)")
+    if isinstance(plan, L.CopyTo):
+        raise NotImplementedError(
+            "COPY is not ported yet (ROADMAP Queue 1, item 10: sinks)")
+    if isinstance(plan, L.Explain):
+        raise NotImplementedError(
+            "EXPLAIN is not ported yet (ROADMAP Queue 1, item 11: surfaces)")
     raise PlanError(f"cannot lower {type(plan).__name__}")

@@ -1,11 +1,13 @@
 """ExonSession: the port's entry point.
 
-Counterpart of exon_tpu/session.py for ``read_fasta``, ``read_fastq``,
-``read_gff`` and ``read_bam``. The
-session names the torch device every operator runs on: ``"cuda"`` by
-default, which raises when there is no card; CPU execution (the kernels'
-plain twins) must be asked for with ``device="cpu"``. SQL, the other
-formats and object stores are not ported yet (ROADMAP Queue 1).
+Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
+``read_gff`` and ``read_bam``, the table registry (``register_table``,
+``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
+which runs the port's copy of the SQL frontend. The session names the
+torch device every operator runs on: ``"cuda"`` by default, which raises
+when there is no card; CPU execution (the kernels' plain twins) must be
+asked for with ``device="cpu"``. The other formats, object stores and the
+session config are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import torch
 
 from .dataframe import DataFrame
+from .errors import PlanError
 from .plan import logical as L
 from .tables import FileTable, get_format
 
@@ -29,10 +32,27 @@ class ExonSession:
                                "pass device='cpu' to run on the CPU")
         self.device = device
         self.device_batch_size = device_batch_size
+        self.tables: dict[str, object] = {}
 
     @staticmethod
     def new_exon(device="cuda") -> "ExonSession":
         return ExonSession(device)
+
+    # -- registration -------------------------------------------------------
+
+    def register_table(self, name: str, provider) -> None:
+        self.tables[name.lower()] = provider
+
+    def deregister_table(self, name: str) -> None:
+        self.tables.pop(name.lower(), None)
+
+    def table(self, name: str) -> DataFrame:
+        provider = self.tables.get(name.lower())
+        if provider is None:
+            raise PlanError(f"table {name!r} not found")
+        return DataFrame(self, L.Scan(provider, name))
+
+    # -- reads --------------------------------------------------------------
 
     def _read(self, fmt_name: str, url: str, options=None, **kwargs) -> DataFrame:
         spec = get_format(fmt_name)
@@ -54,6 +74,9 @@ class ExonSession:
     def read_bam(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("BAM", url, options, **kw)
 
+    # -- SQL ----------------------------------------------------------------
+
     def sql(self, query: str) -> DataFrame:
-        raise NotImplementedError(
-            "SQL is not ported yet (ROADMAP Queue 1, SQL frontend)")
+        from .sql.frontend import execute_sql
+
+        return execute_sql(self, query)

@@ -47,12 +47,25 @@ FORMATS = {
 }
 
 
+# STORED AS aliases → (format, default file extension)
+# (exon_tpu/tables.py:486)
+FORMAT_ALIASES = {"FA": ("FASTA", ".fa"), "FAA": ("FASTA", ".faa"),
+                  "FNA": ("FASTA", ".fna"), "FQ": ("FASTQ", ".fq")}
+
+
+def alias_extension(name: str):
+    """Default file extension for a STORED AS alias, or None."""
+    entry = FORMAT_ALIASES.get(name.upper())
+    return entry[1] if entry else None
+
+
 def get_format(name: str) -> FormatSpec:
-    spec = FORMATS.get(name.upper())
+    key = name.upper()
+    spec = FORMATS.get(FORMAT_ALIASES.get(key, (key,))[0])
     if spec is None:
         raise NotImplementedError(
-            f"format {name!r} is not ported yet (ROADMAP Queue 1, other "
-            f"decoders); ported: {sorted(FORMATS)}")
+            f"format {name!r} is not ported yet (ROADMAP Queue 1, item 2: "
+            f"other decoders); ported: {sorted(FORMATS)}")
     return spec
 
 

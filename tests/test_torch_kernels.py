@@ -2,7 +2,9 @@
 plain twin on a CUDA card (tests marked ``cuda``, which skip where there is
 none; chip_smoke.py runs the same comparison at the main path's shapes).
 Tolerance: exact, except float64 sums in the hash aggregate, relative 1e-12
-(atomic order changes the rounding)."""
+(atomic order changes the rounding). The twins of string_cmp, parse_number
+and format_int are also held to the JAX functions they replace, bit for
+bit, outside the JAX faults F8 and F10 (ROADMAP Queue 3)."""
 
 import numpy as np
 import pytest
@@ -11,13 +13,16 @@ import torch
 from exon_tpu_torch import kernels
 from exon_tpu_torch.kernels import compact_mask as kc
 from exon_tpu_torch.kernels import expand_segments as ke
+from exon_tpu_torch.kernels import format_int as kf
 from exon_tpu_torch.kernels import gather_spans as kgs
 from exon_tpu_torch.kernels import gather_var as kg
 from exon_tpu_torch.kernels import hash_aggregate as hk
 from exon_tpu_torch.kernels import like_match as kl
 from exon_tpu_torch.kernels import line_index as kli
+from exon_tpu_torch.kernels import parse_number as kp
 from exon_tpu_torch.kernels import row_hash as kr
 from exon_tpu_torch.kernels import sort_keys as kk
+from exon_tpu_torch.kernels import string_cmp as kcmp
 from exon_tpu_torch.kernels import string_eq as ks
 from exon_tpu_torch.kernels import text_records as ktr
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
@@ -66,6 +71,9 @@ def test_cpu_tensors_run_the_twins_without_launching():
     kgs.gather_spans(text, lines.start,
                      torch.where(lines.is_hdr, lines.start, lines.end), dst,
                      int(lines.body.sum()))
+    kcmp.string_cmp(offs, vals, mask, b"AC", "<=")
+    kp.parse_number(offs, vals, mask, True)
+    kf.format_int(torch.arange(-5, 5), torch.ones(10, dtype=torch.bool))
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 0)
 
 
@@ -262,3 +270,203 @@ def test_gather_spans_kernel_matches_twin(card):
     dst = (torch.cumsum(lens, 0) - lens).to(torch.int32)
     args = (text, start, split, dst, int(lens.sum()), (13, ord(">")))
     assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))
+
+
+# -- string_cmp, parse_number and format_int ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX functions the three kernels replace, on the CPU (imported
+    here so that the CUDA cases of this file need no JAX)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from exon_tpu.batch import VarColumn
+    from exon_tpu.plan import expressions as E
+
+    def var(offs, vals, valid):
+        return VarColumn(jnp.asarray(vals), jnp.asarray(offs),
+                         jnp.asarray(valid))
+
+    return E, var, jnp
+
+
+def _strings(strs, rng, p_null=0.06):
+    """A var-width column of byte strings as numpy (offsets, values,
+    validity); a NULL row keeps its bytes, as a decoded NULL may."""
+    enc = [s if isinstance(s, bytes) else s.encode() for s in strs]
+    offs = np.zeros(len(enc) + 1, np.int32)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    vals = np.frombuffer(b"".join(enc) or b"", np.uint8).copy()
+    return offs, vals, rng.random(len(enc)) >= p_null
+
+
+def _numerals(rng, n: int) -> list:
+    """Seeded numerals: signs, leading zeros, dots, exponents of up to
+    three digits, up to 22 digits, junk bytes, empty strings."""
+    out = []
+    for _ in range(n):
+        s = str(rng.choice(["-", "+"])) if rng.random() < 0.3 else ""
+        digits = "".join(rng.choice(list("0123456789"),
+                                    int(rng.integers(0, 23))))
+        if rng.random() < 0.2:
+            digits = "0" * int(rng.integers(1, 5)) + digits
+        if rng.random() < 0.4:
+            k = int(rng.integers(0, len(digits) + 1))
+            digits = digits[:k] + "." + digits[k:]
+        s += digits
+        if rng.random() < 0.3:
+            s += str(rng.choice(["e", "E"]))
+            if rng.random() < 0.5:
+                s += str(rng.choice(["-", "+"]))
+            s += "".join(rng.choice(list("0123456789"),
+                                    int(rng.integers(0, 4))))
+        if rng.random() < 0.1:
+            i = int(rng.integers(0, len(s) + 1))
+            s = s[:i] + str(rng.choice(list("x .e-+\x00"))) + s[i:]
+        out.append(s)
+    return out + ["", "0", "-0", "+", "-", ".", ".5", "5.", "1e", "1e+",
+                  "1e23", "1e308", "1e309", "-1e-300", "9" * 25,
+                  "9223372036854775807", "-9223372036854775808",
+                  "0" * 30 + "1", "1" + "0" * 63, "1" + "0" * 64]
+
+
+def _numeral_column(seed: int):
+    rng = np.random.default_rng(seed)
+    strs = _numerals(rng, 2000)
+    return strs, _strings(strs, rng)
+
+
+def _f10_int(s: str) -> bool:
+    """Numerals whose JAX integer parse is wrong (F10): 20 or more
+    significant digits, or a value outside int64."""
+    body = s[1:] if s.startswith("-") else s
+    if not body.isdigit() or not body.isascii() or len(s) > 20:
+        return False
+    return len(body.lstrip("0")) >= 20 or \
+        not -2 ** 63 <= int(s) < 2 ** 63
+
+
+def test_parse_number_int_twin_matches_jax(jx):
+    E, var, _jnp = jx
+    strs, (offs, vals, valid) = _numeral_column(12)
+    want = E._cast_utf8_to_number(var(offs, vals, valid), np.int64)
+    w_ok, w_val = np.asarray(want.validity), np.asarray(want.values)
+    got, ok = kp.parse_number(torch.from_numpy(offs), torch.from_numpy(vals),
+                              torch.from_numpy(valid), False)
+    ok, got = ok.numpy(), got.numpy()
+    f10 = np.array([_f10_int(s) for s in strs]) & valid
+    assert 0 < f10.sum() and 300 < ok.sum()
+    assert not ok[f10].any()
+    keep = ~f10
+    assert (ok[keep] == w_ok[keep]).all()
+    assert (got[keep & ok] == w_val[keep & ok]).all()
+    assert (got[ok] == [int(strs[i]) for i in np.flatnonzero(ok)]).all()
+
+
+def test_parse_number_float_twin_matches_jax(jx):
+    E, var, _jnp = jx
+    strs, (offs, vals, valid) = _numeral_column(13)
+    want = E._cast_utf8_to_number(var(offs, vals, valid), np.float64)
+    w_ok, w_val = np.asarray(want.validity), np.asarray(want.values)
+    got, ok = kp.parse_number(torch.from_numpy(offs), torch.from_numpy(vals),
+                              torch.from_numpy(valid), True)
+    ok, got = ok.numpy(), got.numpy()
+    assert (ok == w_ok).all() and 1000 < ok.sum()
+    # the JAX package on the CPU flushes a subnormal result to zero; the
+    # twin and the kernel keep it, as IEEE division does
+    sub = ok & (got != 0) & (np.abs(got) < np.finfo(np.float64).tiny)
+    assert (w_val[sub] == 0).all()
+    same = ok & ~sub
+    assert (got[same].view(np.int64) == w_val[same].view(np.int64)).all()
+
+
+def test_format_int_twin_matches_jax(jx):
+    E, _var, jnp = jx
+    rng = np.random.default_rng(14)
+    pow10 = 10 ** np.arange(19, dtype=np.int64)
+    # every int64 but INT64_MIN (F10): random, small, and each digit count's
+    # edges
+    ints = np.concatenate([
+        rng.integers(-2 ** 63 + 1, 2 ** 63 - 1, 1500, dtype=np.int64),
+        rng.integers(-10 ** 6, 10 ** 6, 500), pow10, pow10 - 1, -pow10,
+        np.array([0, 2 ** 63 - 1, -2 ** 63 + 1], np.int64)])
+    valid = rng.random(len(ints)) < 0.9
+    want = E._cast_int_to_utf8(jnp.asarray(ints), jnp.asarray(valid))
+    w_offs, w_vals = np.asarray(want.offsets), np.asarray(want.values)
+    offs, vals = kf.format_int(torch.from_numpy(ints), torch.from_numpy(valid))
+    assert (offs.numpy() == w_offs).all()
+    assert vals.shape[0] == int(offs[-1])
+    assert (vals.numpy() == w_vals[: int(offs[-1])]).all()
+    text = vals.numpy().tobytes()
+    o = offs.tolist()
+    assert [text[o[i]:o[i + 1]].decode() for i in range(len(ints))] == \
+        [str(v) if ok else "" for v, ok in zip(ints.tolist(), valid)]
+    # F10: |INT64_MIN| overflows in the JAX function
+    offs, vals = kf.format_int(torch.tensor([-2 ** 63]),
+                               torch.tensor([True]))
+    assert vals.numpy().tobytes() == b"-9223372036854775808"
+
+
+_CMP_WORDS = [b"", b"a", b"ab", b"abc", b"abd", b"b", b"sp|P100000",
+              b"sp|P099999", b"sp|P1000000", b"sp|P10000", b"\xff",
+              b"a\x00", b"ACDEFGHIKLMNPQRSTVWY" * 3]
+
+
+@pytest.mark.parametrize("op", ["<", "<=", ">", ">="])
+def test_string_cmp_twin_matches_jax(jx, op):
+    E, var, _jnp = jx
+    rng = np.random.default_rng(15)
+    for literal in (b"", b"a", b"ab", b"sp|P100000", b"b", b"sp|P0",
+                    b"zzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzz", b"\xff\x00"):
+        words = [_CMP_WORDS[i] for i in rng.integers(0, len(_CMP_WORDS), 400)]
+        offs, vals, valid = _strings(words, rng, 0.1)
+        want = np.asarray(E._var_cmp_literal(var(offs, vals, valid), literal,
+                                             op))
+        got = kcmp.string_cmp(torch.from_numpy(offs), torch.from_numpy(vals),
+                              torch.from_numpy(valid), literal, op).numpy()
+        # F8: the JAX compare ignores validity
+        assert (got == (want & valid)).all(), literal
+        py = {"<": lambda a: a < literal, "<=": lambda a: a <= literal,
+              ">": lambda a: a > literal, ">=": lambda a: a >= literal}[op]
+        assert (got == np.array([py(w) for w in words]) & valid).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["<", "<=", ">", ">="])
+def test_string_cmp_kernel_matches_twin(card, op):
+    rng = np.random.default_rng(16)
+    words = [_CMP_WORDS[i] for i in rng.integers(0, len(_CMP_WORDS), 50_000)]
+    cols = [torch.from_numpy(a).to(card) for a in _strings(words, rng, 0.1)]
+    # the last two: the longest literal passed by value, and one that
+    # needs a device buffer
+    for literal in (b"", b"ab", b"sp|P100000", b"sp|P1000000zz",
+                    _CMP_WORDS[-1] + b"ACDE", _CMP_WORDS[-1] + b"B" * 20):
+        assert torch.equal(kcmp.string_cmp(*cols, literal, op),
+                           kcmp.string_cmp_plain(*cols, literal, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floating", [False, True])
+def test_parse_number_kernel_matches_twin(card, floating):
+    _strs, col = _numeral_column(17)
+    cols = [torch.from_numpy(a).to(card) for a in col]
+    got, ok = kp.parse_number(*cols, floating)
+    want, w_ok = kp.parse_number_plain(*cols, floating)
+    assert torch.equal(ok, w_ok)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_format_int_kernel_matches_twin(card):
+    rng = np.random.default_rng(18)
+    ints = np.concatenate([rng.integers(-2 ** 63, 2 ** 63 - 1, 50_000,
+                                        dtype=np.int64),
+                           rng.integers(-1000, 1000, 5000),
+                           np.array([0, -2 ** 63, 2 ** 63 - 1], np.int64)])
+    vals = torch.from_numpy(ints).to(card)
+    valid = torch.from_numpy(rng.random(len(ints)) < 0.9).to(card)
+    got, want = kf.format_int(vals, valid), kf.format_int_plain(vals, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -110,8 +110,8 @@ def test_out_of_slice_raises(tmp_path, sessions):
     ts, _js = sessions
     path = make_gff(100, seed=1, path=str(tmp_path / "c.gff3"))
     bam = make_bam(20, seed=1, path=str(tmp_path / "c.bam"))
-    with pytest.raises(NotImplementedError, match="SQL"):
-        ts.sql("SELECT 1")
+    with pytest.raises(NotImplementedError, match="EXPLAIN"):
+        ts.sql("EXPLAIN SELECT 1")
     with pytest.raises(NotImplementedError, match="attributes"):
         ts.read_gff(path).collect_arrow()
     with pytest.raises(NotImplementedError, match="quality_score"):

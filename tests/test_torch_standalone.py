@@ -1,14 +1,20 @@
 """exon_tpu_torch stands alone: in a subprocess where jax, pyarrow,
 exon_tpu and triton cannot be imported, the package imports and runs
 Query B, a small Query D (mate pairing: a left join on the read name and
-a sort) and a small FASTQ adapter screen on the device decode path, on the
-CPU through the pyarrow-free host accessor. The checks are exact against
-numpy on the generators' arrays."""
+a sort), a small FASTQ adapter screen on the device decode path and SQL
+(CREATE EXTERNAL TABLE, CASE, CAST, ordered string compares), on the CPU
+through the pyarrow-free host accessor. The checks are exact against
+numpy on the generators' arrays. No module of the package names jax or
+exon_tpu in an import statement."""
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,3 +141,70 @@ def test_port_decodes_fastq_on_the_device_path_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "standalone ok" in proc.stdout
+
+
+SCRIPT_SQL = textwrap.dedent("""
+    import sys
+    for name in ("jax", "pyarrow", "exon_tpu", "triton"):
+        sys.modules[name] = None
+    import numpy as np
+    import exon_tpu_torch as T
+    from benchlib.gff_fixture import FEATURE_TYPES, SEQNAMES, gff_features, make_gff
+
+    path = make_gff(3000, seed=3, path=sys.argv[1])
+    s = T.ExonSession(device="cpu", device_batch_size=700)
+    s.sql(f"CREATE EXTERNAL TABLE genes STORED AS GFF LOCATION '{path}'")
+    host = s.sql(
+        "SELECT seqname, CASE WHEN strand = '+' THEN 'fwd' ELSE 'rev' END "
+        "AS dir, COUNT(*) AS n, SUM(CAST(CAST(start AS VARCHAR) AS BIGINT)) "
+        "AS s, SUM(CAST(CAST(\\"end\\" AS VARCHAR) AS DOUBLE)) AS e "
+        "FROM genes WHERE type = 'exon' AND seqname >= 'chr2' "
+        "GROUP BY seqname, dir").collect_host()
+    f = gff_features(3000, seed=3)
+    names = np.asarray(SEQNAMES)[f["seqname"]]
+    m = (f["type"] == FEATURE_TYPES.index("exon")) & (names >= "chr2")
+    fwd = f["strand"] == 0
+    want = {}
+    for i in np.flatnonzero(m):
+        k = (names[i], "fwd" if fwd[i] else "rev")
+        n, a, b = want.get(k, (0, 0, 0.0))
+        want[k] = (n + 1, a + int(f["start"][i]), b + float(f["end"][i]))
+    seq, d = host.columns[0], host.columns[1]
+    got = {(seq.vocab[seq.codes[i]], d.vocab[d.codes[i]]):
+           (int(host.columns[2].values[i]), int(host.columns[3].values[i]),
+            float(host.columns[4].values[i])) for i in range(host.length)}
+    assert got.keys() == want.keys()
+    for k, (n, a, b) in want.items():
+        assert got[k][:2] == (n, a) and abs(got[k][2] - b) <= 1e-9 * b, k
+    leaked = [m for m in ("jax", "pyarrow", "exon_tpu", "triton")
+              if sys.modules.get(m) is not None]
+    assert not leaked, leaked
+    print("standalone ok", host.length)
+""")
+
+
+def test_port_runs_sql_without_jax_pyarrow_or_exon_tpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_SQL,
+                           str(tmp_path / "s.gff3")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone ok" in proc.stdout
+
+
+PORT_MODULES = sorted(
+    str(p.relative_to(ROOT))
+    for p in pathlib.Path(ROOT, "exon_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_module_imports_neither_jax_nor_exon_tpu(module):
+    tree = ast.parse(pathlib.Path(ROOT, module).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "exon_tpu"}, roots
