@@ -19,7 +19,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    that first chunk, parse_number (int and float mode) and format_int over
    one 131,072-row batch of the GFF starts and ends as decimal text, and
    once more over all 3.4 M of them (printed apart). K7 and K14, left to
-   PyTorch, are timed beside their bounds.
+   PyTorch, are timed beside their bounds. The sequence UDF kernels run on
+   the operands of the first batch of Queries F, G and H: sw_score against
+   the adapter on the first FASTQ chunk the scan decodes (about 377,000
+   reads of 150 bp; F's WHERE), on that chunk's reads that score >= 11
+   (F's SELECT, printed apart) and read i against read i + 1, bounded by
+   its int32 operations (8 per DP cell, the fewest with Hopper's DPX
+   instructions, over the card's INT32 rate); count_bytes on one
+   131,072-read BAM batch (G) and on the FASTQ chunk (H's filter);
+   polya_tail on the chunk's GC-rich reads and map_bytes on their trimmed
+   forms (H's projection), both also on the whole chunk, printed apart.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -30,8 +39,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    SQL_count (Query count's filter as SQL), SQL_range (an accession-range
    pull of 100,000 FASTA records by ordered string compares) and SQL_gff
    (CREATE EXTERNAL TABLE, then exon counts and CAST round-trip sums of
-   start and end per chromosome and CASE-mapped strand). Each is checked
-   against numpy computations from
+   start and end per chromosome and CASE-mapped strand), and three queries
+   through the sequence UDFs: F (SQL: the FASTQ reads whose
+   alignment_score against the adapter is >= 11), G (SQL: per reference,
+   the count and mean gc_content of R1 reads with a mapped mate, over the
+   BAM) and H (DataFrame: the reverse complement of trim_polya of each
+   GC-rich read). Each is checked against numpy computations from
    the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -76,6 +89,16 @@ FASTQ_SEED = 17
 FLOAT_RTOL = 1e-12             # float64 sums: atomic order changes rounding
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM integer rate: 132 SMs x 64 INT32 units x 1.98 GHz boost (NVIDIA
+# H100 whitepaper; the clock that gives its 67 TFLOP/s float32)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The fewest int32 instructions a Smith-Waterman DP cell needs on sm_90a:
+# per gap term a subtract and a DPX add-max (__viaddmax_s32), the match
+# score from a query profile and its diagonal add, one DPX clamped 3-way
+# max (__vimax3_s32_relu) and one max for the running best. sw_score.cu
+# issues 13 (no DPX, a compare and select per match). The data sheet gives
+# no separate DPX rate, so these count at the INT32 rate.
+SW_OPS_PER_CELL = 8
 
 KERNELS = {
     "compact_mask": ("exon_tpu/ops/layout.py:75", "compact_mask.cu"),
@@ -92,6 +115,10 @@ KERNELS = {
     "string_cmp": ("exon_tpu/plan/expressions.py:780", "string_cmp.cu"),
     "parse_number": ("exon_tpu/plan/expressions.py:951", "parse_number.cu"),
     "format_int": ("exon_tpu/plan/expressions.py:989", "format_int.cu"),
+    "sw_score": ("exon_tpu/ops/alignment.py:43", "sw_score.cu"),
+    "count_bytes": ("exon_tpu/udfs.py:69", "count_bytes.cu"),
+    "map_bytes": ("exon_tpu/udfs.py:87", "map_bytes.cu"),
+    "polya_tail": ("exon_tpu/udfs.py:131", "polya_tail.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -108,6 +135,10 @@ PATH_KERNELS = {
     "SQL_count": DECODE + ("compact_mask", "like_match"),
     "SQL_range": DECODE + ("string_cmp", "compact_mask", "gather_var"),
     "SQL_gff": ("format_int", "parse_number", "hash_aggregate"),
+    "F": DECODE + ("sw_score", "compact_mask", "gather_var"),
+    "G": ("count_bytes", "hash_aggregate"),
+    "H": DECODE + ("count_bytes", "compact_mask", "gather_var", "polya_tail",
+                   "gather_spans", "map_bytes"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -120,6 +151,13 @@ SQL_GFF = ("SELECT seqname, CASE WHEN strand = '+' THEN 'fwd' ELSE 'rev' END "
            "AS dir, COUNT(*) AS n, SUM(CAST(CAST(start AS VARCHAR) AS BIGINT)) "
            "AS s, SUM(CAST(CAST(\"end\" AS VARCHAR) AS DOUBLE)) AS e FROM genes "
            "WHERE type = 'exon' GROUP BY seqname, dir")
+SW_QUERY = b"AGATCGGAAGAGC"  # the TruSeq adapter prefix (Query F)
+SQL_F = ("SELECT name, alignment_score(sequence, '{q}') AS score FROM "
+         "fastq_scan('{fq}') WHERE alignment_score(sequence, '{q}') >= 11")
+SQL_G = ("SELECT reference, COUNT(*) AS n, AVG(gc_content(sequence)) AS gc "
+         "FROM bam_scan('{bam}') WHERE is_first_segment(flag) AND NOT "
+         "is_mate_unmapped(flag) GROUP BY reference")
+GC_MIN = 0.55                  # Query H's GC-rich reads
 
 
 def fail(msg: str) -> None:
@@ -135,11 +173,16 @@ def bound_ms(nbytes: float) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def median_ms(fn, torch) -> float:
+def ops_ms(ops: float) -> float:
+    """The least time the card could take for ``ops`` int32 operations."""
+    return 1e3 * ops / INT32_OPS_PER_S
+
+
+def median_ms(fn, torch, reps: int = REPS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -678,9 +721,16 @@ def _format_int_case(torch, ints: np.ndarray) -> dict:
             "shape": f"{n} int64, {total} bytes of text"}
 
 
+def _bound(r: dict) -> tuple[float, str]:
+    """A case's bound in ms and what sets it, bytes or operations."""
+    by_bytes, by_ops = bound_ms(r["bytes"]), ops_ms(r.get("ops", 0))
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
 def _print_case(name: str, r: dict) -> None:
+    ms, by = _bound(r)
     print(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms, twin "
-          f"{r['plain_ms']:.4f} ms, bound {bound_ms(r['bytes']):.4f} ms")
+          f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms by {by}")
 
 
 def check_parse_number(torch, feats) -> dict:
@@ -704,6 +754,120 @@ def check_format_int(torch, feats) -> dict:
     _print_case("format_int whole file", _format_int_case(torch,
                                                           feats["start"]))
     return _format_int_case(torch, feats["start"][:N_ROWS])
+
+
+def _first_column(read, name: str):
+    """Device (offsets, values) of column ``name`` in the first batch that
+    the main path's scan ``read(session)`` yields."""
+    import exon_tpu_torch as T
+
+    df = read(T.ExonSession(device="cuda")).select(name)
+    col = next(iter(df._execute(df.logical_plan()).batches())).column(name)
+    return col.offsets, col.values
+
+
+def _sw_case(torch, offs, vals) -> dict:
+    from exon_tpu_torch.kernels import sw_score as k
+
+    q = torch.tensor(list(SW_QUERY), dtype=torch.uint8, device="cuda")
+    n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
+    _exact("sw_score", k.sw_score(offs, vals, q), k.sw_score_plain(offs, vals,
+                                                                   q))
+    cells = total * len(SW_QUERY)
+    return {"max_abs_err": 0.0, "library_ms": None,
+            "ms": median_ms(lambda: k.sw_score(offs, vals, q), torch),
+            "plain_ms": median_ms(lambda: k.sw_score_plain(offs, vals, q),
+                                  torch),
+            # offsets, the reads and the query in, an int32 score out
+            "bytes": 4 * (n + 1) + total + len(SW_QUERY) + 4 * n,
+            "ops": SW_OPS_PER_CELL * cells,
+            "shape": f"{n} reads, {total} bytes, a {len(SW_QUERY)}-byte query, "
+                     f"{cells} cells"}
+
+
+def check_sw(torch, chunk, kept) -> dict:
+    from exon_tpu_torch.kernels import sw_score as k
+
+    # Query F's WHERE: each read of the first FASTQ chunk against the
+    # adapter; its SELECT: the reads of that chunk that scored >= 11; then
+    # the pairwise form, read i of the chunk against read i + 1
+    _print_case("sw_score SELECT", _sw_case(torch, *kept))
+    offs, vals = chunk
+    n = offs.shape[0] - 1
+    a_offs, b_offs = offs[:-1].contiguous(), (offs[1:] - offs[1]).contiguous()
+    b_vals = vals[int(offs[1]):]
+    pair = (a_offs, vals, b_offs, b_vals)
+    _exact("sw_score pairwise", k.sw_score_pairwise(*pair),
+           k.sw_score_pairwise_plain(*pair))
+    lens = (offs[1:] - offs[:-1]).long()
+    pair_cells = int((lens[:-1] * lens[1:]).sum())
+    pair_ms = median_ms(lambda: k.sw_score_pairwise(*pair), torch)
+    pair_plain = median_ms(lambda: k.sw_score_pairwise_plain(*pair), torch, 3)
+    print(f"  sw_score pairwise ({n - 1} read pairs, {pair_cells} cells): "
+          f"kernel {pair_ms:.4f} ms, twin {pair_plain:.4f} ms (median of 3), "
+          f"bound {ops_ms(SW_OPS_PER_CELL * pair_cells):.4f} ms by operations")
+    return _sw_case(torch, offs, vals)
+
+
+def check_count_bytes(torch, bam_col, fq_col) -> dict:
+    from exon_tpu_torch.kernels import count_bytes as k
+
+    # Query G's gc_content on one BAM batch; Query H's on the FASTQ chunk
+    out = {}
+    for label, (offs, vals) in (("BAM batch", bam_col),
+                                ("FASTQ chunk", fq_col)):
+        n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
+        _exact(f"count_bytes {label}", k.count_bytes(offs, vals, b"GCgc"),
+               k.count_bytes_plain(offs, vals, b"GCgc"))
+        out[label] = {
+            "max_abs_err": 0.0, "library_ms": None,
+            "ms": median_ms(lambda: k.count_bytes(offs, vals, b"GCgc"), torch),
+            "plain_ms": median_ms(
+                lambda: k.count_bytes_plain(offs, vals, b"GCgc"), torch),
+            # offsets and bytes in, a count out (the class travels in the
+            # launch's parameters)
+            "bytes": 4 * (n + 1) + total + 4 * n,
+            "shape": f"{n} reads, {total} bytes ({label})"}
+    _print_case("count_bytes FASTQ chunk", out["FASTQ chunk"])
+    return out["BAM batch"]
+
+
+def check_map_bytes(torch, offs, vals) -> dict:
+    from exon_tpu_torch.kernels import map_bytes as k
+
+    # Query H's reverse complement of the trimmed reads
+    table = np.arange(256, dtype=np.uint8)
+    table[list(b"ACGTacgtNnUu")] = list(b"TGCAtgcaNnAa")
+    table = torch.from_numpy(table).cuda()
+    n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
+    _exact("map_bytes", k.map_bytes(offs, vals, table, True),
+           k.map_bytes_plain(offs, vals, table, True))
+    return {"max_abs_err": 0.0, "library_ms": None,
+            "ms": median_ms(lambda: k.map_bytes(offs, vals, table, True),
+                            torch),
+            "plain_ms": median_ms(
+                lambda: k.map_bytes_plain(offs, vals, table, True), torch),
+            # offsets, the bytes and the table in, the bytes out
+            "bytes": 4 * (n + 1) + 2 * total + 256,
+            "shape": f"{n} reads, {total} bytes, mirrored"}
+
+
+def check_polya_tail(torch, offs, vals) -> dict:
+    from exon_tpu_torch.kernels import polya_tail as k
+
+    # Query H's trim_polya lengths of the GC-rich reads
+    got = k.polya_tail(offs, vals)
+    _exact("polya_tail", got, k.polya_tail_plain(offs, vals))
+    n, lens = offs.shape[0] - 1, (offs[1:] - offs[:-1]).long()
+    # each row read from its end back to its last non-A byte
+    tail = int(torch.where(got > 0, lens - got.long() + 1, lens).sum())
+    return {"max_abs_err": 0.0, "library_ms": None,
+            "ms": median_ms(lambda: k.polya_tail(offs, vals), torch),
+            "plain_ms": median_ms(lambda: k.polya_tail_plain(offs, vals),
+                                  torch),
+            "bytes": 4 * (n + 1) + tail + 4 * n,
+            "shape": f"{n} reads, {tail} tail bytes read, "
+                     f"{int((got < lens).sum())} trimmed"}
 
 
 def check_library_programs(rng, torch, offs, vals) -> None:
@@ -751,7 +915,9 @@ def check_library_programs(rng, torch, offs, vals) -> None:
 
 
 def phase_kernels(torch) -> dict:
-    from benchlib.bam_fixture import template_names
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import make_bam, template_names
+    from benchlib.fastq_fixture import make_fastq
     from benchlib.gff_fixture import gff_features
 
     chunk, ends_in_newline = _fasta_chunk(torch)
@@ -781,13 +947,42 @@ def phase_kernels(torch) -> dict:
     results["parse_number"] = check_parse_number(torch, feats)
     results["format_int"] = check_format_int(torch, feats)
     check_library_programs(rng, torch, offs, vals)
+    del offs, vals, feats
+    # the sequence UDF kernels' operands, from the first batch of each
+    # query's own scan and filter: F's WHERE and H's gc_content see the
+    # whole chunk, F's SELECT the reads scoring >= 11, H's trim_polya the
+    # GC-rich reads and its reverse_complement their trimmed forms
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    fn, c = T.FunctionCall, T.col
+    score = fn("alignment_score", [c("sequence"), T.lit(SW_QUERY.decode())])
+
+    def gc_rich(s):
+        return s.read_fastq(fq_path).filter(
+            fn("gc_content", [c("sequence")]) >= GC_MIN)
+
+    fq = _first_column(lambda s: s.read_fastq(fq_path), "sequence")
+    f_kept = _first_column(lambda s: s.read_fastq(fq_path).filter(score >= 11),
+                           "sequence")
+    h_kept = _first_column(gc_rich, "sequence")
+    h_trim = _first_column(lambda s: gc_rich(s).select(
+        fn("trim_polya", [c("sequence")]).alias("t")), "t")
+    bam = _first_column(lambda s: s.read_bam(make_bam(N_TEMPLATES, BAM_SEED)),
+                        "sequence")
+    results["sw_score"] = check_sw(torch, fq, f_kept)
+    results["count_bytes"] = check_count_bytes(torch, bam, fq)
+    _print_case("map_bytes whole chunk", check_map_bytes(torch, *fq))
+    _print_case("polya_tail whole chunk", check_polya_tail(torch, *fq))
+    results["map_bytes"] = check_map_bytes(torch, *h_trim)
+    results["polya_tail"] = check_polya_tail(torch, *h_kept)
     for name, r in results.items():
-        r["bound_ms"] = bound_ms(r["bytes"])
+        r["bound_ms"], r["bound_by"] = _bound(r)
         lib = "" if r["library_ms"] is None else \
             f", library call {r['library_ms']:.4f} ms"
+        ops = f", {r['ops']} int32 operations" if "ops" in r else ""
         print(f"kernel {name}: matches twin ({r['shape']}); median of {REPS}: "
               f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms{lib}; "
-              f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)")
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bytes']} bytes{ops})")
     return results
 
 
@@ -1094,6 +1289,115 @@ def _check_e(host, r: dict, rows: np.ndarray) -> None:
           "planted); names, sequences and qualities match the generator")
 
 
+def _sw_numpy(seqs: np.ndarray, query: bytes) -> np.ndarray:
+    """Plain Smith-Waterman (Gotoh) in numpy over reads of one length, the
+    reads in parallel: match +1, mismatch -1, a gap of length L costs
+    -(1 + L), scores clamp at 0; each read's best cell."""
+    m, width = seqs.shape
+    neg = -(1 << 20)
+    best = np.zeros(m, np.int64)
+    h_prev = np.zeros((m, width + 1), np.int64)
+    e = np.full((m, width + 1), neg, np.int64)
+    zero = np.zeros(m, np.int64)
+    for qc in query:
+        h = np.zeros((m, width + 1), np.int64)
+        f = np.full(m, neg, np.int64)
+        for j in range(1, width + 1):
+            e[:, j] = np.maximum(h_prev[:, j] - 2, e[:, j] - 1)
+            f = np.maximum(h[:, j - 1] - 2, f - 1)
+            s = np.where(seqs[:, j - 1] == qc, 1, -1)
+            h[:, j] = np.maximum(np.maximum(zero, h_prev[:, j - 1] + s),
+                                 np.maximum(e[:, j], f))
+            best = np.maximum(best, h[:, j])
+        h_prev = h
+    return best
+
+
+def _check_f(host, twin, r: dict, rows_e: np.ndarray) -> None:
+    """Query F: the reads scoring 13 are exactly the adapter's copies, the
+    result equals the run with sw_score's twin, and a plain numpy DP gives
+    the same scores on a seeded sample of 2,000 reads."""
+    names, score = _names_of(host.column("name")), host.column("score").values
+    if not np.array_equal(names[score == 13], r["names"][rows_e]):
+        fail("query F: the reads scoring 13 are not the adapter's copies")
+    if not _same_batch(host, twin):
+        fail("query F: the result differs from the run on sw_score's twin")
+    sample = np.sort(np.random.default_rng(FASTQ_SEED).choice(
+        len(r["names"]), 2000, replace=False))
+    want = _sw_numpy(r["sequences"][sample], SW_QUERY)
+    got_of = dict(zip(names.tolist(), score.tolist()))
+    got = np.asarray([got_of.get(nm, -1) for nm in r["names"][sample]])
+    if not np.array_equal(got, np.where(want >= 11, want, -1)):
+        fail("query F: scores differ from a plain DP on the sampled reads")
+    print(f"query F: {host.length} reads score >= 11, {int((score == 13).sum())}"
+          " score 13 (the adapter's copies); equal to the run on the twin; a "
+          f"numpy DP agrees on 2,000 sampled reads ({int((want >= 11).sum())} "
+          "of them kept)")
+
+
+def _check_g(host, bam_host) -> None:
+    """Query G against numpy over the host decode's sequence and flag: per
+    reference (NULL its own group) in first-seen order, the count and the
+    mean of the float32 G/C share."""
+    ref, seq = bam_host.column("reference"), bam_host.column("sequence")
+    flag = bam_host.column("flag").values
+    offs = seq.offsets.astype(np.int64)
+    is_gc = np.isin(seq.values, np.frombuffer(b"GCgc", np.uint8))
+    csum = np.concatenate([[0], np.cumsum(is_gc)])
+    lens = np.diff(offs)
+    gc = np.where(lens > 0, (csum[offs[1:]] - csum[offs[:-1]]).astype(
+        np.float32) / np.maximum(lens, 1).astype(np.float32), np.float32(0))
+    keep = np.flatnonzero(((flag & 0x40) != 0) & ((flag & 0x8) == 0))
+    key = np.where(ref.validity, ref.codes, -1)[keep]
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    n = np.bincount(inv)[order]
+    mean = (np.bincount(inv, weights=gc[keep].astype(np.float64))[order] / n)
+    names = [None if k < 0 else ref.vocab[k] for k in uniq[order]]
+    kc = host.column("reference")
+    got = [kc.vocab[c] if ok else None
+           for c, ok in zip(kc.codes.tolist(), kc.validity.tolist())]
+    if got != names:
+        fail("query G: group keys or their first-seen order differ")
+    if not np.array_equal(host.column("n").values, n):
+        fail("query G: counts differ from numpy")
+    diff = np.abs(host.column("gc").values - mean)
+    if not (diff <= FLOAT_RTOL * mean).all():
+        fail(f"query G: mean GC differs from numpy beyond rtol {FLOAT_RTOL}")
+    print(f"query G: {host.length} references, {len(keep)} R1 reads with a "
+          f"mapped mate; counts exact, mean GC within {diff.max():.3e} of "
+          "numpy")
+
+
+def _check_h(host, r: dict) -> None:
+    """Query H against numpy: the reads with a G/C share >= 0.55 (float32),
+    each less its trailing A/a run, reverse-complemented."""
+    from benchlib.fastq_fixture import READ_LEN
+
+    seqs = r["sequences"]
+    gc = np.isin(seqs, np.frombuffer(b"GCgc", np.uint8)).sum(1).astype(
+        np.float32) / np.float32(READ_LEN)
+    rows = np.flatnonzero(gc >= np.float32(GC_MIN))
+    kept = seqs[rows]
+    not_a = ~np.isin(kept, np.frombuffer(b"Aa", np.uint8))
+    tlen = np.where(not_a.any(1), READ_LEN - np.argmax(not_a[:, ::-1], 1), 0)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[list(b"ACGTacgtNnUu")] = list(b"TGCAtgcaNnAa")
+    mirrored = kept[:, ::-1]
+    vals = comp[mirrored[np.arange(READ_LEN) >= (READ_LEN - tlen)[:, None]]]
+    offs = np.concatenate([[0], np.cumsum(tlen)])
+    rc = host.column("rc")
+    if host.length != len(rows) or not np.array_equal(
+            _names_of(host.column("name")), r["names"][rows]):
+        fail(f"query H: {host.length} rows, expected {len(rows)}, or names "
+             "differ")
+    if not (np.array_equal(rc.offsets, offs)
+            and rc.values.tobytes() == vals.tobytes()):
+        fail("query H: trimmed reverse complements differ from numpy")
+    print(f"query H: {host.length} GC-rich reads, {int((tlen < READ_LEN).sum())}"
+          " trimmed; names and reverse complements match numpy")
+
+
 @contextlib.contextmanager
 def _host_decode():
     """Scans built inside decode on the host (the JAX package's own
@@ -1203,6 +1507,8 @@ def phase_main_path(torch) -> dict:
     pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
         T.col("sequence").like("%KK%")
     adapter = T.col("sequence").like(ADAPTER)
+    fn, c = T.FunctionCall, T.col
+    sql_f = SQL_F.format(q=SW_QUERY.decode(), fq=fq)
     frames = {
         "A": lambda: session.read_fasta(fa).filter(pred).select(
             "id", "sequence"),
@@ -1236,6 +1542,14 @@ def phase_main_path(torch) -> dict:
         "SQL_gff": (lambda: (session.sql(SQL_CREATE.format(gf=gf)),
                              session.sql(SQL_GFF).collect_host())[1],
                     GFF_FEATURES),
+        "F": (lambda: session.sql(sql_f).collect_host(), FASTQ_READS),
+        "G": (lambda: session.sql(SQL_G.format(bam=bam)).collect_host(),
+              n_bam),
+        "H": (lambda: session.read_fastq(fq).filter(
+            fn("gc_content", [c("sequence")]) >= GC_MIN).select(
+            "name", fn("reverse_complement", [
+                fn("trim_polya", [c("sequence")])]).alias("rc")
+        ).collect_host(), FASTQ_READS),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -1276,11 +1590,20 @@ def phase_main_path(torch) -> dict:
              "SQL_range")
     print("query SQL_range: ids and sequences of records 100,000-199,999")
     _check_sql_gff(results["SQL_gff"], feats)
+    with _swapped(_SW_TWIN):
+        twin_f = session.sql(sql_f).collect_host()
+    _check_f(results["F"], twin_f, fq_reads, rows_e)
+    _check_g(results["G"], session.read_bam(bam).select(
+        "reference", "flag", "sequence").collect_host())
+    _check_h(results["H"], fq_reads)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
     # and the numpy host decode of the same files
     device_scan = {q: _scan_seconds(frames[q](), torch) for q in frames}
+    # F and H scan the FASTQ's name and sequence columns alone
+    device_scan["F"] = device_scan["H"] = _scan_seconds(
+        session.read_fastq(fq).select("name", "sequence"), torch)
     with _host_decode():
         host_scan = {q: _scan_seconds(f(), torch) for q, f in (
             *frames.items(), ("C", lambda: _query_c(T, session, bam, gf)),
@@ -1299,7 +1622,8 @@ def phase_main_path(torch) -> dict:
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{share}")
     print("main path: queries A, count, B, C, C_top, D, E, E_count, "
-          "SQL_count, SQL_range and SQL_gff match the generators' arrays")
+          "SQL_count, SQL_range, SQL_gff, F, G and H match the generators' "
+          "arrays")
     _sql_vs_dataframe(session, T, fa, gf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
@@ -1319,29 +1643,30 @@ def _find(plan, cls):
     fail(f"no {cls.__name__} in the plan")
 
 
-@contextlib.contextmanager
-def _twins():
-    """Every kernel wrapper on the join and sort path replaced by its plain
-    twin, where the operators look it up."""
-    from exon_tpu_torch.kernels import (compact_mask, expand_segments,
-                                        gather_var, row_hash, sort_keys,
-                                        string_eq)
-    from exon_tpu_torch.ops import layout
-    from exon_tpu_torch.plan import join_exec, physical
+# (module that calls the wrapper, wrapper name) for the wrappers on the join
+# and sort path, and for sw_score; the kernel module bears the wrapper's name
+_JOIN_SORT_TWINS = [("exon_tpu_torch.plan.join_exec", "expand_segments"),
+                    ("exon_tpu_torch.plan.join_exec", "string_eq"),
+                    ("exon_tpu_torch.plan.physical", "row_hash"),
+                    ("exon_tpu_torch.plan.physical", "sort_keys"),
+                    ("exon_tpu_torch.ops.layout", "gather_var"),
+                    ("exon_tpu_torch.ops.layout", "compact_mask")]
+_SW_TWIN = [("exon_tpu_torch.ops.alignment", "sw_score")]
 
-    swaps = [(join_exec, "expand_segments", expand_segments),
-             (join_exec, "string_eq", string_eq),
-             (physical, "row_hash", row_hash),
-             (physical, "sort_keys", sort_keys),
-             (layout, "gather_var", gather_var),
-             (layout, "compact_mask", compact_mask)]
-    saved = [getattr(mod, name) for mod, name, _k in swaps]
-    for mod, name, k in swaps:
+
+@contextlib.contextmanager
+def _swapped(swaps):
+    """Each named kernel wrapper replaced by its plain twin where the
+    calling module looks it up."""
+    mods = [importlib.import_module(m) for m, _n in swaps]
+    saved = [getattr(mod, name) for mod, (_m, name) in zip(mods, swaps)]
+    for mod, (_m, name) in zip(mods, swaps):
+        k = importlib.import_module(f"exon_tpu_torch.kernels.{name}")
         setattr(mod, name, getattr(k, f"{name}_plain"))
     try:
         yield
     finally:
-        for (mod, name, _k), f in zip(swaps, saved):
+        for mod, (_m, name), f in zip(mods, swaps, saved):
             setattr(mod, name, f)
 
 
@@ -1386,7 +1711,7 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
         rows = sum(b.length for b in out)
         nbytes = _batch_bytes(inputs) + _batch_bytes(out)
         ms = _host_ms(run, torch)
-        with _twins():
+        with _swapped(_JOIN_SORT_TWINS):
             plain_rows = sum(b.length for b in run())
             plain_ms = _host_ms(run, torch)
         if plain_rows != rows:
@@ -1482,7 +1807,8 @@ def main() -> int:
                         "replaces": replaces, "launches": counts[k],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

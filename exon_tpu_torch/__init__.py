@@ -5,12 +5,16 @@ SQL (``ExonSession.sql``: SELECT, CREATE EXTERNAL TABLE, the scan table
 functions, SHOW TABLES, DESCRIBE, DROP TABLE) and the DataFrame API over
 FASTA, FASTQ, GFF and BAM files: Scan → Filter → Project, (Filter →)
 Aggregate, inner and left equi-joins, Sort, TopK and Limit, CASE and CAST,
-with hand-written CUDA kernels for FASTA/FASTQ decode on the device
-(newline index, per-line records, span gather), filter compaction,
-var-width gather, LIKE, ordered string compares, number parsing and
-formatting, the grouped hash aggregate, join pair expansion, row hashing,
-string equality and sort keys (``exon_tpu_torch.kernels``). It imports
-torch and numpy only; pyarrow is needed only by ``collect_arrow``.
+and exon's sequence UDFs (``udfs.py``: alignment_score, gc_content,
+reverse_complement, trim_polya, length, the SAM-flag predicates and the
+region predicates), with hand-written CUDA kernels for FASTA/FASTQ decode
+on the device (newline index, per-line records, span gather), filter
+compaction, var-width gather, LIKE, ordered string compares, number
+parsing and formatting, the grouped hash aggregate, join pair expansion,
+row hashing, string equality, sort keys, Smith-Waterman scores, byte-class
+counts, mirrored byte maps and poly(A) tails (``exon_tpu_torch.kernels``).
+It imports torch and numpy only; pyarrow is needed only by
+``collect_arrow``.
 """
 
 from .batch import Batch

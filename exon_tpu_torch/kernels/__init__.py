@@ -10,10 +10,10 @@ and ``reset_launch_counts()`` sets them to zero.
 
 from __future__ import annotations
 
-from . import (compact_mask, expand_segments, format_int, gather_spans,
-               gather_var, hash_aggregate, like_match, line_index,
-               parse_number, row_hash, sort_keys, string_cmp, string_eq,
-               text_records)
+from . import (compact_mask, count_bytes, expand_segments, format_int,
+               gather_spans, gather_var, hash_aggregate, like_match,
+               line_index, map_bytes, parse_number, polya_tail, row_hash,
+               sort_keys, string_cmp, string_eq, sw_score, text_records)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -30,6 +30,10 @@ KERNEL_MODULES = {
     "string_cmp": string_cmp,
     "parse_number": parse_number,
     "format_int": format_int,
+    "sw_score": sw_score,
+    "count_bytes": count_bytes,
+    "map_bytes": map_bytes,
+    "polya_tail": polya_tail,
 }
 
 

@@ -33,6 +33,7 @@ LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
 # argtypes of every C entry point; pointers and the stream are c_void_p so
 # ctypes passes them at full width
 SIGNATURES = {
@@ -57,6 +58,10 @@ SIGNATURES = {
     "exon_parse_number": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P],
     "exon_format_int_lengths": [_P, _P, _I64, _P, _P],
     "exon_format_int_write": [_P, _P, _P, _I64, _P, _P],
+    "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _P, _P, _P],
+    "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
+    "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
+    "exon_polya_tail": [_P, _P, _I64, _P, _P],
 }
 
 _lib = None

@@ -8,7 +8,8 @@
 // bytes of the wanted spans are read, and each is written once, in place.
 //
 // Span r is src[starts[r], stops[r]); its kept bytes (those equal to neither
-// drop_a nor drop_b: '\r' for every column, and '>' too for FASTA names) go
+// drop_a nor drop_b: '\r' for every column, and '>' too for FASTA names;
+// -1 drops nothing, as trim_polya's prefixes need) go
 // to out[dst[r] ...]. The wrapper computes dst as an exclusive scan
 // (torch.cumsum) of the kept lengths that text_records counted.
 //
@@ -36,7 +37,7 @@ __global__ void gather_spans_kernel(const uint8_t* __restrict__ src,
                                     const int32_t* __restrict__ starts,
                                     const int32_t* __restrict__ stops,
                                     const int32_t* __restrict__ dst,
-                                    int64_t m, uint8_t drop_a, uint8_t drop_b,
+                                    int64_t m, int32_t drop_a, int32_t drop_b,
                                     uint8_t* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -49,10 +50,10 @@ __global__ void gather_spans_kernel(const uint8_t* __restrict__ src,
     int64_t d = dst[r];
     for (int64_t base = s; base < e; base += 32) {
       const int64_t p = base + lane;
-      const uint8_t b = p < e ? src[p] : drop_a;
+      const int32_t b = p < e ? src[p] : 0;
       const bool keep = p < e && b != drop_a && b != drop_b;
       const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (keep) out[d + __popc(ballot & below)] = b;
+      if (keep) out[d + __popc(ballot & below)] = static_cast<uint8_t>(b);
       d += __popc(ballot);
     }
   }
@@ -70,7 +71,6 @@ extern "C" int exon_gather_spans(const void* src, const void* starts,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(stops), static_cast<const int32_t*>(dst), m,
-      static_cast<uint8_t>(drop_a), static_cast<uint8_t>(drop_b),
-      static_cast<uint8_t*>(out));
+      drop_a, drop_b, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,10 @@ per column). Kernel source: ``csrc/gather_spans.cu``.
 
 ``gather_spans(src, starts, stops, dst, total, drop)`` copies, for every
 span r, the bytes of ``src[starts[r]:stops[r]]`` that are not in ``drop``
-(one or two byte values) to ``out[dst[r]:]`` and returns ``out``, a uint8
-tensor of ``total`` bytes. ``starts``, ``stops`` and ``dst`` are int32
+(no, one or two byte values) to ``out[dst[r]:]`` and returns ``out``, a
+uint8 tensor of ``total`` bytes. ``starts``, ``stops`` and ``dst`` are int32
 ``[m]``; ``dst`` must be the exclusive scan of the spans' kept lengths.
+``trim_polya`` copies its kept prefixes with no byte dropped.
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ CR = 13
 
 
 def _drops(drop: tuple) -> tuple[int, int]:
-    if not 1 <= len(drop) <= 2:
-        raise ValueError(f"gather_spans drops one or two byte values, got "
+    """The kernel's two drop arguments; -1 matches no byte."""
+    if len(drop) > 2:
+        raise ValueError(f"gather_spans drops at most two byte values, got "
                          f"{drop!r}")
-    return (drop[0], drop[-1])
+    return (drop[0], drop[-1]) if drop else (-1, -1)
 
 
 def gather_spans_plain(src: torch.Tensor, starts: torch.Tensor,
@@ -41,13 +43,13 @@ def gather_spans_plain(src: torch.Tensor, starts: torch.Tensor,
     row = torch.repeat_interleave(torch.arange(m, device=dev), lens)
     pos = torch.arange(row.shape[0], device=dev) - first[row] + \
         starts.long()[row]
-    byte = src[pos]
+    byte = src[pos].to(torch.int32)
     keep = (byte != a) & (byte != b)
     k = keep.long()
     rank = torch.cumsum(k, 0) - k
     dest = dst.long()[row] + rank - rank[first[row]]
     out = torch.zeros(total, dtype=torch.uint8, device=dev)
-    out[dest[keep]] = byte[keep]
+    out[dest[keep]] = byte[keep].to(torch.uint8)
     return out
 
 

@@ -5,14 +5,17 @@ helpers (:29-375, with the JAX field names, so that the SQL parser's trees
 have the same ``repr``), ``eval_expr`` (:408) for column refs, literals,
 aliases, comparison / arithmetic / boolean operators with NULL propagation
 and literal folding (:624), NOT, IS NULL, LIKE (:428-436), IN lists, CASE
-(:495), CAST (:799) and ``length()`` (a UDF in exon_tpu/udfs.py:155), and
-``split_conjunction``/``conjoin`` (:1032,1038). Dictionary columns compare
+(:495), CAST (:799) and function calls through the function registry
+(``register_function``/``get_function``, :387-405, which also holds each
+function's return type; filled by the port's udfs.py), and ``split_conjunction``/``conjoin`` (:1032,1038). Dictionary
+columns compare
 and cast through their host vocabulary, as ops/strings.py:290 and
 expressions.py:571 do. Ordered compares of a var-width column with a
 literal run the string_cmp kernel, CAST of strings to numbers the
 parse_number kernel and CAST of integers to strings the format_int kernel.
-Expressions the slice does not carry (map/struct access, windows, the other
-UDFs) raise NotImplementedError naming their ROADMAP item.
+Expressions the port does not carry (map/struct access, windows, the SQL
+functions and the list-column UDFs) raise NotImplementedError naming their
+ROADMAP item; a name neither package knows raises PlanError.
 
 Two JAX faults are not copied (ROADMAP Queue 3): a NULL row never passes a
 string compare (F8: the JAX var compares treat it as ''), and an ordered
@@ -26,7 +29,7 @@ or a Python scalar (a literal).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -387,7 +390,36 @@ class InSubquery(Expr):
 # Evaluation
 # ---------------------------------------------------------------------------
 
-LENGTH_FUNCTIONS = ("length", "char_length", "character_length")
+ScalarFn = Callable[..., Any]
+# each name's function and the type it returns
+_FUNCTIONS: dict[str, tuple[ScalarFn, dt.DataType]] = {}
+# names the JAX package registers that the port does not carry yet, each
+# with its ROADMAP item
+_NOT_PORTED: dict[str, str] = {}
+
+
+def register_function(name: str, fn: ScalarFn, dtype: dt.DataType) -> None:
+    """``fn(batch, *args)``, whose values have type ``dtype``."""
+    _FUNCTIONS[name.lower()] = (fn, dtype)
+
+
+def register_not_ported(names, item: str) -> None:
+    for name in names:
+        _NOT_PORTED[name.lower()] = item
+
+
+def get_function(name: str) -> tuple[ScalarFn, dt.DataType]:
+    """The registered function and its return type; NotImplementedError
+    naming the ROADMAP item for a JAX function the port does not carry,
+    PlanError for a name that neither package knows."""
+    entry = _FUNCTIONS.get(name.lower())
+    if entry is not None:
+        return entry
+    item = _NOT_PORTED.get(name.lower())
+    if item is not None:
+        raise NotImplementedError(f"function {name!r} is not ported yet "
+                                  f"(ROADMAP Queue 1, {item})")
+    raise PlanError(f"unknown function {name!r}")
 
 
 def eval_expr(expr: Expr, batch: Batch):
@@ -437,12 +469,8 @@ def eval_expr(expr: Expr, batch: Batch):
     if isinstance(expr, Case):
         return _eval_case(expr, batch)
     if isinstance(expr, FunctionCall):
-        if expr.name.lower() not in LENGTH_FUNCTIONS:
-            raise NotImplementedError(
-                f"function {expr.name!r} is not ported yet "
-                "(ROADMAP Queue 1, item 8: UDFs and SQL functions)")
-        (arg,) = [eval_expr(a, batch) for a in expr.args]
-        return _length(arg)
+        fn, _dtype = get_function(expr.name)
+        return fn(batch, *[eval_expr(a, batch) for a in expr.args])
     if isinstance(expr, (FieldAccess, Subscript)):
         raise NotImplementedError(
             "struct, map and list access is not ported yet (ROADMAP Queue 1, "
@@ -638,17 +666,6 @@ def _cast_dict_to_number(v: DictColumn, dtype: dt.DataType) -> FixedColumn:
     ok = parsed.validity[codes] & v.validity
     zero = torch.zeros((), dtype=parsed.values.dtype, device=dev)
     return FixedColumn(torch.where(ok, parsed.values[codes], zero), ok)
-
-
-def _length(v) -> torch.Tensor:
-    """Byte length per row as int64 (exon_tpu/udfs.py length_fn :155)."""
-    if isinstance(v, VarColumn):
-        return (v.offsets[1:] - v.offsets[:-1]).to(torch.int64)
-    if isinstance(v, DictColumn):
-        lens = torch.tensor([len(s.encode()) for s in v.vocab] or [0],
-                            dtype=torch.int64).to(v.codes.device)
-        return lens[v.codes.long().clamp(0, lens.shape[0] - 1)]
-    raise PlanError("length() expects a string column")
 
 
 def _validity_of(v, batch: Batch) -> torch.Tensor:

@@ -346,6 +346,9 @@ class AggregateExec(PhysicalPlan):
         parts, valid, is_dict = [], [], []
         for e in self.group_exprs:
             v = eval_expr(e, b)
+            if isinstance(v, torch.Tensor):
+                # a computed key (a UDF's values), all valid
+                v = FixedColumn(v, b.row_mask())
             if isinstance(v, (DictColumn, FixedColumn)):
                 p = _key_part(v, vocab_of)
             elif isinstance(v, VarColumn):

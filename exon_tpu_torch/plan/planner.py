@@ -1,7 +1,9 @@
 """Type inference, a minimal optimizer and lowering to physical operators.
 
 Counterpart of exon_tpu/plan/planner.py: ``infer_expr_field`` (:34) for the
-ported expressions, ``optimize`` (:166) reduced to resolving table
+ported expressions (a function call takes the return type registered
+beside its function, where the JAX package keeps a second registry,
+:25-31,71-77), ``optimize`` (:166) reduced to resolving table
 qualifiers (:231), projection pushdown into the scan (:411) and
 identity-projection elision (:175), and ``create_physical_plan`` (:551-668)
 for Scan / Filter / Project / Aggregate / Sort / Limit / Join / Values,
@@ -21,10 +23,10 @@ from ..datatypes import Field, Schema
 from ..errors import PlanError
 from . import logical as L
 from . import physical as P
-from .expressions import (LENGTH_FUNCTIONS, AggregateCall, Alias, BinaryOp,
-                          Case, Cast, ColumnRef, Expr, FieldAccess,
-                          FunctionCall, InList, IsNull, Like, Literal, Not,
-                          expr_columns)
+from .expressions import (AggregateCall, Alias, BinaryOp, Case, Cast,
+                          ColumnRef, Expr, FieldAccess, FunctionCall, InList,
+                          IsNull, Like, Literal, Not, expr_columns,
+                          get_function)
 
 _NUMERIC_ORDER = ["int8", "int16", "int32", "int64", "float32", "float64"]
 
@@ -72,8 +74,6 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
                       key=lambda d: _NUMERIC_ORDER.index(d.kind.value)
                       if d.kind.value in _NUMERIC_ORDER else 0)
         return Field(expr.display_name(), out, True)
-    if isinstance(expr, FunctionCall) and expr.name.lower() in LENGTH_FUNCTIONS:
-        return Field(expr.display_name(), dt.int64, True)
     if isinstance(expr, AggregateCall):
         if expr.fn == "count":
             return Field(expr.display_name(), dt.int64, False)
@@ -82,9 +82,8 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
         inner = infer_expr_field(expr.child, schema)
         return Field(expr.display_name(), inner.dtype, True)
     if isinstance(expr, FunctionCall):
-        raise NotImplementedError(
-            f"function {expr.name!r} is not ported yet (ROADMAP Queue 1, "
-            "item 8: UDFs and SQL functions)")
+        _fn, dtype = get_function(expr.name)
+        return Field(expr.display_name(), dtype, True)
     raise NotImplementedError(
         f"cannot type {expr!r}: not ported yet (ROADMAP Queue 1)")
 

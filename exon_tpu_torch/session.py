@@ -3,7 +3,8 @@
 Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
 ``read_gff`` and ``read_bam``, the table registry (``register_table``,
 ``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
-which runs the port's copy of the SQL frontend. The session names the
+which runs the port's copy of the SQL frontend. Creating a session
+registers the UDFs of the port's udfs.py. The session names the
 torch device every operator runs on: ``"cuda"`` by default, which raises
 when there is no card; CPU execution (the kernels' plain twins) must be
 asked for with ``device="cpu"``. The other formats, object stores and the
@@ -33,6 +34,8 @@ class ExonSession:
         self.device = device
         self.device_batch_size = device_batch_size
         self.tables: dict[str, object] = {}
+        # register the UDFs (exon_tpu/session.py:73)
+        from . import udfs  # noqa: F401
 
     @staticmethod
     def new_exon(device="cuda") -> "ExonSession":

@@ -4,7 +4,8 @@ none; chip_smoke.py runs the same comparison at the main path's shapes).
 Tolerance: exact, except float64 sums in the hash aggregate, relative 1e-12
 (atomic order changes the rounding). The twins of string_cmp, parse_number
 and format_int are also held to the JAX functions they replace, bit for
-bit, outside the JAX faults F8 and F10 (ROADMAP Queue 3)."""
+bit, outside the JAX faults F8 and F10 (ROADMAP Queue 3); those of sw_score,
+count_bytes, map_bytes and polya_tail are, in test_torch_udfs.py."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from exon_tpu_torch import kernels
 from exon_tpu_torch.kernels import compact_mask as kc
+from exon_tpu_torch.kernels import count_bytes as kcb
 from exon_tpu_torch.kernels import expand_segments as ke
 from exon_tpu_torch.kernels import format_int as kf
 from exon_tpu_torch.kernels import gather_spans as kgs
@@ -19,11 +21,14 @@ from exon_tpu_torch.kernels import gather_var as kg
 from exon_tpu_torch.kernels import hash_aggregate as hk
 from exon_tpu_torch.kernels import like_match as kl
 from exon_tpu_torch.kernels import line_index as kli
+from exon_tpu_torch.kernels import map_bytes as kmb
 from exon_tpu_torch.kernels import parse_number as kp
+from exon_tpu_torch.kernels import polya_tail as kpt
 from exon_tpu_torch.kernels import row_hash as kr
 from exon_tpu_torch.kernels import sort_keys as kk
 from exon_tpu_torch.kernels import string_cmp as kcmp
 from exon_tpu_torch.kernels import string_eq as ks
+from exon_tpu_torch.kernels import sw_score as ksw
 from exon_tpu_torch.kernels import text_records as ktr
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 from exon_tpu_torch.ops.strings import tokenize_like
@@ -74,6 +79,14 @@ def test_cpu_tensors_run_the_twins_without_launching():
     kcmp.string_cmp(offs, vals, mask, b"AC", "<=")
     kp.parse_number(offs, vals, mask, True)
     kf.format_int(torch.arange(-5, 5), torch.ones(10, dtype=torch.bool))
+    ksw.sw_score(offs, vals, torch.tensor(list(b"ACK"), dtype=torch.uint8))
+    ksw.sw_score_pairwise(offs, vals, offs, vals)
+    kcb.count_bytes(offs, vals, b"KM")
+    kmb.map_bytes(offs, vals, torch.arange(256).to(torch.uint8).flip(0), True)
+    keep = kpt.polya_tail(offs, vals)
+    dst = (torch.cumsum(keep, 0) - keep).to(torch.int32)
+    kgs.gather_spans(vals, offs[:-1], offs[:-1] + keep, dst,
+                     int(keep.sum()), ())
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 0)
 
 
@@ -109,6 +122,43 @@ def test_wrappers_check_dtypes():
         kg.gather_var(torch.zeros(2, dtype=torch.int64),
                       torch.zeros(1, dtype=torch.uint8),
                       torch.zeros(1, dtype=torch.int32))
+
+
+_OFFS = torch.tensor([0, 2, 3], dtype=torch.int32)
+_VALS = torch.tensor(list(b"ACG"), dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: ksw.sw_score(_OFFS.long(), _VALS, _VALS),
+    lambda: ksw.sw_score(_OFFS, _VALS.to(torch.int32), _VALS),
+    lambda: ksw.sw_score(_OFFS, _VALS, _VALS.to(torch.int32)),
+    lambda: ksw.sw_score_pairwise(_OFFS, _VALS, _OFFS.long(), _VALS),
+    lambda: kcb.count_bytes(_OFFS.long(), _VALS, b"GC"),
+    lambda: kcb.count_bytes(_OFFS, _VALS.to(torch.int8), b"GC"),
+    lambda: kmb.map_bytes(_OFFS, _VALS, torch.zeros(256, dtype=torch.int32),
+                          True),
+    lambda: kmb.map_bytes(_OFFS, _VALS, torch.zeros(255, dtype=torch.uint8),
+                          False),
+    lambda: kmb.map_bytes(_OFFS.long(), _VALS,
+                          torch.zeros(256, dtype=torch.uint8), False),
+    lambda: kpt.polya_tail(_OFFS, _VALS.to(torch.int32)),
+], ids=["sw_offsets", "sw_values", "sw_query", "sw_pairwise", "count_offsets",
+        "count_values", "map_table_dtype", "map_table_shape", "map_offsets",
+        "polya_values"])
+def test_new_wrappers_check_dtypes(call):
+    with pytest.raises(TypeError):
+        call()
+
+
+def test_new_wrappers_refuse_mixed_shapes_and_drops():
+    with pytest.raises(ValueError, match="row count"):
+        ksw.sw_score_pairwise(_OFFS, _VALS, _OFFS[:2], _VALS)
+    with pytest.raises(ValueError, match="at most two"):
+        kgs.gather_spans(_VALS, _OFFS[:-1], _OFFS[1:], _OFFS[:-1], 3,
+                         (1, 2, 3))
+    # no byte dropped: the spans copied whole
+    got = kgs.gather_spans(_VALS, _OFFS[:-1], _OFFS[1:], _OFFS[:-1], 3, ())
+    assert bytes(got.tolist()) == b"ACG"
 
 
 @pytest.mark.cuda
@@ -470,3 +520,87 @@ def test_format_int_kernel_matches_twin(card):
     valid = torch.from_numpy(rng.random(len(ints)) < 0.9).to(card)
     got, want = kf.format_int(vals, valid), kf.format_int_plain(vals, valid)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- sw_score, count_bytes, map_bytes and polya_tail --------------------------
+
+
+def _seqs(rng, n: int, device, max_len: int = 300, alphabet=b"ACGTacgtN",
+          p_tail: float = 0.2):
+    """Seeded DNA-like rows of 0-max_len bytes, some with an A/a tail and
+    some all A, as a device (offsets, values)."""
+    rows = []
+    letters = np.frombuffer(alphabet, np.uint8)
+    for _ in range(n):
+        row = letters[rng.integers(0, len(letters),
+                                   rng.integers(0, max_len + 1))].tobytes()
+        if rng.random() < p_tail:
+            row += (b"A", b"a")[rng.integers(0, 2)] * int(rng.integers(1, 40))
+        if rng.random() < 0.03:
+            row = b"A" * int(rng.integers(0, 60))
+        rows.append(row)
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    vals = np.frombuffer(b"".join(rows), np.uint8).copy()
+    return torch.from_numpy(offs).to(device), torch.from_numpy(vals).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", [b"AGATCGGAAGAGC", b"A", b"ACGT" * 8,
+                                   b"ACGT" * 8 + b"G", b"ACGTTGCA" * 9])
+def test_sw_score_kernel_matches_twin(card, query):
+    # one pass (13, 1, 32 bytes), two passes (33) and three (72 > 64)
+    offs, vals = _seqs(np.random.default_rng(19), 3000, card)
+    q = torch.tensor(list(query), dtype=torch.uint8, device=card)
+    got = ksw.sw_score(offs, vals, q)
+    assert torch.equal(got, ksw.sw_score_plain(offs, vals, q))
+    assert int(got.max()) > 0
+
+
+@pytest.mark.cuda
+def test_sw_score_pairwise_kernel_matches_twin(card):
+    # row i against row i + 1, rows of up to 300 bytes (up to 10 passes)
+    offs, vals = _seqs(np.random.default_rng(20), 3001, card)
+    a_offs, b_offs = offs[:-1], offs[1:] - offs[1]
+    b_vals = vals[int(offs[1]):]
+    a_offs = a_offs.contiguous()
+    got = ksw.sw_score_pairwise(a_offs, vals, b_offs.contiguous(), b_vals)
+    assert torch.equal(got, ksw.sw_score_pairwise_plain(
+        a_offs, vals, b_offs.contiguous(), b_vals))
+
+
+@pytest.mark.cuda
+def test_sw_score_kernel_aligns_rows_past_2048_bytes(card):
+    # F11: the hit lies past byte 2048 of a 3,000-byte row
+    adapter = b"AGATCGGAAGAGC"
+    rows = [b"T" * 2900 + adapter + b"T" * 87, b"G" * 2500, adapter]
+    offs = torch.tensor(np.cumsum([0] + [len(r) for r in rows]),
+                        dtype=torch.int32, device=card)
+    vals = torch.tensor(list(b"".join(rows)), dtype=torch.uint8, device=card)
+    q = torch.tensor(list(adapter), dtype=torch.uint8, device=card)
+    got = ksw.sw_score(offs, vals, q)
+    assert got.tolist() == [13, 2, 13]
+    assert torch.equal(got, ksw.sw_score_plain(offs, vals, q))
+    long_q = torch.tensor(list(rows[0]), dtype=torch.uint8, device=card)
+    assert ksw.sw_score(offs, vals, long_q).tolist() == [3000, 2, 13]
+    assert torch.equal(ksw.sw_score_pairwise(offs, vals, offs, vals),
+                       torch.tensor([3000, 2500, 13], dtype=torch.int32,
+                                    device=card))
+
+
+@pytest.mark.cuda
+def test_count_map_and_polya_kernels_match_twins(card):
+    offs, vals = _seqs(np.random.default_rng(21), 20_000, card)
+    for members in (b"GCgc", b"A", b""):
+        assert torch.equal(kcb.count_bytes(offs, vals, members),
+                           kcb.count_bytes_plain(offs, vals, members))
+    table = torch.from_numpy(np.random.default_rng(22).permutation(256)
+                             .astype(np.uint8)).to(card)
+    for mirror in (True, False):
+        assert torch.equal(kmb.map_bytes(offs, vals, table, mirror),
+                           kmb.map_bytes_plain(offs, vals, table, mirror))
+    keep = kpt.polya_tail(offs, vals)
+    assert torch.equal(keep, kpt.polya_tail_plain(offs, vals))
+    dst = (torch.cumsum(keep, 0) - keep).to(torch.int32)
+    args = (vals, offs[:-1], offs[:-1] + keep, dst, int(keep.sum()), ())
+    assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))
