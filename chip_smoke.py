@@ -29,6 +29,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    131,072-read BAM batch (G) and on the FASTQ chunk (H's filter);
    polya_tail on the chunk's GC-rich reads and map_bytes on their trimmed
    forms (H's projection), both also on the whole chunk, printed apart.
+   hash_aggregate runs on Query I's first batch (the scan's batch after the
+   tabix seek, keyed by chrom and ref, masked by qual >= 30) with the sum
+   of squares and each row's slot, beside one index_add_ of x^2 at those
+   slots, the library call for the sum-of-squares partial; then on 25 and
+   1 M int64 keys (printed apart).
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -44,24 +49,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
    alignment_score against the adapter is >= 11), G (SQL: per reference,
    the count and mean gc_content of R1 reads with a mapped mate, over the
    BAM) and H (DataFrame: the reverse complement of trim_polya of each
-   GC-rich read). Each is checked against numpy computations from
-   the generators' own arrays. The launch counts are set to 0 before each
+   GC-rich read), and BASELINE config 3 through ExonSession.sql on a
+   25 M-record whole-genome BGZF VCF with its .tbi: Query I (region
+   chr1:10,000-10,000,000 → qual >= 30 → per chrom and ref COUNT, AVG,
+   STDDEV and VAR_POP) and I_panel (the same over a region file of 25
+   windows, 1-10,000,000 on every contig). Each is checked against numpy
+   computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
    numpy host decode byte for byte, and each query's scans are timed alone:
-   the device decode (read, copy, kernels, synced) and the host decode.
-   Each SQL query then runs beside its DataFrame twin (twin, SQL, SQL,
+   the device decode (read, copy, kernels, synced) and the host decode
+   (for I and I_panel the seek and decode of the region chunks, with the
+   rows the scan yields, which must equal numpy's count of the fixture's
+   rows in the regions, and the records the chunks held before the exact
+   row filter). SQL_count,
+   SQL_range and I then run beside their DataFrame twins (twin, SQL, SQL,
    twin; the same result), with the time SQL takes to parse, bind and
    plan alone.
 5. Where the time goes in queries C and D: the join and the sort alone on
    device batches already in memory, with the kernels and with every
    wrapper's twin patched in (median of 5 host-clock runs ending in a
    sync), beside the bound of their input and output bytes; then one run
-   of each query, and of queries A and E, under torch.profiler, with the
-   device time of its CUDA kernels and copies and the largest of them.
+   of D, A, E, I and I_panel under torch.profiler, with the device time of
+   its CUDA kernels and copies and the largest of them.
 
-The line before the last is a JSON object with each kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+The smoke prints its total time and the card's name and power limit once
+more (nvidia-smi); the line before the last is a JSON object
+with each kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -86,7 +100,13 @@ BAM_SEED = 13
 W = 100_000                    # Query C's bin width
 FASTQ_READS = 4_000_000        # 150 bp reads, ~1.4 GB of text (Query E)
 FASTQ_SEED = 17
+VCF_RECORDS = 25_000_000       # whole-genome calls, ~4 GB of text (Query I)
+VCF_SEED = 7
+VCF_REGION = "chr1:10000-10000000"  # BASELINE config 3's region (bench.py)
+PANEL_END = 10_000_000         # I_panel: <seqname>:1-10000000 for each contig
 FLOAT_RTOL = 1e-12             # float64 sums: atomic order changes rounding
+VAR_RTOL = 1e-9                # var/stddev: Σx² − (Σx)²/n against two passes
+AVG_RTOL = 1e-5                # AVG of the float32 qual column
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM integer rate: 132 SMs x 64 INT32 units x 1.98 GHz boost (NVIDIA
@@ -139,6 +159,12 @@ PATH_KERNELS = {
     "G": ("count_bytes", "hash_aggregate"),
     "H": DECODE + ("count_bytes", "compact_mask", "gather_var", "polya_tail",
                    "gather_spans", "map_bytes"),
+    # the var-width key: row_hash, its verification (string_eq over the
+    # representatives gather_var keeps), the table's slots (compact_mask)
+    "I": ("hash_aggregate", "row_hash", "string_eq", "gather_var",
+          "compact_mask"),
+    "I_panel": ("hash_aggregate", "row_hash", "string_eq", "gather_var",
+                "compact_mask"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -158,6 +184,10 @@ SQL_G = ("SELECT reference, COUNT(*) AS n, AVG(gc_content(sequence)) AS gc "
          "FROM bam_scan('{bam}') WHERE is_first_segment(flag) AND NOT "
          "is_mate_unmapped(flag) GROUP BY reference")
 GC_MIN = 0.55                  # Query H's GC-rich reads
+SQL_I = ("SELECT chrom, ref, COUNT(*) AS n, AVG(qual) AS mean_qual, "
+         "STDDEV(qual) AS sd_qual, VAR_POP(qual) AS var_qual FROM "
+         "vcf_indexed_scan('{vcf}', '{region}') WHERE qual >= 30 "
+         "GROUP BY chrom, ref")
 
 
 def fail(msg: str) -> None:
@@ -198,7 +228,7 @@ def median_ms(fn, torch, reps: int = REPS) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_device(torch) -> str:
+def phase_device(torch) -> tuple[str, str]:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     name = torch.cuda.get_device_name(0)
@@ -209,11 +239,12 @@ def phase_device(torch) -> str:
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     for mod in ("jax", "pyarrow"):
         found = importlib.util.find_spec(mod) is not None
         print(f"{mod} installed: {found} (not needed by exon_tpu_torch)")
-    return name
+    return name, card
 
 
 def phase_build() -> None:
@@ -333,13 +364,16 @@ def _bytes_to_first_kk(offs, vals) -> int:
     return int(need.sum())
 
 
-def check_hash(rng, torch) -> dict:
+def check_hash(rng, torch, first_i) -> dict:
+    """hash_aggregate against its twin: Query I's first batch (the kernels
+    line), with the sum of squares and the slot output; then 25 and 1 M
+    int64 keys with count/min/max/sum (printed lines)."""
     from exon_tpu_torch.kernels import hash_aggregate as hk
     from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 
+    res = _check_hash_query_i(torch, hk, GroupedHashAggregate, first_i)
     specs = [(hk.COUNT, False), (hk.MIN, False), (hk.MAX, False),
              (hk.SUM, False), (hk.SUM, True), (hk.MIN, True), (hk.MAX, True)]
-    out = {}
     for label, n, n_keys, perm in (("25 keys", N_ROWS, 25, False),
                                    ("1M keys", 1 << 20, 1 << 20, True)):
         keys = rng.permutation(n_keys) if perm else rng.integers(0, n_keys, n)
@@ -349,51 +383,14 @@ def check_hash(rng, torch) -> dict:
         ints = torch.from_numpy(rng.integers(-10**9, 10**9, n)).cuda()
         floats = torch.from_numpy(rng.standard_normal(n) * 1e3).cuda()
         valid = torch.from_numpy(rng.random(n) < 0.95).cuda()
-        values = [None, ints, ints, ints, floats, floats, floats]
-        valids = [valid] * len(specs)
-
-        def run(insert):
-            agg = GroupedHashAggregate(1, specs, parts.device)
-            agg.reserve(n)
-            insert(agg.table, parts, pvalid, mask, None, 0, values, valids)
-            return agg
-
-        got, want = run(hk.insert).finalize(), run(hk.insert_plain).finalize()
-        torch.cuda.synchronize()
-        _exact(f"hash_aggregate {label} keys", got.keys, want.keys)
-        err = 0.0
-        for a, (op, is_float) in enumerate(specs):
-            _exact(f"hash_aggregate {label} count {a}", got.cnt[a], want.cnt[a])
-            if op == hk.COUNT:
-                continue
-            if is_float and op == hk.SUM:
-                diff = (got.acc[a] - want.acc[a]).abs()
-                scale = want.acc[a].abs().clamp(min=1.0)
-                if bool((diff > FLOAT_RTOL * scale).any()):
-                    fail(f"hash_aggregate {label}: float sums differ beyond "
-                         f"rtol {FLOAT_RTOL}")
-                err = max(err, float(diff.max()))
-            else:
-                _exact(f"hash_aggregate {label} acc {a}", got.acc[a],
-                       want.acc[a])
-
-        def timed(insert) -> float:
-            # each run inserts into a fresh table made outside the timing
-            times = []
-            for _ in range(REPS + 1):
-                agg = GroupedHashAggregate(1, specs, parts.device)
-                agg.reserve(n)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                insert(agg.table, parts, pvalid, mask, None, 0, values, valids)
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end))
-            return float(np.median(times[1:]))
-
-        ms, plain = timed(hk.insert), timed(hk.insert_plain)
+        args = (parts, pvalid, mask, None, 0,
+                [None, ints, ints, ints, floats, floats, floats],
+                [valid] * len(specs))
+        got, want, err = _hash_vs_twin(torch, hk, GroupedHashAggregate,
+                                       specs, args, label)
+        ms = _hash_ms(torch, hk.insert, GroupedHashAggregate, specs, args)
+        plain = _hash_ms(torch, hk.insert_plain, GroupedHashAggregate, specs,
+                         args)
         # key part, its validity, mask, the int and float values and their
         # validity in; per group the key and 7 (value, count) pairs out
         nbytes = 27 * n + got.num_groups * (8 + 7 * 16)
@@ -401,12 +398,132 @@ def check_hash(rng, torch) -> dict:
               f"{n} rows, kernel {ms:.4f} ms, twin {plain:.4f} ms, "
               f"bound {bound_ms(nbytes):.4f} ms, "
               f"max float-sum diff {err:.3e}")
-        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": None, "bytes": nbytes,
-                      "shape": f"{n} rows, {got.num_groups} groups"}
-    res = dict(out["25 keys"])
-    res["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
     return res
+
+
+def _hash_vs_twin(torch, hk, agg_cls, specs, args, label: str):
+    """Both tables after one insert of ``args``: groups, counts, integer
+    partials and the rows' slots exact, float sums within FLOAT_RTOL."""
+    parts, pvalid, mask = args[:3]
+    out = []
+    for insert in (hk.insert, hk.insert_plain):
+        agg = agg_cls(parts.shape[0], specs, parts.device)
+        agg.reserve(parts.shape[1])
+        slots = insert(agg.table, *args, slots=True)
+        rows = torch.nonzero(mask).flatten()
+        if not (bool((slots[~mask] == -1).all())
+                and torch.equal(agg.table.keys[:, slots[rows]],
+                                parts[:, rows])
+                and torch.equal(agg.table.key_valid[:, slots[rows]],
+                                pvalid[:, rows])):
+            fail(f"hash_aggregate {label}: a row's slot does not hold its "
+                 "key")
+        out.append(agg.finalize())
+    got, want = out
+    torch.cuda.synchronize()
+    _exact(f"hash_aggregate {label} keys", got.keys, want.keys)
+    err = 0.0
+    for a, (op, is_float) in enumerate(specs):
+        _exact(f"hash_aggregate {label} count {a}", got.cnt[a], want.cnt[a])
+        if op == hk.COUNT:
+            continue
+        if is_float and op in (hk.SUM, hk.SUMSQ):
+            diff = (got.acc[a] - want.acc[a]).abs()
+            scale = want.acc[a].abs().clamp(min=1.0)
+            if bool((diff > FLOAT_RTOL * scale).any()):
+                fail(f"hash_aggregate {label}: float sums differ beyond "
+                     f"rtol {FLOAT_RTOL}")
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        else:
+            _exact(f"hash_aggregate {label} acc {a}", got.acc[a], want.acc[a])
+    return got, want, err
+
+
+def _hash_ms(torch, insert, agg_cls, specs, args, slots=False) -> float:
+    """Median time of one insert into a fresh table made outside the
+    timing."""
+    parts = args[0]
+    times = []
+    for _ in range(REPS + 1):
+        agg = agg_cls(parts.shape[0], specs, parts.device)
+        agg.reserve(parts.shape[1])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        insert(agg.table, *args, slots=slots)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def _query_i_first_batch(torch):
+    """Query I's first batch as its AggregateExec sees it: the scan's
+    device batch after the tabix seek, the key parts of (chrom, ref), the
+    mask of ``qual >= 30`` and the qual values."""
+    import exon_tpu_torch as T
+    from benchlib.vcf_fixture import make_vcf
+    from exon_tpu_torch.plan import physical as P
+
+    t = time.perf_counter()
+    vcf = make_vcf(VCF_RECORDS, VCF_SEED)
+    print(f"  VCF fixture: {VCF_RECORDS} records, {os.path.getsize(vcf)} "
+          f"bytes BGZF, {time.perf_counter() - t:.1f} s to build (0 if it "
+          "was cached)")
+    session = T.ExonSession(device="cuda")
+    df = session.sql(SQL_I.format(vcf=vcf, region=VCF_REGION))
+    agg = df._execute(df.logical_plan())
+    if not isinstance(agg, P.AggregateExec):
+        fail(f"query I plans to {type(agg).__name__}, not AggregateExec")
+    b = next(iter(agg.input.batches()))
+    parts, pvalid, kinds, _cols = agg._key_parts(b, {})
+    mask = agg._mask(b)
+    vals, valid = agg._values_for_call(agg.agg_calls[1], b, mask)
+    return {"parts": parts, "pvalid": pvalid, "mask": mask, "qual": vals,
+            "valid": valid, "kinds": kinds}
+
+
+def _check_hash_query_i(torch, hk, agg_cls, first) -> dict:
+    # COUNT(*), AVG(qual), STDDEV(qual), VAR_POP(qual): count, a sum, and
+    # two (sum, sum of squares) pairs over the same float64 values
+    specs = [(hk.COUNT, False), (hk.SUM, True), (hk.SUM, True),
+             (hk.SUMSQ, True), (hk.SUM, True), (hk.SUMSQ, True)]
+    parts, pvalid, mask = first["parts"], first["pvalid"], first["mask"]
+    x, valid = first["qual"], first["valid"]
+    n = parts.shape[1]
+    args = (parts, pvalid, mask, None, 0,
+            [None] + [x] * 5, [mask] + [valid] * 5)
+    got, _want, err = _hash_vs_twin(torch, hk, agg_cls, specs, args,
+                                    "query I")
+    ms = _hash_ms(torch, hk.insert, agg_cls, specs, args, slots=True)
+    plain = _hash_ms(torch, hk.insert_plain, agg_cls, specs, args,
+                     slots=True)
+    # the library yardstick for the Σx² partial: one index_add_ of x² at the
+    # kernel's slots, over the rows that feed it
+    agg = agg_cls(parts.shape[0], specs, parts.device)
+    agg.reserve(n)
+    slots = hk.insert(agg.table, *args, slots=True)
+    live = torch.nonzero(valid).flatten()
+    at, x2 = slots[live], x[live] * x[live]
+    acc = torch.zeros(agg.table.capacity, dtype=torch.float64,
+                      device=x.device)
+    lib = median_ms(lambda: acc.index_add_(0, at, x2), torch)
+    g = got.num_groups
+    # parts, their validity, the mask, the qual values and their validity
+    # in, each row's slot out; per group its keys, key validity, first row
+    # and 6 (accumulator, count) pairs
+    nbytes = n * (parts.shape[0] * 9 + 1 + 8 + 1) + 8 * n + \
+        g * (parts.shape[0] * 9 + 8 + 6 * 16)
+    print(f"  hash_aggregate query I first batch: {n} rows, {g} groups "
+          f"(keys {first['kinds']}), kernel {ms:.4f} ms with slots, twin "
+          f"{plain:.4f} ms, index_add_ of x^2 {lib:.4f} ms, bound "
+          f"{bound_ms(nbytes):.4f} ms, max float-sum diff {err:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bytes": nbytes,
+            "shape": f"query I's first batch: {n} rows, {g} (chrom, ref) "
+                     "groups, count + sum + 2 x (sum, sum of squares), "
+                     "slots out"}
 
 
 def _names_column(names: np.ndarray, torch):
@@ -935,7 +1052,7 @@ def phase_kernels(torch) -> dict:
         "compact_mask": check_compact(rng, torch),
         "gather_var": check_gather(rng, torch, offs, vals),
         "like_match": check_like(torch, offs, vals),
-        "hash_aggregate": check_hash(rng, torch),
+        "hash_aggregate": check_hash(rng, torch, _query_i_first_batch(torch)),
         "expand_segments": check_expand(rng, torch),
         "row_hash": check_row_hash(torch, names),
         "string_eq": check_string_eq(rng, torch, names),
@@ -1084,14 +1201,13 @@ def _same_batch(a, b) -> bool:
                for x, y in zip(a.columns, b.columns))
 
 
-def _sql_vs_dataframe(session, T, fa, gf, torch) -> None:
+def _sql_vs_dataframe(session, T, fa, vcf, torch) -> None:
     """Each SQL query beside its DataFrame twin: host-clock walls run as
     twin, SQL, SQL, twin, the results equal, and SQL's own parse, bind and
-    plan time (session.sql, optimize and the physical plan, nothing run)."""
-    from exon_tpu_torch import datatypes as dt
-
+    plan time (session.sql, optimize and the physical plan, nothing run).
+    SQL_gff is not run here (its four runs took ~90 s): its main-path run
+    is checked against numpy."""
     c = T.col
-    strand = T.Case(None, [(c("strand") == "+", T.lit("fwd"))], T.lit("rev"))
     pairs = {
         "SQL_count": (
             SQL_COUNT.format(fa=fa),
@@ -1104,15 +1220,16 @@ def _sql_vs_dataframe(session, T, fa, gf, torch) -> None:
             lambda: session.read_fasta(fa).filter(
                 (c("id") >= RANGE[0].decode()) & (c("id") < RANGE[1].decode())
             ).select("id", "sequence")),
-        "SQL_gff": (
-            SQL_GFF,
-            lambda: session.read_gff(gf).filter(c("type") == "exon").aggregate(
-                [c("seqname"), strand.alias("dir")],
-                [T.count().alias("n"),
-                 T.sum_(T.Cast(T.Cast(c("start"), dt.utf8), dt.int64)
-                        ).alias("s"),
-                 T.sum_(T.Cast(T.Cast(c("end"), dt.utf8), dt.float64)
-                        ).alias("e")])),
+        "I": (
+            SQL_I.format(vcf=vcf, region=VCF_REGION),
+            lambda: session.read_vcf(vcf).filter(T.FunctionCall(
+                "vcf_region_filter", [T.lit(VCF_REGION), c("chrom"),
+                                      c("pos")])
+            ).filter(c("qual") >= 30).aggregate(
+                ["chrom", "ref"],
+                [T.count().alias("n"), T.avg(c("qual")).alias("mean_qual"),
+                 T.AggregateCall("stddev", c("qual")).alias("sd_qual"),
+                 T.AggregateCall("var_pop", c("qual")).alias("var_qual")])),
     }
     for label, (sql, twin) in pairs.items():
         walls, outs = {"twin": [], "sql": []}, {}
@@ -1398,6 +1515,133 @@ def _check_h(host, r: dict) -> None:
           " trimmed; names and reverse complements match numpy")
 
 
+def _region(text: str) -> tuple[int, int, int]:
+    """(contig code, first, last position) of a region string."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    name, span = text.split(":")
+    lo, hi = span.split("-")
+    return SEQNAMES.index(name), int(lo), int(hi)
+
+
+def _panel_regions() -> list:
+    """I_panel's windows: 1-10,000,000 on every contig, in file order."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    return [(i, 1, PANEL_END) for i in range(len(SEQNAMES))]
+
+
+def _panel_file(vcf: str) -> str:
+    """I_panel's region file beside the VCF, one region a line."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    path = os.path.splitext(vcf)[0] + ".panel.txt"
+    with open(path, "w") as f:
+        f.write("".join(f"{c}:{lo}-{hi}\n" for (code, lo, hi), c in zip(
+            _panel_regions(), SEQNAMES)))
+    return path
+
+
+def _in_regions(calls: dict, regions: list) -> np.ndarray:
+    keep = np.zeros(len(calls["pos"]), bool)
+    for code, lo, hi in regions:
+        keep |= (calls["chrom"] == code) & (calls["pos"] >= lo) & \
+            (calls["pos"] <= hi)
+    return keep
+
+
+def _region_rows(calls: dict, regions: list) -> int:
+    """Records the tabix seek and the exact row filter should keep."""
+    return int(_in_regions(calls, regions).sum())
+
+
+def _chunk_records(vcf: str, regions: list) -> int:
+    """Records the tabix seek inflates for ``regions``: the lines of every
+    coalesced chunk, before the exact row filter, read as the scan reads
+    them (parse_tabix, coalesce_chunks, read_bgzf_chunk)."""
+    from benchlib.gff_fixture import SEQNAMES
+    from exon_tpu_torch.indexes import parse_tabix
+    from exon_tpu_torch.io import coalesce_chunks, read_bgzf_chunk
+    from exon_tpu_torch.region import Region
+
+    with open(vcf + ".tbi", "rb") as f:
+        tbi = parse_tabix(f.read())
+    size = os.path.getsize(vcf)
+    n = 0
+    for code, lo, hi in regions:
+        for chunk in coalesce_chunks(tbi.query(Region(SEQNAMES[code], lo,
+                                                      hi))):
+            n += read_bgzf_chunk(vcf, chunk, size).count(b"\n")
+    return n
+
+
+def _check_i(host, calls: dict, regions: list, label: str) -> None:
+    """Query I against numpy over the fixture's arrays: per (chrom, ref) in
+    first-seen order, the count exact, the mean of the float32 qual at
+    relative 1e-5, the sample stddev and the population variance at
+    relative 1e-9 against a two-pass float64 computation; NULL stddev for
+    a group of one row."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    keep = _in_regions(calls, regions) & calls["qual_valid"] & \
+        (calls["qual"] >= np.float32(30))
+    rows = np.flatnonzero(keep)
+    ro = calls["ref_offsets"]
+    lens = ro[rows + 1] - ro[rows]
+    # each REF (1-12 of ACGT) packed 2 bits a base beside its length and
+    # contig: one int64 key per row
+    flat_rows = np.repeat(rows, lens)
+    within = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                    lens)
+    code = np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                           calls["ref_values"][ro[flat_rows] + within])
+    packed = np.zeros(len(rows), np.int64)
+    np.add.at(packed, np.repeat(np.arange(len(rows)), lens),
+              code.astype(np.int64) << (2 * within))
+    key = (calls["chrom"][rows].astype(np.int64) << 32) | (lens << 24) | \
+        packed
+    _u, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)           # groups in first-seen order
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    g = rank[inv]
+    x = calls["qual"][rows].astype(np.float64)
+    n = np.bincount(g)
+    mean = np.bincount(g, x) / n
+    m2 = np.bincount(g, (x - mean[g]) ** 2)
+    if host.length != len(n):
+        fail(f"query {label}: {host.length} groups, expected {len(n)}")
+    chrom, ref = host.column("chrom"), host.column("ref")
+    names = [chrom.vocab[c] for c in chrom.codes.tolist()]
+    want_names = [SEQNAMES[c] for c in calls["chrom"][rows[first[order]]]]
+    got_refs = [bytes(ref.values[ref.offsets[i]:ref.offsets[i + 1]])
+                for i in range(host.length)]
+    fr = rows[first[order]]
+    want_refs = [bytes(calls["ref_values"][ro[r]:ro[r + 1]]) for r in fr]
+    if names != want_names or got_refs != want_refs:
+        fail(f"query {label}: group keys or their first-seen order differ")
+    if not np.array_equal(host.column("n").values, n):
+        fail(f"query {label}: counts differ")
+    multi = n >= 2
+    sd = host.column("sd_qual")
+    checks = (
+        ("mean_qual", host.column("mean_qual").values, mean, AVG_RTOL,
+         np.ones(len(n), bool)),
+        ("var_qual", host.column("var_qual").values, m2 / n, VAR_RTOL,
+         np.ones(len(n), bool)),
+        ("sd_qual", sd.values[multi], np.sqrt(m2[multi] / (n[multi] - 1)),
+         VAR_RTOL, multi))
+    for name, got, want, rtol, valid in checks:
+        if not np.array_equal(host.column(name).validity, valid):
+            fail(f"query {label}: {name} NULLs differ")
+        if not np.allclose(got, want, rtol=rtol, atol=0):
+            fail(f"query {label}: {name} differs beyond rtol {rtol}")
+    print(f"query {label}: {host.length} (chrom, ref) groups over "
+          f"{len(rows)} rows with qual >= 30 match numpy (counts exact, "
+          f"var/stddev within {VAR_RTOL}, mean within {AVG_RTOL}; "
+          f"{int((~multi).sum())} one-row groups with NULL stddev)")
+
+
 @contextlib.contextmanager
 def _host_decode():
     """Scans built inside decode on the host (the JAX package's own
@@ -1410,8 +1654,13 @@ def _host_decode():
 
 
 def _scan_seconds(df, torch) -> float:
-    """The plan's scans alone: their decode streams iterated (device
-    batches for a device decode, host batches otherwise), then a sync."""
+    return _scan_pass(df, torch)[0]
+
+
+def _scan_pass(df, torch) -> tuple[float, int]:
+    """(seconds, rows yielded) of the plan's scans alone: their decode
+    streams iterated (device batches for a device decode, host batches
+    otherwise), then a sync."""
     from exon_tpu_torch.plan.physical import ScanExec
 
     plan = df._execute(df.logical_plan())
@@ -1422,11 +1671,12 @@ def _scan_seconds(df, torch) -> float:
             scans.append(p)
         stack.extend(p.children())
     t = time.perf_counter()
+    rows = 0
     for scan in scans:
-        for _b in scan.source():
-            pass
+        for b in scan.source():
+            rows += b.length
     torch.cuda.synchronize()
-    return time.perf_counter() - t
+    return time.perf_counter() - t, rows
 
 
 def _decode_matches_host(label: str, read, torch) -> None:
@@ -1481,6 +1731,7 @@ def phase_main_path(torch) -> dict:
     from benchlib.fastq_fixture import adapter_rows, fastq_reads, make_fastq
     from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import gff_features, make_gff
+    from benchlib.vcf_fixture import make_vcf, vcf_records
     from exon_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1495,11 +1746,16 @@ def phase_main_path(torch) -> dict:
     n_bam = len(reads["start"])
     fq = make_fastq(FASTQ_READS, FASTQ_SEED)
     fq_reads = fastq_reads(FASTQ_READS, FASTQ_SEED)
+    vcf = make_vcf(VCF_RECORDS, VCF_SEED)  # built in phase 3
+    calls = vcf_records(VCF_RECORDS, VCF_SEED)
+    panel = _panel_file(vcf)
     print(f"data: {fa} ({os.path.getsize(fa)} bytes, {FASTA_RECORDS} records)"
           f", {gf} ({os.path.getsize(gf)} bytes, {GFF_FEATURES} features), "
           f"{bam} ({os.path.getsize(bam)} bytes, {n_bam} records), "
-          f"{fq} ({os.path.getsize(fq)} bytes, {FASTQ_READS} reads); "
-          f"{time.perf_counter() - t0:.1f} s to generate")
+          f"{fq} ({os.path.getsize(fq)} bytes, {FASTQ_READS} reads), "
+          f"{vcf} ({os.path.getsize(vcf)} bytes BGZF and a "
+          f"{os.path.getsize(vcf + '.tbi')}-byte .tbi, {VCF_RECORDS} "
+          f"records); {time.perf_counter() - t0:.1f} s to generate")
     sel = _expected_a(flat, offs)
     rows_e = adapter_rows(fq_reads)
 
@@ -1509,6 +1765,8 @@ def phase_main_path(torch) -> dict:
     adapter = T.col("sequence").like(ADAPTER)
     fn, c = T.FunctionCall, T.col
     sql_f = SQL_F.format(q=SW_QUERY.decode(), fq=fq)
+    sql_i = SQL_I.format(vcf=vcf, region=VCF_REGION)
+    sql_panel = SQL_I.format(vcf=vcf, region=panel)
     frames = {
         "A": lambda: session.read_fasta(fa).filter(pred).select(
             "id", "sequence"),
@@ -1550,6 +1808,9 @@ def phase_main_path(torch) -> dict:
             "name", fn("reverse_complement", [
                 fn("trim_polya", [c("sequence")])]).alias("rc")
         ).collect_host(), FASTQ_READS),
+        # I's input rows: what its scan yields, counted below
+        "I": (lambda: session.sql(sql_i).collect_host(), None),
+        "I_panel": (lambda: session.sql(sql_panel).collect_host(), None),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -1596,6 +1857,8 @@ def phase_main_path(torch) -> dict:
     _check_g(results["G"], session.read_bam(bam).select(
         "reference", "flag", "sequence").collect_host())
     _check_h(results["H"], fq_reads)
+    _check_i(results["I"], calls, [_region(VCF_REGION)], "I")
+    _check_i(results["I_panel"], calls, _panel_regions(), "I_panel")
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -1608,6 +1871,18 @@ def phase_main_path(torch) -> dict:
         host_scan = {q: _scan_seconds(f(), torch) for q, f in (
             *frames.items(), ("C", lambda: _query_c(T, session, bam, gf)),
             ("D", lambda: _query_d(T, session, bam)))}
+    # I's scans alone: the tabix seek, the range inflate and the numpy
+    # decode of the region chunks (a host decode; no device decoder), with
+    # the rows they yield and the records the chunks held before the exact
+    # row filter
+    inflated = {}
+    for q, sql, regions in (("I", sql_i, [_region(VCF_REGION)]),
+                            ("I_panel", sql_panel, _panel_regions())):
+        host_scan[q], stats[q][1] = _scan_pass(session.sql(sql), torch)
+        if stats[q][1] != _region_rows(calls, regions):
+            fail(f"query {q}: the scan yielded {stats[q][1]} rows, the "
+                 f"fixture has {_region_rows(calls, regions)} in its regions")
+        inflated[q] = _chunk_records(vcf, regions)
     for q, base in (("count", "A"), ("E_count", "E"), ("C_top", "C")):
         host_scan[q] = host_scan[base]
         if base in device_scan:
@@ -1618,13 +1893,15 @@ def phase_main_path(torch) -> dict:
             f", {what} alone {t[q]:.3f} s ({100 * t[q] / sec:.1f} % of wall)"
             for what, t in (("device scan", device_scan),
                             ("host decode", host_scan)) if q in t)
+        seek = (f", {rows_in} rows out of the scan ({inflated[q]} records "
+                f"inflated from the tabix chunks)") if q in inflated else ""
         print(f"query {q}: {out} rows out, {sec:.3f} s wall, "
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
-              f"{share}")
+              f"{seek}{share}")
     print("main path: queries A, count, B, C, C_top, D, E, E_count, "
-          "SQL_count, SQL_range, SQL_gff, F, G and H match the generators' "
-          "arrays")
-    _sql_vs_dataframe(session, T, fa, gf, torch)
+          "SQL_count, SQL_range, SQL_gff, F, G, H, I and I_panel match the "
+          "generators' arrays")
+    _sql_vs_dataframe(session, T, fa, vcf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
@@ -1765,6 +2042,7 @@ def phase_breakdown(torch) -> None:
     from benchlib.fastq_fixture import make_fastq
     from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import make_gff
+    from benchlib.vcf_fixture import make_vcf
 
     session = T.ExonSession(device="cuda")
     bam, gf = make_bam(N_TEMPLATES, BAM_SEED), make_gff(GFF_FEATURES, GFF_SEED)
@@ -1772,7 +2050,9 @@ def phase_breakdown(torch) -> None:
                "D": lambda: _query_d(T, session, bam)}
     for label, query in queries.items():
         _join_and_sort_ms(query(), torch, label)
-        _device_profile(lambda: query().collect_host(), torch, label)
+    # C's profiled run (~50 s) is cut for the smoke's time: the card was
+    # under 0.5 % busy in it (PERF.md section 5)
+    _device_profile(lambda: queries["D"]().collect_host(), torch, "D")
     # the device-decoded queries: how much of their wall is on the card
     fa = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
     fq = make_fastq(FASTQ_READS, FASTQ_SEED)
@@ -1783,9 +2063,14 @@ def phase_breakdown(torch) -> None:
     _device_profile(lambda: session.read_fastq(fq).filter(
         T.col("sequence").like(ADAPTER)).select(
         "name", "sequence", "quality_scores").collect_host(), torch, "E")
+    vcf = make_vcf(VCF_RECORDS, VCF_SEED)
+    for label, region in (("I", VCF_REGION), ("I_panel", _panel_file(vcf))):
+        sql = SQL_I.format(vcf=vcf, region=region)
+        _device_profile(lambda: session.sql(sql).collect_host(), torch, label)
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -1794,7 +2079,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(root, "exon_tpu_torch")):
         fail(f"exon_tpu_torch is not beside {__file__}")
     sys.path.insert(0, root)
-    name = phase_device(torch)
+    name, card = phase_device(torch)
     phase_build()
     results = phase_kernels(torch)
     counts = phase_main_path(torch)
@@ -1809,6 +2094,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    print(f"smoke: {time.perf_counter() - t0:.1f} s in all")
+    # the card's name and power limit again, beside the numbers above
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,16 +3,18 @@
 A port of ``exon_tpu`` (JAX) to PyTorch for NVIDIA Hopper GPUs. It runs
 SQL (``ExonSession.sql``: SELECT, CREATE EXTERNAL TABLE, the scan table
 functions, SHOW TABLES, DESCRIBE, DROP TABLE) and the DataFrame API over
-FASTA, FASTQ, GFF and BAM files: Scan → Filter → Project, (Filter →)
-Aggregate, inner and left equi-joins, Sort, TopK and Limit, CASE and CAST,
+FASTA, FASTQ, GFF, BAM and VCF files (VCF with tabix region pushdown):
+Scan → Filter → Project, (Filter →) Aggregate with the var/stddev family and
+string keys, inner and left equi-joins, Sort, TopK and Limit, CASE and CAST,
 and exon's sequence UDFs (``udfs.py``: alignment_score, gc_content,
 reverse_complement, trim_polya, length, the SAM-flag predicates and the
 region predicates), with hand-written CUDA kernels for FASTA/FASTQ decode
 on the device (newline index, per-line records, span gather), filter
 compaction, var-width gather, LIKE, ordered string compares, number
-parsing and formatting, the grouped hash aggregate, join pair expansion,
-row hashing, string equality, sort keys, Smith-Waterman scores, byte-class
-counts, mirrored byte maps and poly(A) tails (``exon_tpu_torch.kernels``).
+parsing and formatting, the grouped hash aggregate (with sums of squares
+and each row's slot), join pair expansion, row hashing, string equality,
+sort keys, Smith-Waterman scores, byte-class counts, mirrored byte maps and
+poly(A) tails (``exon_tpu_torch.kernels``).
 It imports torch and numpy only; pyarrow is needed only by
 ``collect_arrow``.
 """

@@ -43,7 +43,7 @@ SIGNATURES = {
     "exon_like_match": [_P, _P, _I64, _P, _P, _P],
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                             _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
-                            _P, _P],
+                            _P, _P, _P],
     "exon_expand_segments": [_P, _P, _P, _I64, _I64, _P, _P, _P],
     "exon_row_hash": [_P, _P, _I64, _P, _P],
     "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],

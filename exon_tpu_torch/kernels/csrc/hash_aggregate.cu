@@ -1,5 +1,5 @@
-// hash_aggregate: grouped count/sum/min/max partials in one hash table that
-// lives across every batch of a stream.
+// hash_aggregate: grouped count/sum/min/max and sum-of-squares partials in
+// one hash table that lives across every batch of a stream.
 //
 // Replaces the grouped aggregate of the JAX package: ops/aggregate.py
 // sort_group_ids (:80) and grouped_reduce_codes (:30) as
@@ -7,6 +7,10 @@
 // n-way GroupTable merge (_merge_group_tables_fn :601, _merge_partial :642)
 // and _compact_group_table (:659). There, every batch sorts its keys, builds
 // a compacted table and folds it into the running state with another sort.
+// The sum-of-squares op is K4b, the Σx² partial of the var/stddev family
+// (_partial_for's _VAR_FNS branch, plan/physical.py:467-471, 485-490): the
+// caller pairs it with a float64 sum over the same values, and the count
+// rides along as for every aggregate.
 //
 // Bound on the H100: HBM bytes and atomic throughput. Each live row reads
 // its key parts (9 bytes a part), its mask and its values (9 bytes an
@@ -28,7 +32,11 @@
 // for 2 and then compares keys. It then updates first with atomicMin, the
 // count with atomicAdd, int64 sums with atomicAdd on the unsigned bits,
 // float64 sums with atomicAdd(double), int64 min/max with atomicMin/Max and
-// float64 min/max with a CAS loop. Identity values (0, +/-max, +/-inf) are
+// float64 min/max with a CAS loop, and the sum of squares with
+// atomicAdd(double) of x * x (of the partial itself in merge mode).
+// Optionally each row's slot is written to slot_out (-1 for a masked row
+// or a full table), in the same pass, so that the caller can map rows to
+// groups without a second probe. Identity values (0, +/-max, +/-inf) are
 // written by the wrapper when it allocates the table; the wrapper keeps the
 // load factor at or below one half and grows the table by re-inserting its
 // full slots in merge mode, where each input row is one partial (a count and
@@ -43,9 +51,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxAggs = 16;
+constexpr int kMaxAggs = 32;
 
-enum AggOp : int32_t { kCount = 0, kSum = 1, kMin = 2, kMax = 3 };
+enum AggOp : int32_t { kCount = 0, kSum = 1, kMin = 2, kMax = 3, kSumSq = 4 };
 
 struct AggArgs {
   int32_t n_aggs;
@@ -149,11 +157,14 @@ __global__ void hash_aggregate_kernel(int64_t n, int32_t n_parts,
                                       const uint8_t* __restrict__ row_mask,
                                       const int64_t* __restrict__ first_in,
                                       int64_t base_row, int32_t merge,
-                                      AggArgs aggs, Table t) {
+                                      AggArgs aggs, Table t,
+                                      int64_t* __restrict__ slot_out) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= n) return;
-  if (row_mask != nullptr && row_mask[row] == 0) return;
-  const int64_t slot = find_slot(t, n_parts, parts, part_valid, n, row);
+  const int64_t slot = (row_mask != nullptr && row_mask[row] == 0)
+                           ? -1
+                           : find_slot(t, n_parts, parts, part_valid, n, row);
+  if (slot_out != nullptr) slot_out[row] = slot;
   if (slot < 0) return;
   const int64_t first = merge ? first_in[row] : base_row + row;
   atomicMin(reinterpret_cast<long long*>(t.first + slot),
@@ -172,6 +183,7 @@ __global__ void hash_aggregate_kernel(int64_t n, int32_t n_parts,
       const double v = static_cast<const double*>(aggs.values[a])[row];
       double* dst = reinterpret_cast<double*>(t.acc + at);
       if (op == kSum) atomicAdd(dst, v);
+      else if (op == kSumSq) atomicAdd(dst, merge ? v : v * v);
       else if (op == kMin) atomic_min_f64(dst, v);
       else atomic_max_f64(dst, v);
     } else {
@@ -193,16 +205,20 @@ __global__ void hash_aggregate_kernel(int64_t n, int32_t n_parts,
 }  // namespace
 
 // ops/is_float/values/counts are host arrays of n_aggs entries; every other
-// pointer is device memory. Returns cudaGetLastError(), or -1 when n_aggs
-// exceeds kMaxAggs.
+// pointer is device memory; slot_out may be null. Returns
+// cudaGetLastError(), or -1 when n_aggs exceeds kMaxAggs or a sum of
+// squares is not float64.
 extern "C" int exon_hash_aggregate(
     int64_t n, int32_t n_parts, const void* parts, const void* part_valid,
     const void* row_mask, const void* first_in, int64_t base_row,
     int32_t merge, int32_t n_aggs, const int32_t* ops, const int32_t* is_float,
     const uint64_t* values, const uint64_t* counts, int64_t capacity,
     void* state, void* keys, void* key_valid, void* first, void* acc,
-    void* cnt, void* meta, void* stream) {
+    void* cnt, void* meta, void* slot_out, void* stream) {
   if (n_aggs > kMaxAggs) return -1;
+  for (int32_t a = 0; a < n_aggs; ++a) {
+    if (ops[a] == kSumSq && !is_float[a]) return -1;
+  }
   AggArgs args{};
   args.n_aggs = n_aggs;
   for (int32_t a = 0; a < n_aggs; ++a) {
@@ -226,6 +242,7 @@ extern "C" int exon_hash_aggregate(
       n, n_parts, static_cast<const int64_t*>(parts),
       static_cast<const uint8_t*>(part_valid),
       static_cast<const uint8_t*>(row_mask),
-      static_cast<const int64_t*>(first_in), base_row, merge, args, t);
+      static_cast<const int64_t*>(first_in), base_row, merge, args, t,
+      static_cast<int64_t*>(slot_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""hash_aggregate: grouped count/sum/min/max partials in one hash table.
+"""hash_aggregate: grouped count/sum/min/max and sum-of-squares partials in
+one hash table.
 
 Replaces the JAX package's per-batch sort-based group tables and their
 merges (exon_tpu/ops/aggregate.py ``sort_group_ids`` :80 and
@@ -9,6 +10,10 @@ A ``HashTable`` holds the slots (layout in the kernel source). ``insert``
 adds rows to it: in raw mode each row is a key and per-aggregate values with
 validity flags; in merge mode each row is a partial (count and accumulator)
 and its first-seen row number, as the table's own growth re-inserts them.
+SUMSQ (K4b, the Σx² partial of the var/stddev family, exon_tpu/plan/
+physical.py:467-471) adds x² of float64 values in raw mode and the partial
+itself in merge mode. On request ``insert`` also returns each row's slot
+(-1 for a row the mask drops), written by the kernel in the same pass.
 Slots are found by content, so two tables that saw the same rows hold the
 same groups in possibly different slots; ``occupied`` lists the full ones.
 """
@@ -24,8 +29,8 @@ from . import _build
 
 launches = 0
 
-COUNT, SUM, MIN, MAX = 0, 1, 2, 3
-MAX_AGGS = 16  # kMaxAggs in csrc/hash_aggregate.cu
+COUNT, SUM, MIN, MAX, SUMSQ = 0, 1, 2, 3, 4
+MAX_AGGS = 32  # kMaxAggs in csrc/hash_aggregate.cu
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 
@@ -76,16 +81,18 @@ class HashTable:
 
 
 def insert_plain(t: HashTable, parts, part_valid, row_mask, first_in,
-                 base_row: int, values, counts) -> None:
+                 base_row: int, values, counts, slots: bool = False):
     """The plain PyTorch twin of ``insert``: new groups take the lowest
     free slots instead of their hash slot; every group's partials are the
-    same as the kernel's."""
+    same as the kernel's, and so is the group behind each returned slot."""
     dev = parts.device
     n_parts, n = parts.shape
+    slot_out = torch.full((n,), -1, dtype=torch.int64, device=dev) \
+        if slots else None
     rows = torch.arange(n, device=dev) if row_mask is None \
         else torch.nonzero(row_mask).flatten()
     if rows.numel() == 0:
-        return
+        return slot_out
     occupied = torch.nonzero(t.state == 2).flatten()
     old = torch.cat([t.keys[:, occupied], t.key_valid[:, occupied].long()])
     new = torch.cat([parts[:, rows], part_valid[:, rows].long()])
@@ -97,13 +104,15 @@ def insert_plain(t: HashTable, parts, part_valid, row_mask, first_in,
     free = torch.nonzero(t.state == 0).flatten()[: fresh.shape[0]]
     if free.shape[0] < fresh.shape[0]:
         t.meta[1] = 1
-        return
+        return slot_out
     slot_of[fresh] = free
     t.state[free] = 2
     t.keys[:, free] = uniq[:n_parts, fresh]
     t.key_valid[:, free] = uniq[n_parts:, fresh].to(torch.uint8)
     t.meta[0] += fresh.shape[0]
     slot = slot_of[inv[occupied.shape[0]:]]
+    if slots:
+        slot_out[rows] = slot
     first = first_in[rows] if first_in is not None else base_row + rows
     t.first.scatter_reduce_(0, slot, first, "amin")
     for a, (op, _is_float) in enumerate(t.specs):
@@ -116,14 +125,18 @@ def insert_plain(t: HashTable, parts, part_valid, row_mask, first_in,
         acc = t.acc_values(a)
         if op == SUM:
             acc.index_add_(0, s, v)
+        elif op == SUMSQ:
+            acc.index_add_(0, s, v if first_in is not None else v * v)
         else:
             acc.scatter_reduce_(0, s, v, "amin" if op == MIN else "amax")
+    return slot_out
 
 
 def insert(t: HashTable, parts: torch.Tensor, part_valid: torch.Tensor,
            row_mask, first_in, base_row: int, values: list,
-           counts: list) -> None:
-    """Add rows to ``t``.
+           counts: list, slots: bool = False):
+    """Add rows to ``t``; with ``slots``, return int64 [n]: each row's slot
+    in ``t``, -1 where ``row_mask`` drops the row.
 
     parts int64 [n_parts, n] and part_valid uint8 [n_parts, n] are the key
     columns; row_mask (bool [n] or None) drops rows before they form groups.
@@ -143,6 +156,8 @@ def insert(t: HashTable, parts: torch.Tensor, part_valid: torch.Tensor,
         raise ValueError("hash_aggregate: inputs do not match the table")
     merge = first_in is not None
     for a, (op, is_float) in enumerate(t.specs):
+        if op == SUMSQ and not is_float:
+            raise TypeError("hash_aggregate: a sum of squares is float64")
         want = torch.float64 if is_float else torch.int64
         if op != COUNT and (values[a].dtype != want or values[a].shape != (n,)):
             raise TypeError(f"hash_aggregate: aggregate {a} needs {want} [n]")
@@ -150,11 +165,12 @@ def insert(t: HashTable, parts: torch.Tensor, part_valid: torch.Tensor,
         if counts[a].dtype != cdt or counts[a].shape != (n,):
             raise TypeError(f"hash_aggregate: counts {a} must be {cdt} [n]")
     if not _build.on_cuda(parts, "hash_aggregate"):
-        insert_plain(t, parts, part_valid, row_mask, first_in, base_row,
-                     values, counts)
-        return
+        return insert_plain(t, parts, part_valid, row_mask, first_in,
+                            base_row, values, counts, slots)
+    slot_out = torch.empty(n, dtype=torch.int64, device=parts.device) \
+        if slots else None
     if n == 0:
-        return
+        return slot_out
     parts, part_valid = parts.contiguous(), part_valid.contiguous()
     # keep holds every contiguous copy until the launch: a copy freed
     # earlier could be handed to the next allocation before the kernel runs
@@ -186,6 +202,8 @@ def insert(t: HashTable, parts: torch.Tensor, part_valid: torch.Tensor,
         (ctypes.c_uint64 * n_aggs)(*vptrs), (ctypes.c_uint64 * n_aggs)(*cptrs),
         t.capacity, t.state.data_ptr(), t.keys.data_ptr(),
         t.key_valid.data_ptr(), t.first.data_ptr(), t.acc.data_ptr(),
-        t.cnt.data_ptr(), t.meta.data_ptr(), _build.stream_of(parts))
+        t.cnt.data_ptr(), t.meta.data_ptr(),
+        slot_out.data_ptr() if slots else None, _build.stream_of(parts))
     _build.check(status, "hash_aggregate")
     launches += 1
+    return slot_out

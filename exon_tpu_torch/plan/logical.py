@@ -16,6 +16,11 @@ from .. import datatypes as dt
 from ..datatypes import Field, Schema
 from .expressions import AggregateCall, Expr
 
+# the second-moment family (exon_tpu/plan/logical.py:86-88,
+# exon_tpu/plan/physical.py:445): float64 results
+VAR_FNS = ("stddev", "stddev_samp", "stddev_pop", "var", "variance",
+           "var_samp", "var_pop")
+
 
 class LogicalPlan:
     def children(self) -> list["LogicalPlan"]:
@@ -27,9 +32,11 @@ class LogicalPlan:
 
 @dataclasses.dataclass
 class Scan(LogicalPlan):
-    provider: Any  # tables.FileTable
+    provider: Any  # tables.FileTable or tables.VcfTable
     table_name: str
     projection: Optional[list[str]] = None
+    # predicates the provider takes over (filter pushdown)
+    filters: tuple = ()
 
     def schema(self) -> Schema:
         s = self.provider.schema()
@@ -83,7 +90,7 @@ class Aggregate(LogicalPlan):
         for call, name in zip(self.agg_exprs, self.agg_names):
             if call.fn == "count":
                 fields.append(Field(name, dt.int64, False))
-            elif call.fn == "avg":
+            elif call.fn == "avg" or call.fn in VAR_FNS:
                 fields.append(Field(name, dt.float64, True))
             elif call.child is not None:
                 f = infer_expr_field(call.child, in_schema)

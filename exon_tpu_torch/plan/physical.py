@@ -11,10 +11,14 @@ The grouped path keys rows on int64 parts as ``_group_key_i64`` (:745) does:
 fixed-width keys are used as int64 (floats by their bits), dictionary keys
 map through the content hash of their vocabulary strings
 (``_hash_bytes_host`` :819, copied bit for bit) because every batch has its
-own vocabulary, and NULL parts hold ``_NULL_KEY_SENT`` (:742). Unlike the
-JAX package, the parts are not folded into one 64-bit hash: the hash table
-compares every part and its validity, and a content hash shared by two
-different strings raises instead of merging them.
+own vocabulary, var-width keys through their row hash (``_hash_var`` :831,
+the row_hash kernel), and NULL parts hold ``_NULL_KEY_SENT`` (:742). Unlike
+the JAX package, the parts are not folded into one 64-bit hash, and no hash
+is trusted (ROADMAP Queue 3, F3): the hash table compares every part and its
+validity, a dictionary string hash shared by two strings raises, and every
+var-width key is compared in full with a representative of its group. The
+var/stddev family keeps (Σx, Σx², count) in float64 per group (:444-490,
+:693-722) through the table's sum-of-squares op.
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ from ..errors import ExecutionError
 from ..kernels import hash_aggregate as hk
 from ..kernels.row_hash import row_hash
 from ..kernels.sort_keys import FixedKey, VarKey, sort_keys
+from ..kernels.string_eq import string_eq
 from ..ops import aggregate as agg_ops
 from ..ops import layout as layout_ops
 from .expressions import (AggregateCall, Expr, NullsOrder, _as_values,
                           _full, _validity_of, as_bool_mask, eval_expr)
+from .logical import VAR_FNS
 
 
 class PhysicalPlan:
@@ -145,8 +151,11 @@ def _to_column(v, batch: Batch):
 _NULL_KEY_SENT = int(np.int64(np.uint64(0x9E3779B97F4A7C15)))
 _FNV_PRIME = 1099511628211          # 2^40 + 2^8 + 0xb3
 _HASH_SALT = 0x9E3779B97F4A7C15
-_OPS = {"count": hk.COUNT, "sum": hk.SUM, "avg": hk.SUM, "min": hk.MIN,
-        "max": hk.MAX}
+# the hash table aggregates behind each call: a var/stddev call keeps Σx
+# and Σx² (its count is the table's own, exon_tpu/plan/physical.py:444)
+_OPS = {"count": (hk.COUNT,), "sum": (hk.SUM,), "avg": (hk.SUM,),
+        "min": (hk.MIN,), "max": (hk.MAX,),
+        **{fn: (hk.SUM, hk.SUMSQ) for fn in VAR_FNS}}
 
 
 def _splitmix_host(h: int) -> int:
@@ -230,7 +239,8 @@ def fold_key(parts: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class AggregateExec(PhysicalPlan):
-    """Group-by + aggregate: count, sum, min, max and avg."""
+    """Group-by + aggregate: count, sum, min, max, avg and the var/stddev
+    family."""
 
     group_exprs: list
     agg_calls: list
@@ -259,7 +269,8 @@ class AggregateExec(PhysicalPlan):
         return mask
 
     def _values_for_call(self, call: AggregateCall, b: Batch, mask):
-        """(values int64/float64 or None, valid bool) of one call."""
+        """(values int64/float64 or None, valid bool) of one call; float64
+        for the var family (exon_tpu/plan/physical.py:467)."""
         if call.child is None:
             return None, mask
         v = eval_expr(call.child, b)
@@ -273,7 +284,8 @@ class AggregateExec(PhysicalPlan):
             raise NotImplementedError(
                 f"{call.fn} over a non-numeric column is not ported yet "
                 "(ROADMAP Queue 1, aggregate)")
-        want = torch.float64 if vals.dtype.is_floating_point else torch.int64
+        want = torch.float64 if vals.dtype.is_floating_point \
+            or call.fn in VAR_FNS else torch.int64
         return vals.to(want).contiguous(), valid
 
     # -- ungrouped ----------------------------------------------------------
@@ -299,6 +311,12 @@ class AggregateExec(PhysicalPlan):
                 elif call.fn in ("sum", "avg"):
                     parts.append(
                         (agg_ops.ungrouped_reduce(vals, valid, "sum"), c))
+                elif call.fn in VAR_FNS:
+                    # (Σx, Σx², count) in float64 (:467-471)
+                    parts.append(
+                        (agg_ops.ungrouped_reduce(vals, valid, "sum"),
+                         agg_ops.ungrouped_reduce(vals * vals, valid, "sum"),
+                         c))
                 else:
                     parts.append((agg_ops.ungrouped_reduce(vals, valid, call.fn),
                                   c))
@@ -306,32 +324,27 @@ class AggregateExec(PhysicalPlan):
         # one host read per batch partial, after the stream has been queued
         partials = [None] * len(self.agg_calls)
         for parts in device_parts:
-            for j, (call, (v, c)) in enumerate(zip(self.agg_calls, parts)):
-                v, c = v.item(), int(c)
-                if partials[j] is None:
-                    partials[j] = (v, c)
-                    continue
-                pv, pc = partials[j]
-                if call.fn in ("count", "sum", "avg"):
-                    partials[j] = (pv + v, pc + c)
-                elif c and pc:
-                    partials[j] = (min(pv, v) if call.fn == "min"
-                                   else max(pv, v), pc + c)
-                elif c:
-                    partials[j] = (v, c)
+            for j, (call, p) in enumerate(zip(self.agg_calls, parts)):
+                p = tuple(x.item() for x in p)
+                partials[j] = p if partials[j] is None \
+                    else _merge_ungrouped(call.fn, partials[j], p)
         return self._finalize_ungrouped(
-            [p if p is not None else (0, 0) for p in partials])
+            [p if p is not None else
+             ((0.0, 0.0, 0) if call.fn in VAR_FNS else (0, 0))
+             for p, call in zip(partials, self.agg_calls)])
 
     def _finalize_ungrouped(self, partials: list) -> Batch:
         cols = []
-        for (v, c), call, f in zip(partials, self.agg_calls,
-                                   self.out_schema.all_fields):
-            if call.fn == "count":
-                out = c
+        for p, call, f in zip(partials, self.agg_calls,
+                              self.out_schema.all_fields):
+            if call.fn in VAR_FNS:
+                out = _finalize_variance(*p, call.fn)
+            elif call.fn == "count":
+                out = p[1]
             elif call.fn == "avg":
-                out = float(v) / c if c else None
+                out = float(p[0]) / p[1] if p[1] else None
             else:
-                out = v if c else None
+                out = p[0] if p[1] else None
             npdt = dt.numpy_dtype(f.dtype)
             cols.append(fixed_column(np.asarray([0 if out is None else out],
                                                 dtype=npdt),
@@ -341,77 +354,97 @@ class AggregateExec(PhysicalPlan):
     # -- grouped ------------------------------------------------------------
 
     def _key_parts(self, b: Batch, vocab_of: dict):
-        """int64 parts [n_group, n], their validity (uint8), and whether
-        each key is a dictionary column."""
-        parts, valid, is_dict = [], [], []
+        """int64 parts [n_group, n], their validity (uint8), each key's kind
+        ("dict", "var" or "fixed") and the evaluated key columns."""
+        parts, valid, kinds, cols = [], [], [], []
         for e in self.group_exprs:
             v = eval_expr(e, b)
             if isinstance(v, torch.Tensor):
                 # a computed key (a UDF's values), all valid
                 v = FixedColumn(v, b.row_mask())
-            if isinstance(v, (DictColumn, FixedColumn)):
-                p = _key_part(v, vocab_of)
-            elif isinstance(v, VarColumn):
-                raise NotImplementedError(
-                    "var-width group keys need the row-hash kernel "
-                    "(ROADMAP Queue 2, K3)")
-            else:
+            if not isinstance(v, (DictColumn, FixedColumn, VarColumn)):
                 raise NotImplementedError(
                     f"group key {e.display_name()} is not ported yet "
                     "(ROADMAP Queue 1, aggregate)")
-            parts.append(torch.where(v.validity, p, _NULL_KEY_SENT))
+            parts.append(torch.where(v.validity, _key_part(v, vocab_of),
+                                     _NULL_KEY_SENT))
             valid.append(v.validity)
-            is_dict.append(isinstance(v, DictColumn))
+            kinds.append("dict" if isinstance(v, DictColumn) else
+                         "var" if isinstance(v, VarColumn) else "fixed")
+            cols.append(v)
         return (torch.stack(parts).contiguous(),
-                torch.stack(valid).to(torch.uint8).contiguous(), is_dict)
+                torch.stack(valid).to(torch.uint8).contiguous(), kinds, cols)
 
     def _grouped(self) -> Batch:
         """Streaming grouped aggregate into one hash table; the output is
-        ordered by each group's first-seen row, as in the JAX package."""
-        specs: list = [None] * len(self.agg_calls)
+        ordered by each group's first-seen row, as in the JAX package.
+
+        A var-width key enters the table as its row hash. The aggregate
+        keeps a representative of each group's key bytes, appended as
+        groups open, and compares every row's bytes with its group's
+        representative (string_eq), so two strings that share the 64-bit
+        hash raise instead of merging (ROADMAP Queue 3, F3)."""
+        specs: list = []
         vocab_of: dict = {}
         table = None
         base_row = 0
-        key_kinds: list = []
+        kinds: list = []
+        reps: dict = {}  # var key index -> representatives, by group id
         for b in self.input.batches():
             mask = self._mask(b)
-            parts, pvalid, key_kinds = self._key_parts(b, vocab_of)
-            vals, valids = [], []
-            for j, call in enumerate(self.agg_calls):
+            parts, pvalid, kinds, key_cols = self._key_parts(b, vocab_of)
+            vals, valids, batch_specs = [], [], []
+            for call in self.agg_calls:
                 v, ok = self._values_for_call(call, b, mask)
-                vals.append(v)
-                valids.append(ok)
-                spec = (_OPS[call.fn],
-                        v is not None and v.dtype.is_floating_point)
-                if specs[j] is None:
-                    specs[j] = spec
-                elif specs[j] != spec:
-                    raise ExecutionError("aggregate input type changed "
-                                         "between batches")
+                is_float = v is not None and v.dtype.is_floating_point
+                for op in _OPS[call.fn]:
+                    vals.append(v)
+                    valids.append(ok)
+                    batch_specs.append((op, is_float))
             if table is None:
-                table = agg_ops.GroupedHashAggregate(parts.shape[0], specs,
-                                                     parts.device)
-            table.add_batch(parts, pvalid, mask, vals, valids, base_row)
+                specs = batch_specs
+                table = agg_ops.GroupedHashAggregate(
+                    parts.shape[0], specs, parts.device,
+                    track_groups="var" in kinds)
+            elif batch_specs != specs:
+                raise ExecutionError("aggregate input type changed "
+                                     "between batches")
+            groups = table.add_batch(parts, pvalid, mask, vals, valids,
+                                     base_row)
+            if groups is not None:
+                gid, opened = groups
+                for i, kind in enumerate(kinds):
+                    if kind == "var":
+                        reps[i] = _append_reps(reps.get(i), key_cols[i],
+                                               opened)
+                        _verify_keys(key_cols[i], gid, reps[i])
             base_row += b.length
         if table is None:
             return empty_batch(self.out_schema)
-        return self._finalize_grouped(table.finalize(), key_kinds, vocab_of)
+        return self._finalize_grouped(table.finalize(), kinds, vocab_of,
+                                      reps)
 
-    def _finalize_grouped(self, res: agg_ops.GroupedResult, key_kinds,
-                          vocab_of: dict) -> Batch:
+    def _finalize_grouped(self, res: agg_ops.GroupedResult, kinds,
+                          vocab_of: dict, reps: dict) -> Batch:
         g = res.num_groups
         fields = self.out_schema.all_fields
         keys = res.keys.cpu().numpy()
         key_valid = res.key_valid.cpu().numpy()
         cols = []
-        for i, (is_dict, f) in enumerate(zip(key_kinds, fields)):
-            if is_dict:
+        for i, (kind, f) in enumerate(zip(kinds, fields)):
+            if kind == "dict":
                 vocab: dict = {}
                 codes = np.asarray(
                     [vocab.setdefault(vocab_of[h], len(vocab)) if ok else 0
                      for h, ok in zip(keys[i].tolist(),
                                       key_valid[i].tolist())], np.int32)
                 cols.append(DictColumn(codes, key_valid[i], tuple(vocab)))
+            elif kind == "var":
+                rep = layout_ops.take_var(reps[i],
+                                          res.group_ids.to(torch.int32))
+                cols.append(VarColumn(rep.values.cpu().numpy(),
+                                      rep.offsets.cpu().numpy(),
+                                      key_valid[i]))
             else:
                 vals = keys[i].view(np.float64) if f.dtype.kind.value.startswith(
                     "float") else keys[i]
@@ -419,23 +452,93 @@ class AggregateExec(PhysicalPlan):
                     dt.numpy_dtype(f.dtype))
                 cols.append(FixedColumn(vals, key_valid[i]))
         n_group = len(self.group_exprs)
+        at = 0  # the call's first aggregate in the table
         for j, call in enumerate(self.agg_calls):
             f = fields[n_group + j]
-            cnt = res.cnt[j]
+            cnt = res.cnt[at]
             if call.fn == "count":
                 vals, valid = cnt, torch.ones_like(cnt, dtype=torch.bool)
+            elif call.fn in VAR_FNS:
+                vals, valid = _finalize_variance_grouped(
+                    res.acc[at], res.acc[at + 1], cnt, call.fn)
             else:
                 valid = cnt > 0
-                acc = res.acc[j]
+                acc = res.acc[at]
                 if call.fn == "avg":
                     acc = acc.to(torch.float64) / cnt.clamp(min=1).to(
                         torch.float64)
                 vals = torch.where(valid, acc, torch.zeros((), dtype=acc.dtype,
                                                            device=acc.device))
+            at += len(_OPS[call.fn])
             cols.append(FixedColumn(
                 vals.cpu().numpy().astype(dt.numpy_dtype(f.dtype)),
                 valid.cpu().numpy()))
         return Batch(self.out_schema, cols, g).to_device(res.keys.device)
+
+
+def _merge_ungrouped(fn: str, a: tuple, b: tuple) -> tuple:
+    """Two host partials of one call (exon_tpu/plan/physical.py:864-886)."""
+    if fn not in ("min", "max"):
+        return tuple(x + y for x, y in zip(a, b))
+    (av, ac), (bv, bc) = a, b
+    if ac and bc:
+        return (min(av, bv) if fn == "min" else max(av, bv), ac + bc)
+    return (bv, ac + bc) if bc else (av, ac + bc)
+
+
+def _finalize_variance(s: float, ss: float, c: int, fn: str):
+    """The host finalize of an ungrouped var/stddev partial
+    (exon_tpu/plan/physical.py:915-921)."""
+    pop = fn.endswith("_pop")
+    if c < (1 if pop else 2):
+        return None
+    m2 = max(ss - s * s / c, 0.0)
+    var = m2 / (c if pop else c - 1)
+    return float(np.sqrt(var)) if fn.startswith("stddev") else float(var)
+
+
+def _finalize_variance_grouped(s, ss, c, fn: str):
+    """(values float64, valid) of a grouped var/stddev call from its
+    (Σx, Σx², count) partials (``_jit_finalize_grouped``,
+    exon_tpu/plan/physical.py:713-722): a sample or population
+    denominator, NULL below 2 rows (sample) or 1 row (population)."""
+    cf = c.clamp(min=1).to(torch.float64)
+    m2 = torch.clamp(ss - s * s / cf, min=0.0)
+    pop = fn.endswith("_pop")
+    var = m2 / (cf if pop else torch.clamp(cf - 1.0, min=1.0))
+    vals = torch.sqrt(var) if fn.startswith("stddev") else var
+    valid = c >= (1 if pop else 2)
+    return torch.where(valid, vals, 0.0), valid
+
+
+def _append_reps(reps: Optional[VarColumn], col: VarColumn,
+                 opened: torch.Tensor) -> VarColumn:
+    """The representatives with the opening rows of this batch's new groups
+    appended (a gather_var of the rows, then a concatenation)."""
+    new = layout_ops.take_var(col, opened.to(torch.int32))
+    if reps is None:
+        return new
+    return VarColumn(torch.cat([reps.values, new.values]),
+                     torch.cat([reps.offsets,
+                                new.offsets[1:] + reps.offsets[-1]]),
+                     torch.cat([reps.validity, new.validity]))
+
+
+def _verify_keys(col: VarColumn, gid: torch.Tensor, reps: VarColumn) -> None:
+    """Raise unless every live row with a non-NULL key holds the same bytes
+    as its group's representative (string_eq over those rows alone; rows
+    the mask dropped have no group, and a batch may have none left)."""
+    idx, count = layout_ops.mask_to_indices((gid >= 0) & col.validity)
+    rows = idx[:int(count)]
+    if rows.shape[0] == 0:
+        return
+    same = string_eq((col.offsets, col.values, col.validity), rows,
+                     (reps.offsets, reps.values, reps.validity),
+                     gid[rows.long()].to(torch.int32))
+    if not bool(same.all()):
+        raise ExecutionError(
+            "two different group keys share the 64-bit row hash; the "
+            "aggregate refuses to merge them")
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Counterpart of exon_tpu/plan/planner.py: ``infer_expr_field`` (:34) for the
 ported expressions (a function call takes the return type registered
 beside its function, where the JAX package keeps a second registry,
 :25-31,71-77), ``optimize`` (:166) reduced to resolving table
-qualifiers (:231), projection pushdown into the scan (:411) and
+qualifiers (:231), filter pushdown into the scan (:385; providers answer
+exact/inexact/none), projection pushdown into the scan (:411) and
 identity-projection elision (:175), and ``create_physical_plan`` (:551-668)
 for Scan / Filter / Project / Aggregate / Sort / Limit / Join / Values,
 with the same fusion of a Filter directly under an Aggregate into the
@@ -25,8 +26,8 @@ from . import logical as L
 from . import physical as P
 from .expressions import (AggregateCall, Alias, BinaryOp, Case, Cast,
                           ColumnRef, Expr, FieldAccess, FunctionCall, InList,
-                          IsNull, Like, Literal, Not, expr_columns,
-                          get_function)
+                          IsNull, Like, Literal, Not, conjoin, expr_columns,
+                          get_function, split_conjunction)
 
 _NUMERIC_ORDER = ["int8", "int16", "int32", "int64", "float32", "float64"]
 
@@ -77,7 +78,7 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
     if isinstance(expr, AggregateCall):
         if expr.fn == "count":
             return Field(expr.display_name(), dt.int64, False)
-        if expr.fn == "avg":
+        if expr.fn == "avg" or expr.fn in L.VAR_FNS:
             return Field(expr.display_name(), dt.float64, True)
         inner = infer_expr_field(expr.child, schema)
         return Field(expr.display_name(), inner.dtype, True)
@@ -113,8 +114,32 @@ def _case_field(expr: Case, schema: Schema) -> Field:
 
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    return _elide_identity_projects(_push_projection(
-        _resolve_field_access(plan)))
+    return _elide_identity_projects(_push_projection(_push_filters(
+        _resolve_field_access(plan))))
+
+
+def _push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Hand a Filter's conjuncts to the Scan below it where its provider
+    takes them (exon_tpu/plan/planner.py:385-410); exact ones leave the
+    residual Filter."""
+    if isinstance(plan, L.Filter):
+        child = _push_filters(plan.input)
+        if isinstance(child, L.Scan):
+            pushed, residual = [], []
+            for c in split_conjunction(plan.predicate):
+                verdict = child.provider.supports_filter_pushdown(c)
+                if verdict in ("exact", "inexact"):
+                    pushed.append(c)
+                if verdict != "exact":
+                    residual.append(c)
+            if pushed:
+                child = L.Scan(child.provider, child.table_name,
+                               child.projection, child.filters + tuple(pushed))
+            if not residual:
+                return child
+            return L.Filter(conjoin(residual), child)
+        return L.Filter(plan.predicate, child)
+    return _with_children(plan, [_push_filters(c) for c in plan.children()])
 
 
 def _resolve_field_access(plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -178,9 +203,12 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(p, L.Scan):
             if needed is None:
                 return p
+            # the pushed filters' columns stay in the scan (:420-423)
+            for f in p.filters:
+                needed = needed | expr_columns(f)
             names = p.provider.schema().names
             cols = [n for n in names if n in needed]
-            return L.Scan(p.provider, p.table_name, cols)
+            return L.Scan(p.provider, p.table_name, cols, p.filters)
         if isinstance(p, L.Filter):
             need = None if needed is None else needed | expr_columns(p.predicate)
             return L.Filter(p.predicate, required(p.input, need))
@@ -193,6 +221,17 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
             need = set()
             for e in list(p.group_exprs) + list(p.agg_exprs):
                 need |= expr_columns(e)
+            if (not p.group_exprs and not need and p.agg_exprs
+                    and isinstance(p.input, L.Scan)
+                    and all(e.fn == "count" and e.child is None
+                            for e in p.agg_exprs)):
+                # COUNT(*) over a bare scan reads no column, pushed filters
+                # included: a provider that plans a residual filter widens
+                # its own scan (:438-456)
+                s = p.input
+                return L.Aggregate(p.group_exprs, p.agg_exprs, p.agg_names,
+                                   L.Scan(s.provider, s.table_name, [],
+                                          s.filters))
             return L.Aggregate(p.group_exprs, p.agg_exprs, p.agg_names,
                                required(p.input, need))
         if isinstance(p, L.Limit):
@@ -274,7 +313,8 @@ def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
 
 def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
     if isinstance(plan, L.Scan):
-        return plan.provider.scan(plan.projection, device=device)
+        return plan.provider.scan(plan.projection, list(plan.filters),
+                                  device=device)
     if isinstance(plan, L.Filter):
         return P.FilterExec(plan.predicate,
                             create_physical_plan(plan.input, device))

@@ -1,8 +1,9 @@
 """Genomic regions: ``Region`` and ``Region.parse``.
 
-Copied from exon_tpu/io/indexes.py:25-40 (the dataclass and its parser),
-for ``region_match``. The index readers around it are not ported yet
-(ROADMAP Queue 1, item 2).
+Copied from exon_tpu/io/indexes.py:25-62 (the dataclass, its parser, the
+0-based bounds a tabix query takes and its text form), for
+``region_match``, the region filters of plan/regions.py and the tabix
+queries of indexes.py.
 """
 
 from __future__ import annotations
@@ -34,3 +35,18 @@ class Region:
         if start is not None and end is not None and end < start:
             raise InvalidRegionError(f"invalid interval in {s!r}")
         return cls(m.group(1), start, end)
+
+    @property
+    def zero_start(self) -> int:
+        return (self.start - 1) if self.start else 0
+
+    @property
+    def excl_end(self) -> int:
+        return self.end if self.end is not None else 1 << 60
+
+    def __str__(self) -> str:
+        if self.start is None:
+            return self.name
+        if self.end is None:
+            return f"{self.name}:{self.start}"
+        return f"{self.name}:{self.start}-{self.end}"

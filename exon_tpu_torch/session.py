@@ -1,7 +1,8 @@
 """ExonSession: the port's entry point.
 
 Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
-``read_gff`` and ``read_bam``, the table registry (``register_table``,
+``read_vcf``, ``read_gff`` and ``read_bam`` (VCF through its own provider
+with region pushdown, as ``_make_provider`` :121 gives it), the table registry (``register_table``,
 ``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
 which runs the port's copy of the SQL frontend. Creating a session
 registers the UDFs of the port's udfs.py. The session names the
@@ -20,7 +21,7 @@ import torch
 from .dataframe import DataFrame
 from .errors import PlanError
 from .plan import logical as L
-from .tables import FileTable, get_format
+from .tables import get_format, make_provider
 
 DEVICE_BATCH_SIZE = 1 << 17  # exon_tpu/config.py:20
 
@@ -62,7 +63,7 @@ class ExonSession:
         options = options or spec.default_options()
         options = dataclasses.replace(options, **kwargs,
                                       batch_size=self.device_batch_size)
-        provider = FileTable(url, spec, options)
+        provider = make_provider(url, spec, options)
         return DataFrame(self, L.Scan(provider, f"{fmt_name.lower()}:{url}"))
 
     def read_fasta(self, url: str, options=None, **kw) -> DataFrame:
@@ -70,6 +71,9 @@ class ExonSession:
 
     def read_fastq(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("FASTQ", url, options, **kw)
+
+    def read_vcf(self, url: str, options=None, **kw) -> DataFrame:
+        return self._read("VCF", url, options, **kw)
 
     def read_gff(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("GFF", url, options, **kw)

@@ -12,8 +12,9 @@ CREATE EXTERNAL TABLE, DESCRIBE, SHOW TABLES and DROP TABLE over the
 port's formats. Statements and table kinds the port does not carry raise
 NotImplementedError naming their ROADMAP Queue 1 item: COPY (item 10),
 EXPLAIN (item 11), CREATE FUNCTION (item 8), SET, CREATE TABLE [AS], INSERT
-and VALUES (item 14), PARQUET/Delta tables, partitioned and indexed tables
-and the ``*_indexed_scan`` region forms (item 2). Plans that need a Union
+and VALUES (item 14), PARQUET/Delta tables, partitioned tables and the
+indexed tables and ``*_indexed_scan`` region forms of formats other than
+VCF (item 2c). Plans that need a Union
 or a Window (set operations, FULL JOIN, GROUPING SETS, windows, DISTINCT
 ON) are built as in the JAX package and raise when lowered (item 7).
 Subquery results are read through ``collect_host``, so SQL needs no
@@ -22,6 +23,7 @@ pyarrow.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from .. import datatypes as dt
@@ -123,18 +125,19 @@ def _execute_stmt(session, stmt):
 def _create_external_table(session, stmt: A.CreateExternalTable):
     import dataclasses
 
-    from ..tables import FileTable, alias_extension, get_format
+    from ..tables import alias_extension, get_format, make_provider
 
     fmt_name = stmt.file_format.upper()
     if fmt_name in ("PARQUET", "DELTATABLE"):
-        raise _not_ported(f"{fmt_name} tables", "2: other decoders")
-    if stmt.file_format.startswith("INDEXED_") or stmt.partition_cols:
-        raise _not_ported("indexed and partitioned tables",
-                          "2: other decoders and region reads")
-    spec = get_format(stmt.file_format)
+        raise _not_ported(f"{fmt_name} tables", "2c: other formats")
+    bare = fmt_name.replace("INDEXED_", "")
+    if stmt.partition_cols or (bare != fmt_name and bare != "VCF"):
+        raise _not_ported("partitioned tables and indexed tables other "
+                          "than VCF", "2c: other formats and region reads")
+    spec = get_format(bare)
     options = spec.default_options()
     kw = {}
-    alias_ext = alias_extension(stmt.file_format)
+    alias_ext = alias_extension(bare)
     if alias_ext is not None and hasattr(options, "file_extension"):
         kw["file_extension"] = alias_ext
     for k, v in stmt.options.items():
@@ -147,13 +150,15 @@ def _create_external_table(session, stmt: A.CreateExternalTable):
                 kw[key] = type(cur)(v)
             else:
                 kw[key] = v
+    if bare != fmt_name:
+        kw["indexed"] = True
     if hasattr(options, "batch_size"):
         kw["batch_size"] = session.device_batch_size
     if kw:
         options = dataclasses.replace(options, **kw)
     if not (stmt.if_not_exists and stmt.name.lower() in session.tables):
         session.register_table(stmt.name,
-                               FileTable(stmt.location, spec, options))
+                               make_provider(stmt.location, spec, options))
     return _result_df(session, dt.Schema.of(
         dt.Field("status", dt.utf8, False)), [("ok",)])
 
@@ -1054,11 +1059,34 @@ def _plan_udtf(session, ref: A.TableFunc) -> L.LogicalPlan:
     if not ref.args:
         raise SqlError(f"{ref.name} requires a path argument")
     path = str(ref.args[0])
-    if indexed:
+    if indexed and fmt != "VCF":
         raise _not_ported(f"{ref.name} region reads",
-                          "2: other decoders and region reads")
-    # a second argument (compression) is inferred from the extension
-    return session._read(fmt, path).logical_plan()
+                          "2c: other formats and region reads")
+    plan = session._read(fmt, path).logical_plan()
+    # a second argument is the compression of a plain scan (inferred from
+    # the extension), or the region or region file of an indexed one
+    # (exon_tpu/sql/frontend.py:1212-1267)
+    if indexed and len(ref.args) > 1 and isinstance(ref.args[1], str):
+        from ..plan.expressions import col, lit
+        from ..region import Region
+
+        arg = ref.args[1]
+        region_strs = [arg]
+        if ("/" in arg or arg.endswith(".txt")) and os.path.isfile(arg):
+            with open(arg) as f:
+                region_strs = [ln.strip() for ln in f.read().splitlines()
+                               if ln.strip()]
+        regions = [Region.parse(r) for r in region_strs]
+
+        def marker(region):
+            return FunctionCall("vcf_region_filter",
+                                [lit(str(region)), col("chrom"), col("pos")])
+
+        pred = marker(regions[0])
+        for r in regions[1:]:
+            pred = BinaryOp("or", pred, marker(r))
+        plan = L.Filter(pred, plan)
+    return plan
 
 
 def _unqualify(e: Expr, *schemas) -> Expr:

@@ -2,27 +2,34 @@
 
 Counterpart of ``FileTable.scan`` (exon_tpu/tables.py:181-288) for FASTA,
 FASTQ, GFF and BAM (without the .bai region pruning of
-exon_tpu/providers.py ``BamTable``: no filter is pushed into a scan). As in
-the JAX package (tables.py:212-217), a format with a device decoder (FASTA,
-FASTQ) is decoded on the session's device unless ``EXON_TPU_HOST_DECODE``
-is set, and its batches pass through the ``ScanExec`` as they come; the
-other formats decode on the host and the ``ScanExec`` moves their batches
-to the device. No filter is pushed into the scan (prefix-LIKE pushdown,
-tables.py:163-169, is not ported), so every predicate runs as a device
-operator.
+exon_tpu/providers.py ``BamTable``), and of ``VcfTable``
+(exon_tpu/providers.py:43-131), the VCF table with tabix region pushdown.
+As in the JAX package (tables.py:212-217), a format with a device decoder
+(FASTA, FASTQ) is decoded on the session's device unless
+``EXON_TPU_HOST_DECODE`` is set, and its batches pass through the
+``ScanExec`` as they come; the other formats decode on the host and the
+``ScanExec`` moves their batches to the device. A ``FileTable`` takes no
+filter (prefix-LIKE pushdown, tables.py:163-169, is not ported), so every
+predicate on it runs as a device operator; a ``VcfTable`` takes the
+region-filter markers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import zlib
 from typing import Callable, Iterator, Optional, Sequence
 
 from .batch import Batch, Schema
-from .formats import bam, fasta, fasta_device, fastq, gff
-from .io import read_file, resolve_table_files
-from .plan.expressions import Expr
-from .plan.physical import ScanExec
+from .errors import InvalidRegionError
+from .formats import bam, fasta, fasta_device, fastq, gff, vcf
+from .indexes import parse_tabix
+from .io import (coalesce_chunks, read_bgzf_chunk, read_file,
+                 resolve_table_files)
+from .plan import regions as R
+from .plan.expressions import BinaryOp, Expr, col
+from .plan.physical import FilterExec, PhysicalPlan, ProjectExec, ScanExec
 
 
 @dataclasses.dataclass
@@ -44,6 +51,8 @@ FORMATS = {
     "GFF": FormatSpec("GFF", gff.gff_schema, gff.decode_host, gff.GffOptions),
     # exon_tpu/tables.py:642-656
     "BAM": FormatSpec("BAM", bam.bam_schema, bam.decode_host, bam.BamOptions),
+    # exon_tpu/tables.py:567-575; scanned by VcfTable
+    "VCF": FormatSpec("VCF", vcf.vcf_schema, vcf.decode_host, vcf.VcfOptions),
 }
 
 
@@ -107,3 +116,147 @@ class FileTable:
                                           projection)
 
         return ScanExec(schema, source, device, to_device=not use_device)
+
+
+def make_provider(url: str, spec: FormatSpec, options):
+    """The table provider of a format: VCF has its own, with region
+    pushdown (exon_tpu/providers.py:341-348); the others are FileTables."""
+    if spec.name == "VCF":
+        return VcfTable(url, options)
+    return FileTable(url, spec, options)
+
+
+@dataclasses.dataclass
+class VcfTable:
+    """VCF listing table with tabix region pruning
+    (exon_tpu/providers.py ``VcfTable``, :43-131;
+    exon-core/src/datasources/vcf/table_provider.rs).
+
+    Region markers are Exact filters. With a ``.tbi`` beside a gzip or
+    BGZF file, each region seeks through the index, inflates only its
+    chunks and keeps the rows of the region (the exact host row filter).
+    A row that lies in several of the scan's regions is read once, under
+    the first of them, and every chunk is decoded with the file's header;
+    the JAX package reads such a row once per region and decodes a chunk
+    without the header (ROADMAP Queue 3, F15). Without a ``.tbi`` the
+    whole file is decoded and a residual ``FilterExec`` keeps the rows of
+    any region, with ``chrom`` and ``pos`` added to the scan's projection
+    and projected away after.
+    """
+
+    url: str
+    options: object
+
+    def schema(self) -> Schema:
+        if getattr(self.options, "parse_info", False) or \
+                getattr(self.options, "parse_formats", False):
+            header = vcf.parse_header_only(_header_prefix(self.files()[0]))
+            return vcf.vcf_schema(self.options, header)
+        return vcf.vcf_schema(self.options)
+
+    def supports_filter_pushdown(self, expr: Expr) -> str:
+        return "exact" if R.is_region_filter(expr) else "none"
+
+    def files(self) -> list[str]:
+        return resolve_table_files(
+            self.url, getattr(self.options, "file_extension", ".vcf"))
+
+    def scan(self, projection: Optional[list[str]] = None,
+             filters: Sequence[Expr] = (), device="cpu") -> PhysicalPlan:
+        regions = R.infer_regions_from_filters(filters)
+        options = self.options
+        if getattr(options, "regions", None):
+            regions = list(options.regions) + regions
+        if getattr(options, "indexed", False) and not regions:
+            raise InvalidRegionError(
+                "An indexed VCF table type requires a region filter. "
+                "See the 'vcf_region_filter' function.")
+        schema = self.schema()
+        proj = list(projection) if projection is not None else schema.names
+        files = self.files()
+        indexed = {path: path.lower().endswith((".gz", ".bgz"))
+                   and os.path.exists(path + ".tbi") for path in files}
+        # indexed chunks are row-filtered exactly on the host; only the
+        # unindexed fallback needs chrom/pos in the scan for a residual
+        # FilterExec
+        all_indexed = bool(regions) and all(indexed.values())
+        scan_proj = list(proj)
+        if regions and not all_indexed:
+            scan_proj += [c for c in ("chrom", "pos") if c not in scan_proj]
+
+        def source() -> Iterator[Batch]:
+            for path in files:
+                if regions and indexed[path]:
+                    yield from _indexed_batches(path, regions, options,
+                                                scan_proj)
+                else:
+                    yield from vcf.decode_host(read_file(path), options,
+                                               scan_proj)
+
+        plan: PhysicalPlan = ScanExec(schema.project(scan_proj), source,
+                                      device)
+        if regions and not all_indexed:
+            pred = R.region_to_point_expr(regions[0], "chrom", "pos")
+            for r in regions[1:]:
+                pred = BinaryOp("or", pred,
+                                R.region_to_point_expr(r, "chrom", "pos"))
+            plan = FilterExec(pred, plan)
+            if scan_proj != proj and proj:
+                plan = ProjectExec([col(n) for n in proj],
+                                   schema.project(proj), plan)
+        return plan
+
+
+def _indexed_batches(path: str, regions: list, options,
+                     projection: list[str]) -> Iterator[Batch]:
+    """The rows of each region through the tabix index: its chunks
+    coalesced, range-read and inflated, then the exact row filter, which
+    also drops a row inside an earlier region of the list. Each chunk is
+    decoded with the file's header, as the whole file would be."""
+    with open(path + ".tbi", "rb") as f:
+        tbi = parse_tabix(f.read())
+    size = os.path.getsize(path)
+    header = vcf.parse_header_only(_header_prefix(path))
+    for i, region in enumerate(regions):
+        earlier = [r for r in regions[:i] if r.name == region.name]
+        for chunk in coalesce_chunks(tbi.query(region)):
+            yield from vcf.decode_host(read_bgzf_chunk(path, chunk, size),
+                                       options, projection,
+                                       with_header=header, region=region,
+                                       exclude=earlier)
+
+
+def _header_prefix(path: str) -> bytes:
+    """The file's leading '#' lines, inflating only as much of a gzip or
+    BGZF file as they need (exon_tpu/providers.py:351-374): the schema
+    pass must not inflate a multi-GB file."""
+    d = zlib.decompressobj(31) if path.lower().endswith((".gz", ".bgz")) \
+        else None
+    buf = bytearray()
+    with open(path, "rb") as f:
+        while not _past_header(buf) and len(buf) <= (256 << 20):
+            raw = f.read(1 << 20)
+            if not raw:
+                break
+            if d is None:
+                buf += raw
+                continue
+            while raw:  # one gzip member after another
+                buf += d.decompress(raw)
+                if not d.eof:
+                    break
+                raw = d.unused_data
+                d = zlib.decompressobj(31)
+    return bytes(buf)
+
+
+def _past_header(buf: bytearray) -> bool:
+    """Whether ``buf`` holds a whole line that does not start with '#'."""
+    start = 0
+    while True:
+        nl = buf.find(b"\n", start)
+        if nl < 0:
+            return False
+        if buf[start:start + 1] != b"#":
+            return True
+        start = nl + 1

@@ -11,10 +11,13 @@ sw_score (Smith-Waterman, through ops/alignment.py). The flag predicates
 and the intervals are elementwise torch ops; a chromosome compares through
 like_match, or through the vocabulary of a dictionary column.
 
-Registration follows ``_register_all`` (:436-508). The list-column UDFs,
-``locate_regex``, the mass-spec UDFs, the region-filter markers of indexed
-tables and the SQL functions of exon_tpu/ops/sqlfuncs.py are registered as
-not ported: calling one raises NotImplementedError naming its ROADMAP item.
+Registration follows ``_register_all`` (:436-508). The VCF and BCF
+region-filter markers are registered as the JAX package does: a provider
+plans them away, and one that reaches execution raises PlanError. The
+list-column UDFs, ``locate_regex``, the mass-spec UDFs, the markers of
+formats without an indexed provider and the SQL functions of
+exon_tpu/ops/sqlfuncs.py are registered as not ported: calling one raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .ops.alignment import alignment_scores, alignment_scores_pairwise
 from .ops.device_text import lengths_to_offsets
 from .ops.layout import dict_to_var
 from .plan.expressions import register_function, register_not_ported
+from .plan.regions import REGION_FILTER_UDFS
 from .region import Region
 
 
@@ -230,12 +234,10 @@ LIST_UDFS = ("integer_encode_dna", "integer_encoding",
              "quality_scores_to_list", "quality_scores_to_string",
              "make_array", "array_element", "array_length", "locate_regex",
              "contains_peak", "bin_vectors")
-# the region-filter markers of exon_tpu/plan/regions.py:27, planned away by
-# indexed table providers
-REGION_FILTER_UDFS = ("vcf_region_filter", "bcf_region_filter",
-                      "bam_region_filter", "cram_region_filter",
-                      "sam_region_filter", "gff_region_filter",
-                      "bigwig_region_filter", "fasta_region_filter")
+# the region-filter markers a ported provider plans away (VcfTable; BCF's
+# marker shares the VCF semantics); the rest wait for their formats'
+# indexed providers
+PUSHED_REGION_FILTERS = ("vcf_region_filter", "bcf_region_filter")
 # the names exon_tpu/ops/sqlfuncs.py:1010-1104 registers
 SQL_FUNCTIONS = (
     "upper", "lower", "octet_length", "bit_length", "md5", "sha256",
@@ -251,6 +253,16 @@ SQL_FUNCTIONS = (
     "atan", "sinh", "cosh", "tanh", "degrees", "radians", "cbrt", "isnan",
     "asinh", "acosh", "atanh", "signum", "sign", "power", "pow", "atan2",
     "mod", "log", "pi")
+
+
+def _region_marker(name: str):
+    def fn(batch, *args):
+        raise PlanError(
+            f"{name} should not be called, check your query "
+            "(it must appear as a top-level WHERE conjunct on an "
+            "indexed table)")
+
+    return fn
 
 
 # -- registration -----------------------------------------------------------
@@ -270,8 +282,13 @@ def _register_all() -> None:
     register_function("interval_match", interval_match, dt.bool_)
     register_function("region_match", region_match, dt.bool_)
     register_not_ported(LIST_UDFS, "item 2: list, struct and mzML columns")
-    register_not_ported(REGION_FILTER_UDFS,
-                        "item 2: indexed tables and their region filters")
+    # region-filter markers (exon_tpu/udfs.py:493-509): planned away by
+    # the provider, never executed
+    for name in PUSHED_REGION_FILTERS:
+        register_function(name, _region_marker(name), dt.bool_)
+    register_not_ported(
+        [n for n in REGION_FILTER_UDFS if n not in PUSHED_REGION_FILTERS],
+        "item 2c: indexed tables of other formats and their region filters")
     register_not_ported(SQL_FUNCTIONS,
                         "item 8: the SQL functions of ops/sqlfuncs.py, K12")
 

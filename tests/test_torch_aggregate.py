@@ -1,9 +1,15 @@
 """The grouped hash aggregate of exon_tpu_torch (its CPU twin) held to
 exon_tpu's grouped AggregateExec on JAX CPU: count/sum/min/max/avg, NULL
-values, NULL keys and first-seen group order across several batches.
-Tolerance: exact, except float64 sums and averages, relative 1e-12 (the two
-engines add in different orders)."""
+values, NULL keys and first-seen group order across several batches; the
+seven var/stddev names grouped and ungrouped (K4b); var-width keys, NULL
+apart from '', keys past 32 bytes, mixed dictionary, var-width and int64
+keys, SELECT DISTINCT and COUNT(DISTINCT) on a string; and a forced 64-bit
+hash collision, which the port refuses where the JAX package merges (F3).
+Tolerance: exact, except float64 sums and averages, relative 1e-12, and
+var/stddev results, relative 1e-9 (the two engines add in different
+orders, and Σx² − (Σx)²/n cancels)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,6 +18,7 @@ import exon_tpu as J
 from exon_tpu import batch as jb
 from exon_tpu import datatypes as jdt
 from exon_tpu.plan import logical as JL
+from exon_tpu.plan.expressions import AggregateCall as JAggregateCall
 from exon_tpu.plan import physical as JP
 import exon_tpu_torch as T
 from exon_tpu_torch import batch as tb
@@ -68,19 +75,20 @@ def _calls(mod):
     return calls, [f"a{i}" for i in range(len(calls))]
 
 
-def _run_jax(keys, batches, pre_filter=None):
-    calls, names = _calls(J)
+def _run_jax(keys, batches, pre_filter=None, calls_of=_calls):
+    calls, names = calls_of(J)
+    schema = batches[0].schema
     plan = JL.Aggregate([J.col(k) for k in keys], calls, names,
-                        _Input(SCHEMA))
-    scan = JP.ScanExec(SCHEMA, lambda: iter(batches))
+                        _Input(schema))
+    scan = JP.ScanExec(schema, lambda: iter(batches))
     return JP.AggregateExec(plan.group_exprs, calls, plan.schema(), scan,
                             pre_filter=pre_filter).collect_arrow()
 
 
-def _run_port(keys, batches, pre_filter=None):
+def _run_port(keys, batches, pre_filter=None, calls_of=_calls):
     host = [tb.from_numpy_batch(b) for b in batches]
     schema = host[0].schema
-    calls, names = _calls(T)
+    calls, names = calls_of(T)
     plan = TL.Aggregate([T.col(k) for k in keys], calls, names, _Input(schema))
     scan = TP.ScanExec(schema, lambda: iter(host), "cpu")
     return TP.AggregateExec(plan.group_exprs, calls, plan.schema(), scan,
@@ -142,3 +150,220 @@ def test_shared_content_hash_raises(monkeypatch):
     monkeypatch.setattr(TP, "_hash_bytes_host", lambda b: 1)
     with pytest.raises(T.ExonError, match="share"):
         _run_port(["chrom"], _batches(n_batches=1))
+
+
+# ---------------------------------------------------------------------------
+# the var/stddev family (K4b) and var-width keys
+# ---------------------------------------------------------------------------
+
+VAR_NAMES = ("stddev", "stddev_samp", "stddev_pop", "var", "variance",
+             "var_samp", "var_pop")
+VAR_RTOL = 1e-9  # Σx² − (Σx)²/n, summed in another order
+VSCHEMA = jdt.Schema.of(jdt.Field("chrom", jdt.dictionary),
+                        jdt.Field("s", jdt.utf8),
+                        jdt.Field("k", jdt.int64),
+                        jdt.Field("v", jdt.int64),
+                        jdt.Field("f", jdt.float64))
+# short strings, the empty string, and long ones that share their first
+# 32 bytes
+STRINGS = ["", "A", "AC", "ACGT", "T" * 7, "G" * 31 + "A", "G" * 32 + "A",
+           "G" * 32 + "C", "N" * 40 + "x", "N" * 40 + "y"]
+
+
+def _var_batches(seed=0, n_batches=4, n=101, k_range=60):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        vocab = list(rng.permutation(VOCAB))
+        picks = rng.integers(0, len(STRINGS), n)
+        data = [STRINGS[i].encode() for i in picks]
+        offs = np.zeros(n + 1, np.int32)
+        np.cumsum([len(d) for d in data], out=offs[1:])
+        cols = [
+            jb.DictColumn(rng.integers(0, len(vocab), n).astype(np.int32),
+                          rng.random(n) < 0.95, tuple(vocab)),
+            jb.VarColumn(np.frombuffer(b"".join(data) or b"\0", np.uint8)
+                         [: offs[-1]].copy(), offs, rng.random(n) < 0.9),
+            jb.FixedColumn(rng.integers(0, k_range, n).astype(np.int64),
+                           rng.random(n) < 0.9),
+            jb.FixedColumn(rng.integers(-10**4, 10**4, n).astype(np.int64),
+                           rng.random(n) < 0.8),
+            jb.FixedColumn(rng.uniform(10, 4000, n), rng.random(n) < 0.8),
+        ]
+        out.append(jb.Batch(VSCHEMA, cols, np.int32(n)))
+    return out
+
+
+def _var_calls(mod, fns=VAR_NAMES):
+    c = mod.col
+    call = T.AggregateCall if mod is T else JAggregateCall
+    calls = [mod.count()]
+    for fn in fns:
+        calls += [call(fn, c("v")), call(fn, c("f"))]
+    return calls, [f"a{i}" for i in range(len(calls))]
+
+
+def _run_both(keys, batches, calls_of=_var_calls):
+    return (_run_port(keys, batches, calls_of=calls_of),
+            _run_jax(keys, batches, calls_of=calls_of))
+
+
+def assert_var_tables_match(got, want):
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows
+    for name in want.column_names:
+        g, w = got.column(name), want.column(name)
+        assert g.is_null().to_pylist() == w.is_null().to_pylist(), name
+        if w.type == "double":
+            np.testing.assert_allclose(
+                np.asarray(g.fill_null(0).to_pylist(), np.float64),
+                np.asarray(w.fill_null(0).to_pylist(), np.float64),
+                rtol=VAR_RTOL, atol=0, err_msg=name)
+        else:
+            assert g.to_pylist() == w.to_pylist(), name
+
+
+@pytest.mark.parametrize("keys", [["k"], ["chrom"], []],
+                         ids=["many_small_groups", "dict_key", "ungrouped"])
+def test_var_family_matches_jax(keys):
+    # k over 0..599 in 404 rows: many groups of one row (NULL var/stddev
+    # for the sample forms, 0 for the population ones)
+    got, want = _run_both(keys, _var_batches(seed=3, k_range=600))
+    assert_var_tables_match(got, want)
+    if keys == ["k"]:
+        assert got.column("a1").null_count > 0      # 1-row sample groups
+        assert got.column("a5").null_count < got.column("a1").null_count
+
+
+def test_var_family_of_all_null_input():
+    batches = _var_batches(seed=5, n_batches=1)
+    b = batches[0]
+    for i in (3, 4):
+        b.columns[i] = jb.FixedColumn(b.columns[i].values,
+                                      np.zeros(b.columns[i].values.shape[0],
+                                               bool))
+    for keys in (["chrom"], []):
+        got, want = _run_both(keys, batches)
+        assert_var_tables_match(got, want)
+        assert got.column("a2").null_count == got.num_rows
+
+
+@pytest.mark.parametrize("keys", [["s"], ["chrom", "s", "k"], ["s", "chrom"]],
+                         ids=["var_key", "dict_var_int_key", "var_dict_key"])
+def test_var_width_keys_match_jax(keys):
+    batches = _var_batches(seed=11)
+    got, want = _run_both(keys, batches,
+                          lambda mod: _var_calls(mod, ("var_samp",)))
+    assert_var_tables_match(got, want)
+    s = got.column("s").to_pylist()
+    if keys == ["s"]:
+        # NULL and '' are two groups; the long keys stay apart past 32 bytes
+        assert None in s and "" in s
+        assert {"G" * 32 + "A", "G" * 32 + "C", "N" * 40 + "x",
+                "N" * 40 + "y"} <= set(s)
+        assert len(s) == len(STRINGS) + 1
+
+
+def test_var_width_keys_through_a_growing_table():
+    """Enough distinct strings to rehash the table several times: the
+    group ids and representatives follow the slots."""
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        n = 1500
+        data = [b"key%d" % v for v in rng.integers(0, 2500, n)]
+        offs = np.zeros(n + 1, np.int32)
+        np.cumsum([len(d) for d in data], out=offs[1:])
+        cols = [jb.DictColumn(np.zeros(n, np.int32), np.ones(n, bool),
+                              ("chr1",)),
+                jb.VarColumn(np.frombuffer(b"".join(data), np.uint8).copy(),
+                             offs, np.ones(n, bool)),
+                jb.FixedColumn(np.zeros(n, np.int64), np.ones(n, bool)),
+                jb.FixedColumn(rng.integers(0, 100, n).astype(np.int64),
+                               np.ones(n, bool)),
+                jb.FixedColumn(rng.uniform(0, 1, n), np.ones(n, bool))]
+        batches.append(jb.Batch(VSCHEMA, cols, np.int32(n)))
+    got, want = _run_both(["s"], batches,
+                          lambda mod: _var_calls(mod, ("stddev",)))
+    assert got.num_rows > 1500
+    assert_var_tables_match(got, want)
+
+
+@pytest.mark.parametrize("keys", [["s"], ["chrom", "s"]],
+                         ids=["var_key", "dict_var_key"])
+def test_var_width_keys_under_a_filter_that_drops_whole_batches(keys):
+    """The fused WHERE rejects every row of the first two batches, so no
+    group exists yet when their keys would be verified."""
+    batches = _var_batches(seed=17)
+    for b in batches[:2]:
+        n = b.columns[2].values.shape[0]
+        b.columns[2] = jb.FixedColumn(np.zeros(n, np.int64), np.ones(n, bool))
+    calls_of = lambda mod: _var_calls(mod, ("var_pop",))  # noqa: E731
+    got = _run_port(keys, batches, pre_filter=T.col("k") > 0,
+                    calls_of=calls_of)
+    want = _run_jax(keys, batches, pre_filter=J.col("k") > 0,
+                    calls_of=calls_of)
+    assert got.num_rows > 0
+    assert_var_tables_match(got, want)
+    # every batch filtered away: no group at all
+    got = _run_port(keys, batches[:2], pre_filter=T.col("k") > 0,
+                    calls_of=calls_of)
+    want = _run_jax(keys, batches[:2], pre_filter=J.col("k") > 0,
+                    calls_of=calls_of)
+    assert got.num_rows == 0
+    assert_var_tables_match(got, want)
+
+
+def test_forced_hash_collision_raises_where_jax_merges(monkeypatch):
+    batches = _var_batches(seed=13, n_batches=2)
+    monkeypatch.setattr(TP, "row_hash", lambda offsets, values: torch.zeros(
+        offsets.shape[0] - 1, dtype=torch.int64, device=offsets.device))
+    with pytest.raises(T.ExonError, match="share the 64-bit row hash"):
+        _run_port(["s"], batches, calls_of=_count_calls)
+    # the JAX package trusts the hash: every non-NULL string in one group
+    monkeypatch.setattr(JP, "_hash_var", lambda v: jnp.zeros(
+        v.offsets.shape[0] - 1, jnp.int64))
+    want = _run_jax(["s"], batches, calls_of=_count_calls)
+    assert want.column("s").null_count == 1
+    assert want.num_rows == 2
+
+
+def _count_calls(mod):
+    return [mod.count(), mod.sum_(mod.col("v"))], ["n", "sv"]
+
+
+@pytest.fixture(scope="module")
+def fasta_sessions(tmp_path_factory):
+    """A FASTA whose descriptions repeat: missing (NULL), short and over 32
+    bytes, registered in both packages (host decode on both sides)."""
+    rng = np.random.default_rng(21)
+    descs = [None, "x", "sp|P1 kinase", "a" * 33 + " long", "a" * 33 + " lone"]
+    lines = []
+    for i in range(600):
+        d = descs[rng.integers(0, len(descs))]
+        lines.append(f">r{i}" + (f" {d}" if d else ""))
+        lines.append("ACGT" * int(rng.integers(1, 5)))
+    path = tmp_path_factory.mktemp("agg") / "d.fasta"
+    path.write_text("\n".join(lines) + "\n")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EXON_TPU_HOST_DECODE", "1")
+        js = J.ExonSession.new_exon()
+        js.config.device_batch_size = 128
+        ts = T.ExonSession(device="cpu", device_batch_size=128)
+        for s in (ts, js):
+            s.sql(f"CREATE EXTERNAL TABLE d STORED AS FASTA LOCATION "
+                  f"'{path}'")
+        yield ts, js
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT DISTINCT description FROM d",
+    "SELECT COUNT(DISTINCT description) AS n FROM d",
+    "SELECT description, COUNT(*) AS n, VAR_SAMP(length(sequence)) AS v "
+    "FROM d GROUP BY description",
+], ids=["distinct", "count_distinct", "group_by_string"])
+def test_string_distinct_and_group_by_sql_match_jax(fasta_sessions, sql):
+    ts, js = fasta_sessions
+    got, want = ts.sql(sql).collect_arrow(), js.sql(sql).collect_arrow()
+    assert_var_tables_match(got, want)
+    assert got.num_rows >= 1

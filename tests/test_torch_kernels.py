@@ -1,8 +1,9 @@
 """The kernel wrappers of exon_tpu_torch: dispatch on the CPU, and kernel vs
 plain twin on a CUDA card (tests marked ``cuda``, which skip where there is
 none; chip_smoke.py runs the same comparison at the main path's shapes).
-Tolerance: exact, except float64 sums in the hash aggregate, relative 1e-12
-(atomic order changes the rounding). The twins of string_cmp, parse_number
+Tolerance: exact, except float64 sums and sums of squares in the hash
+aggregate, relative 1e-12 (atomic order changes the rounding); the slot the
+kernel writes for each row must hold that row's key. The twins of string_cmp, parse_number
 and format_int are also held to the JAX functions they replace, bit for
 bit, outside the JAX faults F8 and F10 (ROADMAP Queue 3); those of sw_score,
 count_bytes, map_bytes and polya_tail are, in test_torch_udfs.py."""
@@ -150,6 +151,43 @@ def test_new_wrappers_check_dtypes(call):
         call()
 
 
+def test_hash_aggregate_refuses_an_integer_sum_of_squares():
+    agg = GroupedHashAggregate(1, [(hk.SUMSQ, False)], torch.device("cpu"))
+    keys = torch.zeros(1, 4, dtype=torch.int64)
+    with pytest.raises(TypeError, match="float64"):
+        hk.insert(agg.table, keys, torch.ones_like(keys, dtype=torch.uint8),
+                  None, None, 0, [torch.zeros(4, dtype=torch.int64)],
+                  [torch.ones(4, dtype=torch.bool)])
+
+
+def test_hash_aggregate_twin_sumsq_and_slots():
+    """The twin on the CPU: Σx² per group in raw mode, the partials added in
+    merge mode (a rehash), and each row's slot."""
+    rng = np.random.default_rng(10)
+    n = 3_000
+    specs, keys, kvalid, mask, values, valids = _sumsq_case(rng, n, 40,
+                                                            "cpu")
+    agg = GroupedHashAggregate(2, specs, torch.device("cpu"))
+    agg.reserve(n)
+    slots = hk.insert(agg.table, keys, kvalid, mask, None, 0, values, valids,
+                      slots=True)
+    _check_slots(agg, keys, kvalid, mask, slots)
+    agg._rehash(2 * agg.table.capacity)
+    res = agg.finalize()
+    x, ok = values[1].numpy(), (valids[1] & mask).numpy()
+    k = keys.numpy()
+    for g in range(res.num_groups):
+        rows = np.flatnonzero((k[0] == int(res.keys[0, g]))
+                              & (k[1] == int(res.keys[1, g]))
+                              & (kvalid[0].numpy() == int(res.key_valid[0, g]))
+                              & (kvalid[1].numpy() == int(res.key_valid[1, g]))
+                              & mask.numpy())
+        v = x[rows][ok[rows]]
+        assert int(res.cnt[2][g]) == len(v)
+        np.testing.assert_allclose(float(res.acc[2][g]), (v * v).sum(),
+                                   rtol=1e-12)
+
+
 def test_new_wrappers_refuse_mixed_shapes_and_drops():
     with pytest.raises(ValueError, match="row count"):
         ksw.sw_score_pairwise(_OFFS, _VALS, _OFFS[:2], _VALS)
@@ -279,6 +317,148 @@ def test_hash_aggregate_kernel_matches_twin(card):
     for a in (1, 2, 4):
         assert torch.equal(got.acc[a], want.acc[a])
     torch.testing.assert_close(got.acc[3], want.acc[3], rtol=1e-12, atol=0)
+
+
+def _sumsq_case(rng, n: int, n_keys: int, device):
+    """Two key parts, a var-family pair (SUM and SUMSQ of float64 values
+    with NULLs) beside COUNT and an int64 SUM."""
+    specs = [(hk.COUNT, False), (hk.SUM, True), (hk.SUMSQ, True),
+             (hk.SUM, False)]
+    keys = torch.from_numpy(rng.integers(0, n_keys, (2, n))).to(device)
+    kvalid = torch.from_numpy(rng.random((2, n)) < 0.95).to(torch.uint8) \
+        .to(device)
+    floats = torch.from_numpy(rng.uniform(10, 4000, n)).to(device)
+    ints = torch.from_numpy(rng.integers(-10**6, 10**6, n)).to(device)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(device)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(device)
+    return specs, keys, kvalid, mask, [None, floats, floats, ints], \
+        [valid] * 4
+
+
+def _check_slots(agg, keys, kvalid, mask, slots):
+    """Each kept row's slot holds the row's key; a dropped row's is -1."""
+    assert torch.equal(slots < 0, ~mask)
+    rows = torch.nonzero(mask).flatten()
+    s = slots[rows]
+    assert torch.equal(agg.table.keys[:, s], keys[:, rows])
+    assert torch.equal(agg.table.key_valid[:, s], kvalid[:, rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grow", [False, True], ids=["one_table", "merge"])
+def test_hash_aggregate_sumsq_and_slots_match_twin(card, grow, monkeypatch):
+    rng = np.random.default_rng(8)
+    n = 30_000
+    specs, keys, kvalid, mask, values, valids = _sumsq_case(rng, n, 2_000,
+                                                            card)
+    results = []
+    for insert in (hk.insert, hk.insert_plain):
+        # the table's own rehash goes through the same function
+        monkeypatch.setattr(hk, "insert", insert)
+        agg = GroupedHashAggregate(2, specs, card)
+        if not grow:
+            agg.reserve(n)
+        for lo in range(0, n, 5_000):
+            hi = lo + 5_000
+            if grow:
+                # a table sized for this batch alone: the next batches
+                # rehash it, re-inserting the partials in merge mode
+                agg.reserve(hi - lo)
+            slots = insert(agg.table, keys[:, lo:hi].contiguous(),
+                           kvalid[:, lo:hi].contiguous(), mask[lo:hi], None,
+                           lo, [v if v is None else v[lo:hi] for v in values],
+                           [v[lo:hi] for v in valids], slots=True)
+            _check_slots(agg, keys[:, lo:hi], kvalid[:, lo:hi], mask[lo:hi],
+                         slots)
+            agg._groups_bound += hi - lo
+        results.append(agg.finalize())
+    got, want = results
+    assert torch.equal(got.keys, want.keys)
+    assert torch.equal(got.key_valid, want.key_valid)
+    for a in range(len(specs)):
+        assert torch.equal(got.cnt[a], want.cnt[a])
+    assert torch.equal(got.acc[3], want.acc[3])
+    for a in (1, 2):
+        torch.testing.assert_close(got.acc[a], want.acc[a], rtol=1e-12,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_hash_aggregate_sumsq_merge_mode_adds_partials(card):
+    rng = np.random.default_rng(9)
+    n = 4_000
+    keys = torch.from_numpy(rng.integers(0, 50, (1, n))).to(card)
+    kvalid = torch.ones_like(keys, dtype=torch.uint8)
+    partials = torch.from_numpy(rng.uniform(0, 1e6, n)).to(card)
+    counts = torch.from_numpy(rng.integers(1, 9, n)).to(card)
+    first = torch.arange(n, device=card)
+    results = []
+    for insert in (hk.insert, hk.insert_plain):
+        agg = GroupedHashAggregate(1, [(hk.SUMSQ, True)], card)
+        agg.reserve(n)
+        insert(agg.table, keys, kvalid, None, first, 0, [partials],
+               [counts])
+        results.append(agg.finalize())
+    got, want = results
+    assert torch.equal(got.keys, want.keys)
+    assert torch.equal(got.cnt[0], want.cnt[0])
+    torch.testing.assert_close(got.acc[0], want.acc[0], rtol=1e-12, atol=0)
+
+
+class _Input:
+    """A stand-in plan node: only its schema is read while typing."""
+
+    def __init__(self, schema):
+        self._schema = schema
+
+    def schema(self):
+        return self._schema
+
+
+@pytest.mark.cuda
+def test_var_key_group_by_with_whole_batches_filtered_away(card):
+    """A string-key GROUP BY whose fused WHERE rejects every row of the
+    first batches: key verification (string_eq) runs only on the rows that
+    reach a group, and the card's result equals the CPU twins'."""
+    import exon_tpu_torch as T
+    from exon_tpu_torch import batch as tb
+    from exon_tpu_torch import datatypes as tdt
+    from exon_tpu_torch.plan import logical as TL
+    from exon_tpu_torch.plan import physical as TP
+
+    schema = tdt.Schema.of(tdt.Field("s", tdt.utf8), tdt.Field("k", tdt.int64),
+                           tdt.Field("f", tdt.float64))
+    rng = np.random.default_rng(12)
+    words = ["", "A", "ACGT", "G" * 40 + "A", "G" * 40 + "C", None]
+    host = []
+    for i in range(4):
+        n = 500
+        k = rng.integers(1, 5, n) * (i >= 2)  # batches 0 and 1: all k == 0
+        host.append(tb.Batch(schema, [
+            tb.utf8_column([words[j] for j in rng.integers(0, 6, n)]),
+            tb.fixed_column(k.astype(np.int64)),
+            tb.fixed_column(rng.uniform(10, 4000, n),
+                            rng.random(n) < 0.9)], n))
+    calls = [T.count(), T.AggregateCall("stddev", T.col("f"))]
+    plan = TL.Aggregate([T.col("s")], calls, ["n", "sd"], _Input(schema))
+    out = []
+    for dev in ("cpu", card):
+        for batches in (host, host[:2]):
+            kernels.reset_launch_counts()
+            scan = TP.ScanExec(schema, lambda b=batches: iter(b), dev)
+            out.append(TP.AggregateExec(
+                plan.group_exprs, calls, plan.schema(), scan,
+                pre_filter=T.col("k") > 0).collect_arrow())
+            if dev == card and batches is host:
+                assert ks.launches > 0
+    for got, want in zip(out[2:], out[:2]):
+        assert got.column("s").to_pylist() == want.column("s").to_pylist()
+        assert got.column("n").to_pylist() == want.column("n").to_pylist()
+        np.testing.assert_allclose(
+            np.asarray(got.column("sd").fill_null(0).to_pylist()),
+            np.asarray(want.column("sd").fill_null(0).to_pylist()),
+            rtol=1e-12, atol=0)
+    assert out[0].num_rows == 6 and out[1].num_rows == 0
 
 
 @pytest.mark.cuda

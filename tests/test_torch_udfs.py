@@ -35,6 +35,7 @@ from exon_tpu import udfs as judfs
 from exon_tpu.batch import DictColumn as JDict
 from exon_tpu.batch import FixedColumn as JFixed
 from exon_tpu.batch import VarColumn as JVar
+from exon_tpu.errors import PlanError as JPlanError
 from exon_tpu.ops import alignment as jalign
 from exon_tpu.plan.expressions import FunctionCall as JFunctionCall
 from exon_tpu_torch import udfs as tudfs
@@ -484,9 +485,13 @@ def test_empty_query_raises(sessions):
 # (d) what the port does not carry
 # ---------------------------------------------------------------------------
 
+# a region marker that a ported provider plans away reaches execution here
+# (no indexed table below it) and raises PlanError, as in the JAX package
+_PLANNED_AWAY = "should not be called"
 NOT_PORTED = (
     [(f"{n}(sequence)", "item 2") for n in tudfs.LIST_UDFS]
-    + [(f"{n}('chr1:1-10', id, 1)", "item 2")
+    + [(f"{n}('chr1:1-10', id, 1)",
+        _PLANNED_AWAY if n in tudfs.PUSHED_REGION_FILTERS else "item 2c")
        for n in tudfs.REGION_FILTER_UDFS]
     + [(f"{n}(id)", "item 8") for n in ("upper", "lower", "levenshtein",
                                         "coalesce", "abs", "md5")]
@@ -502,6 +507,11 @@ NOT_PORTED = (
                               for i, (e, _) in enumerate(NOT_PORTED)])
 def test_not_ported_function_raises(sessions, expr, item):
     ts, js = sessions
+    if item == _PLANNED_AWAY:
+        for s, err in ((ts, PlanError), (js, JPlanError)):
+            with pytest.raises(err, match=item):
+                s.sql(f"SELECT {expr} AS v FROM dna").collect_arrow()
+        return
     with pytest.raises(NotImplementedError, match=item):
         ts.sql(f"SELECT {expr} AS v FROM dna").collect_arrow()
 
