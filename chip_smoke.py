@@ -32,8 +32,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    hash_aggregate runs on Query I's first batch (the scan's batch after the
    tabix seek, keyed by chrom and ref, masked by qual >= 30) with the sum
    of squares and each row's slot, beside one index_add_ of x^2 at those
-   slots, the library call for the sum-of-squares partial; then on 25 and
-   1 M int64 keys (printed apart).
+   slots, the library call for the sum-of-squares partial; then on 25
+   int64 keys (printed apart). The SQL function kernels (K12) run at the
+   shapes of queries J and K: span_concat on J's concat_ws (the kernels
+   line) and lpad over the first decoded chunk of A (295,660 records);
+   map_bytes on J's upper (beside table[values], the library call) and in
+   its word-start mode on J's trimmed descriptions (initcap); polya_tail's
+   leading space run on J's descriptions (trim) and trailing 'N' run on
+   K's cut reads of the first FASTQ chunk (rtrim); like_match's position
+   mode on K's strpos over that chunk.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -53,7 +60,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    25 M-record whole-genome BGZF VCF with its .tbi: Query I (region
    chr1:10,000-10,000,000 → qual >= 30 → per chrom and ref COUNT, AVG,
    STDDEV and VAR_POP) and I_panel (the same over a region file of 25
-   windows, 1-10,000,000 on every contig). Each is checked against numpy
+   windows, 1-10,000,000 on every contig), and three queries through the
+   SQL functions and the holistic aggregates: J (a UniProt accession
+   report over A's FASTA: substr, strpos, right, upper, trim, initcap,
+   CAST, lpad and concat_ws), J_agg (A's records in 56 accession buckets
+   with MIN(id), MAX(description) and MEDIAN(length(sequence))) and K (the
+   3' TruSeq adapter trim of E's lane, strpos, nullif, coalesce, left and
+   rtrim, as a trimmed-length histogram). Each is checked against numpy
    computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -67,11 +80,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    twin; the same result), with the time SQL takes to parse, bind and
    plan alone.
 5. Where the time goes in queries C and D: the join and the sort alone on
-   device batches already in memory, with the kernels and with every
-   wrapper's twin patched in (median of 5 host-clock runs ending in a
-   sync), beside the bound of their input and output bytes; then one run
-   of D, A, E, I and I_panel under torch.profiler, with the device time of
-   its CUDA kernels and copies and the largest of them.
+   device batches already in memory, with the kernels (median of 5
+   host-clock runs ending in a sync), beside the bound of their input and
+   output bytes; then one run
+   of D, A, E, I, I_panel, J, J_agg and K under torch.profiler, with the
+   device time of its CUDA kernels and copies and the largest of them.
 
 The smoke prints its total time and the card's name and power limit once
 more (nvidia-smi); the line before the last is a JSON object
@@ -139,6 +152,7 @@ KERNELS = {
     "count_bytes": ("exon_tpu/udfs.py:69", "count_bytes.cu"),
     "map_bytes": ("exon_tpu/udfs.py:87", "map_bytes.cu"),
     "polya_tail": ("exon_tpu/udfs.py:131", "polya_tail.cu"),
+    "span_concat": ("exon_tpu/ops/sqlfuncs.py:268", "span_concat.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -165,6 +179,15 @@ PATH_KERNELS = {
           "compact_mask"),
     "I_panel": ("hash_aggregate", "row_hash", "string_eq", "gather_var",
                 "compact_mask"),
+    # strpos on like_match's position mode, the slices on gather_spans,
+    # trim on polya_tail, upper and initcap on map_bytes, the CAST on
+    # format_int, concat_ws and lpad on span_concat
+    "J": DECODE + ("like_match", "compact_mask", "gather_var", "polya_tail",
+                   "map_bytes", "format_int", "span_concat"),
+    # the group key's substr on gather_spans; the groups on the host
+    "J_agg": DECODE,
+    "K": DECODE + ("like_match", "polya_tail", "hash_aggregate",
+                   "sort_keys"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -188,6 +211,23 @@ SQL_I = ("SELECT chrom, ref, COUNT(*) AS n, AVG(qual) AS mean_qual, "
          "STDDEV(qual) AS sd_qual, VAR_POP(qual) AS var_qual FROM "
          "vcf_indexed_scan('{vcf}', '{region}') WHERE qual >= 30 "
          "GROUP BY chrom, ref")
+# J: a UniProt accession report over Query A's FASTA; J_agg: its 56
+# accession buckets with string extremes and a median; K: the 3' adapter
+# trim of Query E's lane and its trimmed-length histogram
+SQL_J = ("SELECT substr(id, 4, strpos(substr(id, 4), '|') - 1) AS accession, "
+         "concat_ws('|', upper(right(id, length(id) - strpos(substr(id, 4), "
+         "'|') - 3)), initcap(trim(description)), lpad(CAST(length(sequence) "
+         "AS VARCHAR), 5, '0')) AS label FROM fasta_scan('{fa}') WHERE "
+         "strpos(sequence, 'KK') > 0")
+SQL_J_AGG = ("SELECT substr(id, 5, 2) AS bucket, COUNT(*) AS n, MIN(id) AS "
+             "first_id, MAX(description) AS last_desc, MEDIAN(length("
+             "sequence)) AS median_len FROM fasta_scan('{fa}') GROUP BY "
+             "substr(id, 5, 2)")
+SQL_K = ("SELECT length(t) AS len, COUNT(*) AS n, SUM(length(sequence) - "
+         "length(t)) AS removed FROM (SELECT sequence, rtrim(left(sequence, "
+         "coalesce(nullif(strpos(sequence, 'AGATCGGAAGAGC'), 0) - 1, "
+         "length(sequence))), 'N') AS t FROM fastq_scan('{fq}')) GROUP BY "
+         "length(t) ORDER BY len")
 
 
 def fail(msg: str) -> None:
@@ -366,16 +406,15 @@ def _bytes_to_first_kk(offs, vals) -> int:
 
 def check_hash(rng, torch, first_i) -> dict:
     """hash_aggregate against its twin: Query I's first batch (the kernels
-    line), with the sum of squares and the slot output; then 25 and 1 M
-    int64 keys with count/min/max/sum (printed lines)."""
+    line), with the sum of squares and the slot output; then 25 int64 keys
+    with count/min/max/sum (a printed line)."""
     from exon_tpu_torch.kernels import hash_aggregate as hk
     from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 
     res = _check_hash_query_i(torch, hk, GroupedHashAggregate, first_i)
     specs = [(hk.COUNT, False), (hk.MIN, False), (hk.MAX, False),
              (hk.SUM, False), (hk.SUM, True), (hk.MIN, True), (hk.MAX, True)]
-    for label, n, n_keys, perm in (("25 keys", N_ROWS, 25, False),
-                                   ("1M keys", 1 << 20, 1 << 20, True)):
+    for label, n, n_keys, perm in (("25 keys", N_ROWS, 25, False),):
         keys = rng.permutation(n_keys) if perm else rng.integers(0, n_keys, n)
         parts = torch.from_numpy(keys.astype(np.int64)[None, :]).cuda()
         pvalid = torch.ones_like(parts, dtype=torch.uint8)
@@ -957,13 +996,14 @@ def check_map_bytes(torch, offs, vals) -> dict:
     table[list(b"ACGTacgtNnUu")] = list(b"TGCAtgcaNnAa")
     table = torch.from_numpy(table).cuda()
     n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
-    _exact("map_bytes", k.map_bytes(offs, vals, table, True),
-           k.map_bytes_plain(offs, vals, table, True))
+    _exact("map_bytes", k.map_bytes(offs, vals, table, "mirror"),
+           k.map_bytes_plain(offs, vals, table, "mirror"))
     return {"max_abs_err": 0.0, "library_ms": None,
-            "ms": median_ms(lambda: k.map_bytes(offs, vals, table, True),
+            "ms": median_ms(lambda: k.map_bytes(offs, vals, table, "mirror"),
                             torch),
             "plain_ms": median_ms(
-                lambda: k.map_bytes_plain(offs, vals, table, True), torch),
+                lambda: k.map_bytes_plain(offs, vals, table, "mirror"),
+                torch),
             # offsets, the bytes and the table in, the bytes out
             "bytes": 4 * (n + 1) + 2 * total + 256,
             "shape": f"{n} reads, {total} bytes, mirrored"}
@@ -1031,10 +1071,170 @@ def check_library_programs(rng, torch, offs, vals) -> None:
           "bytes)")
 
 
+def _first_batch(read):
+    """The first device batch that the main path's scan ``read(session)``
+    yields."""
+    import exon_tpu_torch as T
+
+    df = read(T.ExonSession(device="cuda"))
+    return next(iter(df._execute(df.logical_plan()).batches()))
+
+
+def _case(torch, name: str, kernel, plain, nbytes: int, shape: str,
+          library=None) -> dict:
+    """A kernel against its twin on the same inputs, exact; the medians of
+    both, of the library call where there is one, and the bound."""
+    got, want = kernel(), plain()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        _exact(name, a, b)
+    r = {"max_abs_err": 0.0, "ms": median_ms(kernel, torch),
+         "plain_ms": median_ms(plain, torch),
+         "library_ms": None if library is None else median_ms(library, torch),
+         "bytes": nbytes, "shape": shape}
+    lib = "" if library is None else f", library {r['library_ms']:.4f} ms"
+    print(f"  {name} ({shape}): kernel {r['ms']:.4f} ms, twin "
+          f"{r['plain_ms']:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms by "
+          "bytes")
+    return r
+
+
+def _lens(col):
+    return (col.offsets[1:] - col.offsets[:-1]).long()
+
+
+def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
+    """The K12 kernels at queries J's and K's shapes, each against its
+    twin, bit for bit: span_concat on J's concat_ws (the kernels line) and
+    lpad over the first decoded chunk of A; map_bytes on J's upper (beside
+    table[values], the library call) and in its word-start mode on J's
+    trimmed descriptions (initcap); polya_tail's leading run on J's
+    descriptions (trim) and trailing N run on K's left(...) over the first
+    FASTQ chunk (rtrim), and, since neither class occurs in those rows,
+    both runs at the same shapes on classes that do: 'sp|' leading J's
+    ids, {A, C} at either end of K's reads, and ACGT, of which every read
+    is made, at both; like_match's position mode on K's strpos over that
+    chunk. Each bound counts what the function must move: its inputs'
+    offsets, validity and the bytes it reads, its output's bytes and
+    offsets."""
+    from exon_tpu_torch import datatypes as dt
+    from exon_tpu_torch.batch import FixedColumn
+    from exon_tpu_torch.kernels import like_match as kl
+    from exon_tpu_torch.kernels import map_bytes as km
+    from exon_tpu_torch.kernels import polya_tail as kp
+    from exon_tpu_torch.kernels import span_concat as ks
+    from exon_tpu_torch.ops import sqlfuncs as S
+    from exon_tpu_torch.ops.strings import LOWER, UPPER
+    from exon_tpu_torch.plan.expressions import _eval_cast
+
+    b = fa_batch
+    idc, desc, seq = (b.column(c) for c in ("id", "description", "sequence"))
+    n = b.length
+    k = _lens(idc) - S.fn_strpos(b, S.fn_substr(b, idc, 4), "|").values - 3
+    right = S.fn_right(b, idc, FixedColumn(k, idc.validity))
+    upper = torch.from_numpy(UPPER).cuda()
+    lower = torch.from_numpy(LOWER).cuda()
+    o, v = right.offsets, right.values
+    total = int(o[-1])
+    _case(torch, "map_bytes J upper",
+          lambda: km.map_bytes(o, v, upper, "table"),
+          lambda: km.map_bytes_plain(o, v, upper, "table"),
+          4 * (n + 1) + 2 * total + 256, f"{n} ids' accession parts, "
+          f"{total} bytes", library=lambda: upper[v.long()])
+    _class_runs(torch, "J trim", desc, b" ", True, n, "descriptions")
+    lead = _class_runs(torch, "J ids 'sp|'", idc, b"sp|", True, n, "ids")
+    if not bool((lead > 0).all()):
+        fail("polya_tail: 'sp|' should lead every id")
+    trimmed = S.fn_trim(b, desc)
+    o, v = trimmed.offsets, trimmed.values
+    total = int(o[-1])
+    initcap = torch.cat([lower, upper])
+    _case(torch, "map_bytes J initcap (word-start mode)",
+          lambda: km.map_bytes(o, v, initcap, "word_start"),
+          lambda: km.map_bytes_plain(o, v, initcap, "word_start"),
+          4 * (n + 1) + 2 * total + 512, f"{n} descriptions, {total} bytes")
+    text = _eval_cast(_lens(seq), dt.utf8, b)
+    width = torch.full((n,), 5, dtype=torch.int32, device="cuda")
+    pad = S.pad_pieces(text, width, b"0", True)
+    o1, _v1 = ks.span_concat(*pad)
+    kept = int(torch.clamp(_lens(text), max=5).sum())
+    _case(torch, "span_concat J lpad", lambda: ks.span_concat(*pad),
+          lambda: ks.span_concat_plain(*pad),
+          # the text's offsets and validity and the bytes kept, and the pad
+          # byte, in; the padded text and its offsets out (the validity
+          # passes through)
+          4 * (n + 1) + n + kept + 1 + int(o1[-1]) + 4 * (n + 1),
+          f"{n} lengths, width 5")
+    args = [S.fn_upper(b, right), S.fn_initcap(b, trimmed),
+            S.fn_lpad(b, text, 5, "0")]
+    ws = S.concat_ws_pieces(b"|", args, n)
+    o2, _v2 = ks.span_concat(*ws)
+    # each argument's offsets, validity and bytes, and the separator, in;
+    # the joined text and its offsets out (every row is valid)
+    read = sum(4 * (n + 1) + n + int(a.offsets[-1]) for a in args) + 1
+    res = _case(torch, "span_concat J concat_ws", lambda: ks.span_concat(*ws),
+                lambda: ks.span_concat_plain(*ws),
+                read + int(o2[-1]) + 4 * (n + 1),
+                f"{n} rows, 3 columns and 2 separators, {int(o2[-1])} bytes "
+                "out")
+    # K over the first FASTQ chunk
+    fq = fq_batch.column("sequence")
+    m = fq_batch.length
+    adapter = tuple(ADAPTER.strip("%").encode())
+    pos = kl.like_find(fq.offsets, fq.values, adapter)
+    lens = _lens(fq)
+    need = int(torch.where(pos >= 0, pos.long() + len(adapter), lens).sum())
+    _case(torch, "like_match K strpos (position mode)",
+          lambda: kl.like_find(fq.offsets, fq.values, adapter),
+          lambda: kl.like_find_plain(fq.offsets, fq.values, adapter, False),
+          4 * (m + 1) + need + 4 * m, f"{m} reads, {need} bytes read")
+    cut = S.fn_left(fq_batch, fq, FixedColumn(
+        torch.where(pos >= 0, pos.long(), lens), fq.validity))
+    _class_runs(torch, "K rtrim 'N'", cut, b"N", False, m, "cut reads")
+    total = int(_lens(fq).sum())
+    lead = _class_runs(torch, "K reads {A, C}", fq, b"AC", True, m, "reads")
+    keep = _class_runs(torch, "K reads {A, C}", fq, b"AC", False, m, "reads")
+    if not (0 < int(lead.sum()) < total and 0 < int(keep.sum()) < total):
+        fail("polya_tail: {A, C} should begin and end some reads, not all")
+    both = (lambda: (kp.polya_tail(fq.offsets, fq.values, b"ACGT", True),
+                     kp.polya_tail(fq.offsets, fq.values, b"ACGT")))
+    lead, keep = both()
+    if not (torch.equal(lead.long(), _lens(fq)) and not bool(keep.any())):
+        fail("polya_tail: every read should be all ACGT")
+    _case(torch, "polya_tail K reads ACGT, both runs of all-class rows", both,
+          lambda: (kp.polya_tail_plain(fq.offsets, fq.values, b"ACGT", True),
+                   kp.polya_tail_plain(fq.offsets, fq.values, b"ACGT")),
+          # each read's bytes once answer both ends
+          4 * (m + 1) + total + 8 * m, f"{m} reads, {total} bytes")
+    return res
+
+
+def _class_runs(torch, label: str, col, members: bytes, from_start: bool,
+                n: int, rows: str):
+    """polya_tail's leading (from_start) or trailing run of the class
+    ``members`` over ``col``, kernel against twin; its result."""
+    from exon_tpu_torch.kernels import polya_tail as kp
+
+    run = kp.polya_tail(col.offsets, col.values, members, from_start)
+    lens = _lens(col)
+    if from_start:  # the run, and the byte that ends it
+        scanned = int(torch.where(run < lens, run + 1, run).sum())
+    else:  # run is the bytes kept: the tail and the byte before it
+        scanned = int(torch.where(run > 0, lens - run.long() + 1, lens).sum())
+    _case(torch, f"polya_tail {label}, "
+          f"{'leading' if from_start else 'trailing'} run",
+          lambda: kp.polya_tail(col.offsets, col.values, members, from_start),
+          lambda: kp.polya_tail_plain(col.offsets, col.values, members,
+                                      from_start),
+          4 * (n + 1) + scanned + 4 * n, f"{n} {rows}, {scanned} bytes scanned")
+    return run
+
+
 def phase_kernels(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import make_bam, template_names
     from benchlib.fastq_fixture import make_fastq
+    from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import gff_features
 
     chunk, ends_in_newline = _fasta_chunk(torch)
@@ -1091,6 +1291,10 @@ def phase_kernels(torch) -> dict:
     _print_case("polya_tail whole chunk", check_polya_tail(torch, *fq))
     results["map_bytes"] = check_map_bytes(torch, *h_trim)
     results["polya_tail"] = check_polya_tail(torch, *h_kept)
+    fa_path = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
+    results["span_concat"] = check_sql_kernels(
+        torch, _first_batch(lambda s: s.read_fasta(fa_path)),
+        _first_batch(lambda s: s.read_fastq(fq_path).select("sequence")))
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = _bound(r)
         lib = "" if r["library_ms"] is None else \
@@ -1515,6 +1719,102 @@ def _check_h(host, r: dict) -> None:
           " trimmed; names and reverse complements match numpy")
 
 
+def _kk_rows(flat: np.ndarray, offs: np.ndarray) -> np.ndarray:
+    """The records whose sequence holds 'KK'."""
+    kk = np.flatnonzero((flat[:-1] == ord("K")) & (flat[1:] == ord("K")))
+    rec = np.searchsorted(offs, kk, side="right") - 1
+    has = np.zeros(len(offs) - 1, bool)
+    has[rec[kk + 2 <= offs[rec + 1]]] = True
+    return np.flatnonzero(has)
+
+
+def _var_rows(col) -> list:
+    o = col.offsets.tolist()
+    raw = col.values.tobytes()
+    return [raw[o[i]:o[i + 1]] for i in range(len(o) - 1)]
+
+
+def _check_j(host, flat, offs) -> None:
+    """Query J against the generated records: for each record with 'KK',
+    its accession and 'PROT<i>|Synthetic Protein <i>|<length, 5 digits>'."""
+    rows = _kk_rows(flat, offs)
+    lens = np.diff(offs)
+    acc = [b"P%06d" % i for i in rows.tolist()]
+    lab = [b"PROT%d|Synthetic Protein %d|%05d" % (i, i, n)
+           for i, n in zip(rows.tolist(), lens[rows].tolist())]
+    if host.length != len(rows) or _var_rows(host.column("accession")) != acc \
+            or _var_rows(host.column("label")) != lab:
+        fail(f"query J: {host.length} rows (expected {len(rows)}), or the "
+             "accessions or labels differ from the generated records")
+    print(f"query J: {host.length} records with 'KK'; accessions and labels "
+          "match the generated records byte for byte")
+
+
+def _check_j_agg(host, offs) -> None:
+    """Query J_agg against the generated records: per bucket of 10,000
+    record numbers (the first two digits of the six), the count, the first
+    id, the lexicographic maximum of the descriptions and the median length
+    (np.median, rounded half to even as the JAX package rounds it)."""
+    from exon_tpu_torch.batch import host_pylists
+
+    n = len(offs) - 1
+    lens = np.diff(offs)
+    want = []
+    for b in range((n + 9_999) // 10_000):
+        ids = range(b * 10_000, min(n, (b + 1) * 10_000))
+        want.append([b"%02d" % b, len(ids), b"sp|P%06d|PROT%d" % (ids[0],
+                                                               ids[0]),
+                     max(b"synthetic protein %d" % i for i in ids),
+                     int(np.rint(np.median(lens[ids[0]:ids[-1] + 1]
+                                           .astype(np.float64))))])
+    cols = host_pylists(host)
+    got = [[c[r].encode() if isinstance(c[r], str) else c[r] for c in cols]
+           for r in range(host.length)]
+    if got != want:
+        fail(f"query J_agg: {host.length} groups, expected {len(want)}, or "
+             "their values differ from the generated records")
+    print(f"query J_agg: {host.length} buckets in first-seen order; counts, "
+          "MIN(id), MAX(description) and medians match numpy")
+
+
+def _first_adapter(r: dict) -> np.ndarray:
+    """Each read's leftmost adapter start, or -1 (a byte search over the
+    reads, one line each, as adapter_rows does)."""
+    from benchlib.fastq_fixture import ADAPTER as AD, READ_LEN
+
+    n = len(r["sequences"])
+    lines = np.empty((n, READ_LEN + 1), np.uint8)
+    lines[:, :READ_LEN] = r["sequences"]
+    lines[:, READ_LEN] = ord("\n")
+    blob = lines.tobytes()
+    at = np.full(n, -1, np.int64)
+    pos = blob.find(AD)
+    while pos != -1:
+        row = pos // (READ_LEN + 1)
+        at[row] = pos - row * (READ_LEN + 1)
+        pos = blob.find(AD, (row + 1) * (READ_LEN + 1))
+    return at
+
+
+def _check_k(host, r: dict, first: np.ndarray) -> None:
+    """Query K against numpy: each read cut before its first adapter (no
+    'N' to strip: the reads are ACGT), its length histogram and the bytes
+    removed per length, ordered by length."""
+    from benchlib.fastq_fixture import READ_LEN
+
+    if (r["sequences"] == ord("N")).any():
+        fail("query K: the fixture's reads hold an 'N'; this check assumes "
+             "none")
+    t = np.where(first >= 0, first, READ_LEN)
+    lens, counts = np.unique(t, return_counts=True)
+    got = [host.column(c).values for c in ("len", "n", "removed")]
+    if not (np.array_equal(got[0], lens) and np.array_equal(got[1], counts)
+            and np.array_equal(got[2], counts * (READ_LEN - lens))):
+        fail("query K: the trimmed-length histogram differs from numpy")
+    print(f"query K: {host.length} trimmed lengths, {int((first >= 0).sum())}"
+          " reads cut; counts and bytes removed match numpy")
+
+
 def _region(text: str) -> tuple[int, int, int]:
     """(contig code, first, last position) of a region string."""
     from benchlib.gff_fixture import SEQNAMES
@@ -1728,7 +2028,7 @@ def phase_main_path(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import bam_reads, make_bam
     from benchlib.fasta_records import fasta_file_size, fasta_records
-    from benchlib.fastq_fixture import adapter_rows, fastq_reads, make_fastq
+    from benchlib.fastq_fixture import fastq_reads, make_fastq
     from benchlib.fixtures import make_fasta
     from benchlib.gff_fixture import gff_features, make_gff
     from benchlib.vcf_fixture import make_vcf, vcf_records
@@ -1757,7 +2057,8 @@ def phase_main_path(torch) -> dict:
           f"{os.path.getsize(vcf + '.tbi')}-byte .tbi, {VCF_RECORDS} "
           f"records); {time.perf_counter() - t0:.1f} s to generate")
     sel = _expected_a(flat, offs)
-    rows_e = adapter_rows(fq_reads)
+    first_adapter = _first_adapter(fq_reads)
+    rows_e = np.flatnonzero(first_adapter >= 0)
 
     session = T.ExonSession(device="cuda")
     pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
@@ -1811,6 +2112,12 @@ def phase_main_path(torch) -> dict:
         # I's input rows: what its scan yields, counted below
         "I": (lambda: session.sql(sql_i).collect_host(), None),
         "I_panel": (lambda: session.sql(sql_panel).collect_host(), None),
+        "J": (lambda: session.sql(SQL_J.format(fa=fa)).collect_host(),
+              FASTA_RECORDS),
+        "J_agg": (lambda: session.sql(SQL_J_AGG.format(fa=fa)).collect_host(),
+                  FASTA_RECORDS),
+        "K": (lambda: session.sql(SQL_K.format(fq=fq)).collect_host(),
+              FASTQ_READS),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -1859,6 +2166,9 @@ def phase_main_path(torch) -> dict:
     _check_h(results["H"], fq_reads)
     _check_i(results["I"], calls, [_region(VCF_REGION)], "I")
     _check_i(results["I_panel"], calls, _panel_regions(), "I_panel")
+    _check_j(results["J"], flat, offs)
+    _check_j_agg(results["J_agg"], offs)
+    _check_k(results["K"], fq_reads, first_adapter)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -1867,6 +2177,11 @@ def phase_main_path(torch) -> dict:
     # F and H scan the FASTQ's name and sequence columns alone
     device_scan["F"] = device_scan["H"] = _scan_seconds(
         session.read_fastq(fq).select("name", "sequence"), torch)
+    # J and J_agg scan the FASTA's three columns, K the FASTQ's sequences
+    device_scan["J"] = device_scan["J_agg"] = _scan_seconds(
+        session.read_fasta(fa).select("id", "description", "sequence"), torch)
+    device_scan["K"] = _scan_seconds(session.read_fastq(fq).select(
+        "sequence"), torch)
     with _host_decode():
         host_scan = {q: _scan_seconds(f(), torch) for q, f in (
             *frames.items(), ("C", lambda: _query_c(T, session, bam, gf)),
@@ -1899,8 +2214,8 @@ def phase_main_path(torch) -> dict:
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{seek}{share}")
     print("main path: queries A, count, B, C, C_top, D, E, E_count, "
-          "SQL_count, SQL_range, SQL_gff, F, G, H, I and I_panel match the "
-          "generators' arrays")
+          "SQL_count, SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg and K "
+          "match the generators' arrays")
     _sql_vs_dataframe(session, T, fa, vcf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
@@ -1920,14 +2235,8 @@ def _find(plan, cls):
     fail(f"no {cls.__name__} in the plan")
 
 
-# (module that calls the wrapper, wrapper name) for the wrappers on the join
-# and sort path, and for sw_score; the kernel module bears the wrapper's name
-_JOIN_SORT_TWINS = [("exon_tpu_torch.plan.join_exec", "expand_segments"),
-                    ("exon_tpu_torch.plan.join_exec", "string_eq"),
-                    ("exon_tpu_torch.plan.physical", "row_hash"),
-                    ("exon_tpu_torch.plan.physical", "sort_keys"),
-                    ("exon_tpu_torch.ops.layout", "gather_var"),
-                    ("exon_tpu_torch.ops.layout", "compact_mask")]
+# (module that calls the wrapper, wrapper name) for sw_score; the kernel
+# module bears the wrapper's name
 _SW_TWIN = [("exon_tpu_torch.ops.alignment", "sw_score")]
 
 
@@ -1963,7 +2272,7 @@ def _host_ms(fn, torch, reps: int = 5) -> float:
 
 def _join_and_sort_ms(df, torch, label: str) -> None:
     """The query's join and its sort on device batches already in memory
-    (no scan), with the kernels and with every wrapper's twin."""
+    (no scan), with the kernels."""
     from exon_tpu_torch.plan import join_exec, physical
 
     class InMemory(physical.PhysicalPlan):
@@ -1988,16 +2297,9 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
         rows = sum(b.length for b in out)
         nbytes = _batch_bytes(inputs) + _batch_bytes(out)
         ms = _host_ms(run, torch)
-        with _swapped(_JOIN_SORT_TWINS):
-            plain_rows = sum(b.length for b in run())
-            plain_ms = _host_ms(run, torch)
-        if plain_rows != rows:
-            fail(f"query {label} {part}: {rows} rows with kernels, "
-                 f"{plain_rows} with twins")
         print(f"query {label} {part} alone: {rows} rows out; median of 5: "
-              f"kernels {ms:.2f} ms, twins {plain_ms:.2f} ms; bound "
-              f"{bound_ms(nbytes):.4f} ms (its input and output batches, "
-              f"{nbytes} bytes)")
+              f"{ms:.2f} ms; bound {bound_ms(nbytes):.4f} ms (its input and "
+              f"output batches, {nbytes} bytes)")
 
 
 def _batch_bytes(batches) -> int:
@@ -2066,6 +2368,12 @@ def phase_breakdown(torch) -> None:
     vcf = make_vcf(VCF_RECORDS, VCF_SEED)
     for label, region in (("I", VCF_REGION), ("I_panel", _panel_file(vcf))):
         sql = SQL_I.format(vcf=vcf, region=region)
+        _device_profile(lambda: session.sql(sql).collect_host(), torch, label)
+    # the SQL-function queries: how much of J's, J_agg's (the host grouping)
+    # and K's wall is on the card
+    for label, sql in (("J", SQL_J.format(fa=fa)),
+                       ("J_agg", SQL_J_AGG.format(fa=fa)),
+                       ("K", SQL_K.format(fq=fq))):
         _device_profile(lambda: session.sql(sql).collect_host(), torch, label)
 
 

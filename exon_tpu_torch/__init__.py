@@ -8,13 +8,17 @@ Scan → Filter → Project, (Filter →) Aggregate with the var/stddev family a
 string keys, inner and left equi-joins, Sort, TopK and Limit, CASE and CAST,
 and exon's sequence UDFs (``udfs.py``: alignment_score, gc_content,
 reverse_complement, trim_polya, length, the SAM-flag predicates and the
-region predicates), with hand-written CUDA kernels for FASTA/FASTQ decode
+region predicates) and the SQL function library (``ops/sqlfuncs.py``: string,
+conditional and math functions; median, string_agg and string MIN/MAX
+aggregate on the host), with hand-written CUDA kernels for FASTA/FASTQ decode
 on the device (newline index, per-line records, span gather), filter
 compaction, var-width gather, LIKE, ordered string compares, number
 parsing and formatting, the grouped hash aggregate (with sums of squares
 and each row's slot), join pair expansion, row hashing, string equality,
-sort keys, Smith-Waterman scores, byte-class counts, mirrored byte maps and
-poly(A) tails (``exon_tpu_torch.kernels``).
+sort keys, Smith-Waterman scores, byte-class counts, byte maps (mirrored,
+or by word starts), byte-class runs at either end of a row, first-match
+positions and the assembly of rows from byte spans
+(``exon_tpu_torch.kernels``).
 It imports torch and numpy only; pyarrow is needed only by
 ``collect_arrow``.
 """

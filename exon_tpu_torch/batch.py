@@ -83,6 +83,9 @@ class Batch:
     schema: Schema
     columns: list
     length: int
+    # the device of a batch with no columns (a scan projected to none), so
+    # that the literals evaluated over it land there too
+    home: Optional[torch.device] = None
 
     @property
     def capacity(self) -> int:
@@ -97,7 +100,7 @@ class Batch:
             v = c.codes if isinstance(c, DictColumn) else c.validity
             if isinstance(v, torch.Tensor):
                 return v.device
-        return None
+        return self.home
 
     def column(self, name: str) -> Column:
         return self.columns[self.schema.index_of(name)]
@@ -108,7 +111,8 @@ class Batch:
 
     def project(self, names: list[str]) -> "Batch":
         cols = [self.column(n) for n in names]
-        return Batch(self.schema.project(names), cols, self.length)
+        return Batch(self.schema.project(names), cols, self.length,
+                     self.device)
 
     # -- host <-> device ----------------------------------------------------
 
@@ -116,7 +120,7 @@ class Batch:
         device = torch.device(device)
         return Batch(self.schema,
                      [_map_arrays(c, lambda a: _to_tensor(a, device))
-                      for c in self.columns], self.length)
+                      for c in self.columns], self.length, device)
 
     def to_host(self) -> "Batch":
         return Batch(self.schema, [_map_arrays(c, _to_numpy)

@@ -13,7 +13,8 @@ from __future__ import annotations
 from . import (compact_mask, count_bytes, expand_segments, format_int,
                gather_spans, gather_var, hash_aggregate, like_match,
                line_index, map_bytes, parse_number, polya_tail, row_hash,
-               sort_keys, string_cmp, string_eq, sw_score, text_records)
+               sort_keys, span_concat, string_cmp, string_eq, sw_score,
+               text_records)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -34,6 +35,7 @@ KERNEL_MODULES = {
     "count_bytes": count_bytes,
     "map_bytes": map_bytes,
     "polya_tail": polya_tail,
+    "span_concat": span_concat,
 }
 
 

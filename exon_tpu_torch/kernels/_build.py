@@ -41,6 +41,7 @@ SIGNATURES = {
     "exon_compact_scatter": [_P, _I64, _P, _P, _P],
     "exon_gather_var": [_P, _P, _P, _P, _I64, _P, _P],
     "exon_like_match": [_P, _P, _I64, _P, _P, _P],
+    "exon_like_find": [_P, _P, _I64, _P, _P, _P],
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                             _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P],
@@ -61,7 +62,8 @@ SIGNATURES = {
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _P, _P, _P],
     "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
-    "exon_polya_tail": [_P, _P, _I64, _P, _P],
+    "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
+    "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -5,6 +5,12 @@ dispatches to. Kernel source: ``csrc/like_match.cu``.
 ``like_match(offsets, values, chunks, case_insensitive)`` takes the pattern
 as ``tokenize_like`` chunks (tuples of byte values, -1 for '_') and returns
 bool ``[n]`` without validity masking.
+
+``like_find(offsets, values, chunk, case_insensitive)`` is the kernel's
+position mode, in place of ops/strings.py ``_find_from`` (:229) as
+ops/sqlfuncs.py ``fn_strpos`` (:231) uses it: int32 ``[n]``, the leftmost
+start of ``chunk`` (a tuple of byte values, -1 for any byte) in each row,
+relative to the row start, or -1 where the row does not hold it.
 """
 
 from __future__ import annotations
@@ -96,14 +102,67 @@ def like_match_plain(offsets: torch.Tensor, values: torch.Tensor,
     return ok
 
 
+def like_find_plain(offsets: torch.Tensor, values: torch.Tensor,
+                    chunk: tuple, case_insensitive: bool) -> torch.Tensor:
+    """The plain PyTorch twin of the position mode: _find_from's hit mask
+    over the row bytes and a per-row min of the hits."""
+    dev = offsets.device
+    off = offsets.to(torch.int64)
+    starts, ends = off[:-1], off[1:]
+    n, nbytes = starts.shape[0], values.shape[0]
+    if not chunk:  # an empty chunk matches at every row's start
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    vals = values.to(torch.int64)
+    if case_insensitive:
+        vals = _upper(vals)
+    lens = ends - starts
+    rid = torch.repeat_interleave(torch.arange(n, device=dev), lens)
+    rank = torch.arange(rid.shape[0], device=dev) - \
+        torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+    hit = rank + len(chunk) <= lens[rid]
+    for t, ch in enumerate(chunk):
+        if ch >= 0:
+            c = ch - 32 if case_insensitive and ord("a") <= ch <= ord("z") \
+                else ch
+            at = (starts[rid] + rank + t).clamp(max=max(nbytes - 1, 0))
+            hit &= vals[at] == c
+    pos = lens.clone()  # no hit: the row's length, never a start
+    pos.scatter_reduce_(0, rid, torch.where(hit, rank, lens[rid]), "amin")
+    return torch.where(pos < lens, pos, -1).to(torch.int32)
+
+
+def _check(name: str, offsets: torch.Tensor, values: torch.Tensor) -> None:
+    if offsets.dtype != torch.int32 or values.dtype != torch.uint8:
+        raise TypeError(f"{name} needs int32 offsets and uint8 values, got "
+                        f"{offsets.dtype} and {values.dtype}")
+    if offsets.device != values.device:
+        raise ValueError(f"{name}: tensors on different devices")
+
+
+def like_find(offsets: torch.Tensor, values: torch.Tensor, chunk: tuple,
+              case_insensitive: bool = False) -> torch.Tensor:
+    global launches
+    _check("like_find", offsets, values)
+    if not _build.on_cuda(offsets, "like_find"):
+        return like_find_plain(offsets, values, chunk, case_insensitive)
+    offsets, values = offsets.contiguous(), values.contiguous()
+    n = offsets.shape[0] - 1
+    out = torch.empty(n, dtype=torch.int32, device=offsets.device)
+    if n == 0:
+        return out
+    pat = torch.tensor(encode_pattern([tuple(chunk)], case_insensitive),
+                       dtype=torch.int32).to(offsets.device)
+    _build.check(_build.library().exon_like_find(
+        offsets.data_ptr(), values.data_ptr(), n, pat.data_ptr(),
+        out.data_ptr(), _build.stream_of(values)), "like_find")
+    launches += 1
+    return out
+
+
 def like_match(offsets: torch.Tensor, values: torch.Tensor,
                chunks: list[tuple], case_insensitive: bool) -> torch.Tensor:
     global launches
-    if offsets.dtype != torch.int32 or values.dtype != torch.uint8:
-        raise TypeError("like_match needs int32 offsets and uint8 values, got "
-                        f"{offsets.dtype} and {values.dtype}")
-    if offsets.device != values.device:
-        raise ValueError("like_match: tensors on different devices")
+    _check("like_match", offsets, values)
     if not _build.on_cuda(offsets, "like_match"):
         return like_match_plain(offsets, values, chunks, case_insensitive)
     offsets, values = offsets.contiguous(), values.contiguous()

@@ -56,7 +56,8 @@ def take_column(col: Column, indices: torch.Tensor) -> Column:
 def take_batch(batch: Batch, indices: torch.Tensor) -> Batch:
     """Row gather over a whole batch: exactly len(indices) rows."""
     return Batch(batch.schema, [take_column(c, indices)
-                                for c in batch.columns], indices.shape[0])
+                                for c in batch.columns], indices.shape[0],
+                 indices.device)
 
 
 def filter_batch(batch: Batch, mask: torch.Tensor) -> Batch:

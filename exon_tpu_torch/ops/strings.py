@@ -3,20 +3,54 @@
 Counterpart of exon_tpu/ops/strings.py. ``like`` (:177) runs the
 like_match kernel for every pattern shape: the JAX function's fast paths
 (prefix, suffix, equality, contains, :56-122) give the same answers as its
-general greedy match (:257), which the kernel implements once.
-``tokenize_like`` (:125) and ``like_regex`` (:150) are host-side copies;
-``dict_equals``/``dict_isin`` (:290, :298) map a literal through the host
-vocabulary.
+general greedy match (:257), which the kernel implements once, and so
+do ``starts_with``, ``ends_with`` and ``contains`` (:56, :70, :97) as
+'lit%', '%lit' and '%lit%'. ``find_first`` is ``_find_from`` (:229) from
+each row's start, on the kernel's position mode. ``upper``/``lower``
+(:44, :48, the ASCII folds ``_upper_u8``/``_lower_u8`` :34,39) run the
+map_bytes kernel with a fold table. ``tokenize_like`` (:125) and
+``like_regex`` (:150) are host-side copies; ``dict_equals``/``dict_isin``
+(:290, :298) map a literal through the host vocabulary.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 
+import numpy as np
 import torch
 
 from ..batch import DictColumn, VarColumn
-from ..kernels.like_match import like_match
+from ..kernels.like_match import like_find, like_match
+from ..kernels.map_bytes import map_bytes
+
+_CODES = np.arange(256, dtype=np.uint8)
+_IS_LOWER = (_CODES >= ord("a")) & (_CODES <= ord("z"))
+_IS_UPPER = (_CODES >= ord("A")) & (_CODES <= ord("Z"))
+UPPER = np.where(_IS_LOWER, _CODES - 32, _CODES).astype(np.uint8)
+LOWER = np.where(_IS_UPPER, _CODES + 32, _CODES).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def byte_table(table: bytes, device: torch.device) -> torch.Tensor:
+    """One of the module's fixed byte tables on ``device``,
+    copied there once."""
+    return torch.frombuffer(bytearray(table), dtype=torch.uint8).to(device)
+
+
+def _fold(col: VarColumn, table: np.ndarray) -> VarColumn:
+    t = byte_table(table.tobytes(), col.values.device)
+    return VarColumn(map_bytes(col.offsets, col.values, t, "table"),
+                     col.offsets, col.validity)
+
+
+def upper(col: VarColumn) -> VarColumn:
+    return _fold(col, UPPER)
+
+
+def lower(col: VarColumn) -> VarColumn:
+    return _fold(col, LOWER)
 
 
 def tokenize_like(pattern: str, escape: str | None = None) -> list[tuple]:
@@ -79,6 +113,24 @@ def like(col: VarColumn, pattern: str, case_insensitive: bool = False,
 def equals_literal(col: VarColumn, lit: bytes) -> torch.Tensor:
     """Row bytes equal to ``lit`` (LIKE with one chunk and no wildcard)."""
     return like_match(col.offsets, col.values, [tuple(lit)], False)
+
+
+def starts_with(col: VarColumn, prefix: bytes) -> torch.Tensor:
+    return like_match(col.offsets, col.values, [tuple(prefix), ()], False)
+
+
+def ends_with(col: VarColumn, suffix: bytes) -> torch.Tensor:
+    return like_match(col.offsets, col.values, [(), tuple(suffix)], False)
+
+
+def contains(col: VarColumn, needle: bytes) -> torch.Tensor:
+    return like_match(col.offsets, col.values, [(), tuple(needle), ()], False)
+
+
+def find_first(col: VarColumn, needle: bytes) -> torch.Tensor:
+    """int32 [n]: the leftmost start of ``needle`` in each row, relative to
+    the row start, or -1."""
+    return like_find(col.offsets, col.values, tuple(needle))
 
 
 def vocab_mask(col: DictColumn, hits: list[int]) -> torch.Tensor:

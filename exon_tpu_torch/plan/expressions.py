@@ -7,20 +7,26 @@ aliases, comparison / arithmetic / boolean operators with NULL propagation
 and literal folding (:624), NOT, IS NULL, LIKE (:428-436), IN lists, CASE
 (:495), CAST (:799) and function calls through the function registry
 (``register_function``/``get_function``, :387-405, which also holds each
-function's return type; filled by the port's udfs.py), and ``split_conjunction``/``conjoin`` (:1032,1038). Dictionary
-columns compare
+function's return type: a fixed type, or a callable of the argument types
+as exon_tpu/plan/planner.py ``register_function_type`` :25-31 keeps them;
+filled by the port's udfs.py and ops/sqlfuncs.py), and
+``split_conjunction``/``conjoin`` (:1032,1038). Dictionary columns compare
 and cast through their host vocabulary, as ops/strings.py:290 and
 expressions.py:571 do. Ordered compares of a var-width column with a
-literal run the string_cmp kernel, CAST of strings to numbers the
-parse_number kernel and CAST of integers to strings the format_int kernel.
-Expressions the port does not carry (map/struct access, windows, the SQL
-functions and the list-column UDFs) raise NotImplementedError naming their
-ROADMAP item; a name neither package knows raises PlanError.
+literal run the string_cmp kernel, ``=``/``!=`` of two var-width columns
+the string_eq kernel (``_string_col_eq`` :763), CAST of strings to numbers
+the parse_number kernel and CAST of integers to strings the format_int
+kernel. An ordered compare of two string columns raises PlanError, as in
+the JAX package (:676-679). Expressions the port does not carry (map/struct
+access, windows and the list-column UDFs) raise NotImplementedError naming
+their ROADMAP item; a name neither package knows raises PlanError.
 
 Two JAX faults are not copied (ROADMAP Queue 3): a NULL row never passes a
-string compare (F8: the JAX var compares treat it as ''), and an ordered
-compare of a dictionary column with a literal outside its vocabulary
-compares the strings (F9: the JAX rank lookup is approximate).
+string compare (F8: the JAX var compares treat it as '', and its ``!=`` of
+two columns passes NULL rows), and an ordered compare of a dictionary
+column with a literal outside its vocabulary compares the strings (F9: the
+JAX rank lookup is approximate). Two string columns compare in every byte,
+not a 32-byte prefix and the length (F6).
 
 Evaluation returns a Column, a torch tensor of per-row values (all valid),
 or a Python scalar (a literal).
@@ -40,6 +46,7 @@ from ..errors import PlanError
 from ..kernels.format_int import format_int
 from ..kernels.parse_number import parse_number
 from ..kernels.string_cmp import string_cmp
+from ..kernels.string_eq import string_eq
 from ..ops import layout as layout_ops
 from ..ops import strings as str_ops
 
@@ -391,15 +398,17 @@ class InSubquery(Expr):
 # ---------------------------------------------------------------------------
 
 ScalarFn = Callable[..., Any]
-# each name's function and the type it returns
-_FUNCTIONS: dict[str, tuple[ScalarFn, dt.DataType]] = {}
+# each name's function and the type it returns: a DataType, or a callable
+# of the non-literal arguments' Fields that gives one
+_FUNCTIONS: dict[str, tuple[ScalarFn, Any]] = {}
 # names the JAX package registers that the port does not carry yet, each
 # with its ROADMAP item
 _NOT_PORTED: dict[str, str] = {}
 
 
-def register_function(name: str, fn: ScalarFn, dtype: dt.DataType) -> None:
-    """``fn(batch, *args)``, whose values have type ``dtype``."""
+def register_function(name: str, fn: ScalarFn, dtype) -> None:
+    """``fn(batch, *args)``, whose values have type ``dtype``: a DataType,
+    or ``dtype(arg_fields)`` of the Fields of its non-literal arguments."""
     _FUNCTIONS[name.lower()] = (fn, dtype)
 
 
@@ -408,7 +417,7 @@ def register_not_ported(names, item: str) -> None:
         _NOT_PORTED[name.lower()] = item
 
 
-def get_function(name: str) -> tuple[ScalarFn, dt.DataType]:
+def get_function(name: str) -> tuple[ScalarFn, Any]:
     """The registered function and its return type; NotImplementedError
     naming the ROADMAP item for a JAX function the port does not carry,
     PlanError for a name that neither package knows."""
@@ -707,7 +716,21 @@ def _is_scalar(x) -> bool:
     return isinstance(x, (int, float, bool))
 
 
+def _weak_float(a, b):
+    """A Python float with an integer or boolean column computes in
+    float64, as JAX's weakly typed float literal does under x64 (torch
+    would take its float32 default)."""
+    def widen(x, other):
+        if isinstance(other, float) and isinstance(x, torch.Tensor) and \
+                not x.dtype.is_floating_point:
+            return x.to(torch.float64)
+        return x
+
+    return widen(a, b), widen(b, a)
+
+
 def _arith(op: str, a, b):
+    a, b = _weak_float(a, b)
     if op == "+":
         return a + b
     if op == "-":
@@ -763,7 +786,8 @@ def _eval_binary(expr: BinaryOp, batch: Batch):
         rstr = isinstance(rv, (VarColumn, DictColumn, str))
         if lstr or rstr:
             return _eval_string_cmp(op, lv, rv)
-        m = _CMP[op](_as_values(lv, batch), _as_values(rv, batch))
+        m = _CMP[op](*_weak_float(_as_values(lv, batch),
+                                  _as_values(rv, batch)))
         valid = _validity_of(lv, batch) & _validity_of(rv, batch)
         if _is_scalar(m):
             return torch.full((batch.capacity,), m, dtype=torch.bool,
@@ -778,16 +802,21 @@ def _eval_binary(expr: BinaryOp, batch: Batch):
 
 
 def _eval_string_cmp(op: str, lv, rv):
-    """A string column against a literal (exon_tpu/plan/expressions.py
-    :670-703). NULL rows never pass (F8); a dictionary column's ordered
-    compare compares its vocabulary strings on the host (F9)."""
+    """A string column against a literal or another string column
+    (exon_tpu/plan/expressions.py :670-703). NULL rows never pass (F8); a
+    dictionary column's ordered compare compares its vocabulary strings on
+    the host (F9); two columns compare for ``=``/``!=`` only."""
     swap = {"<": ">", ">": "<", "<=": ">=", ">=": "<=", "=": "=", "!=": "!="}
     if isinstance(lv, str):
         lv, rv, op = rv, lv, swap[op]
     if not isinstance(rv, str):
-        raise NotImplementedError(
-            "column-vs-column string compares are not ported yet "
-            "(ROADMAP Queue 1, item 8)")
+        if op in ("=", "!="):
+            m = _string_col_eq(lv, rv)
+            if op == "=":
+                return m
+            return ~m & _validity_of(lv, None) & _validity_of(rv, None)
+        raise PlanError(
+            "ordered compare between two string columns unsupported")
     if isinstance(lv, DictColumn):
         if op == "=":
             return str_ops.dict_equals(lv, rv)
@@ -802,6 +831,22 @@ def _eval_string_cmp(op: str, lv, rv):
             return (~m if op == "!=" else m) & lv.validity
         return string_cmp(lv.offsets, lv.values, lv.validity, rv.encode(), op)
     raise PlanError(f"string compare over {type(lv)}")
+
+
+def _string_col_eq(a, b) -> torch.Tensor:
+    """Row-by-row equality of two string columns, both rows valid
+    (exon_tpu/plan/expressions.py:763): two dictionary columns of one
+    vocabulary by their codes, two var-width columns by every byte
+    (string_eq); any other pair raises, as in the JAX package."""
+    if isinstance(a, DictColumn) and isinstance(b, DictColumn) and \
+            a.vocab == b.vocab:
+        return (a.codes == b.codes) & a.validity & b.validity
+    if isinstance(a, VarColumn) and isinstance(b, VarColumn):
+        rows = torch.arange(a.capacity, dtype=torch.int32,
+                            device=a.offsets.device)
+        return string_eq((a.offsets, a.values, a.validity), rows,
+                         (b.offsets, b.values, b.validity), rows)
+    raise PlanError("unsupported string column equality")
 
 
 # ---------------------------------------------------------------------------

@@ -92,6 +92,8 @@ class Aggregate(LogicalPlan):
                 fields.append(Field(name, dt.int64, False))
             elif call.fn == "avg" or call.fn in VAR_FNS:
                 fields.append(Field(name, dt.float64, True))
+            elif call.fn == "string_agg":
+                fields.append(Field(name, dt.utf8, True))
             elif call.child is not None:
                 f = infer_expr_field(call.child, in_schema)
                 fields.append(Field(name, f.dtype, True))

@@ -19,6 +19,14 @@ validity, a dictionary string hash shared by two strings raises, and every
 var-width key is compared in full with a representative of its group. The
 var/stddev family keeps (Σx, Σx², count) in float64 per group (:444-490,
 :693-722) through the table's sum-of-squares op.
+
+The holistic aggregates (``median`` and ``string_agg``, and MIN/MAX over a
+string or dictionary column; ``_HOLISTIC_FNS`` :449, the dispatch :218-226,
+``_string_minmax`` :228, ``_holistic`` :247 and ``_holistic_value`` :495)
+need every value: the group and argument expressions are evaluated on the
+device, each batch is copied to the host once, and the groups (exact, in
+first-seen order) and their values are computed with numpy, without
+pyarrow. ``array_agg`` waits for list columns (ROADMAP Queue 1, item 2b).
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import torch
 
 from .. import datatypes as dt
 from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
-                     concat_host, empty_batch, fixed_column, take_host)
+                     concat_host, empty_batch, fixed_column, host_pylists,
+                     take_host, utf8_column)
 from ..errors import ExecutionError
 from ..kernels import hash_aggregate as hk
 from ..kernels.row_hash import row_hash
@@ -90,7 +99,11 @@ class ScanExec(PhysicalPlan):
 
     def batches(self) -> Iterator[Batch]:
         for b in self.source():
-            yield b.to_device(self.device) if self.to_device else b
+            if self.to_device:
+                b = b.to_device(self.device)
+            elif not b.columns:
+                b = dataclasses.replace(b, home=torch.device(self.device))
+            yield b
 
 
 @dataclasses.dataclass
@@ -125,7 +138,7 @@ class ProjectExec(PhysicalPlan):
     def batches(self) -> Iterator[Batch]:
         for b in self.input.batches():
             cols = [_to_column(eval_expr(e, b), b) for e in self.exprs]
-            yield Batch(self.out_schema, cols, b.length)
+            yield Batch(self.out_schema, cols, b.length, b.device)
 
 
 def _to_column(v, batch: Batch):
@@ -156,6 +169,9 @@ _HASH_SALT = 0x9E3779B97F4A7C15
 _OPS = {"count": (hk.COUNT,), "sum": (hk.SUM,), "avg": (hk.SUM,),
         "min": (hk.MIN,), "max": (hk.MAX,),
         **{fn: (hk.SUM, hk.SUMSQ) for fn in VAR_FNS}}
+# aggregates that need every value, finalized on the host
+_HOLISTIC_FNS = ("median", "array_agg", "string_agg")
+_STRING_KINDS = ("utf8", "large_utf8", "dictionary", "binary")
 
 
 def _splitmix_host(h: int) -> int:
@@ -256,11 +272,77 @@ class AggregateExec(PhysicalPlan):
 
     def batches(self) -> Iterator[Batch]:
         for c in self.agg_calls:
-            if c.fn not in _OPS or c.distinct:
+            if c.fn == "array_agg":
+                raise NotImplementedError(
+                    "array_agg is not ported yet (ROADMAP Queue 1, item 2b: "
+                    "list columns)")
+            if c.distinct or (c.fn not in _OPS and c.fn not in _HOLISTIC_FNS):
                 raise NotImplementedError(
                     f"aggregate {c.display_name()} is not ported yet "
                     "(ROADMAP Queue 1, aggregate)")
+        if any(c.fn in _HOLISTIC_FNS for c in self.agg_calls) or \
+                self._string_minmax():
+            yield self._holistic()
+            return
         yield self._grouped() if self.group_exprs else self._ungrouped()
+
+    def _string_minmax(self) -> bool:
+        """MIN/MAX over a string or dictionary column compares strings
+        exactly, on the holistic path (exon_tpu/plan/physical.py:228)."""
+        from .planner import infer_expr_field
+
+        in_schema = self.input.schema()
+        for c in self.agg_calls:
+            if c.fn in ("min", "max") and c.child is not None:
+                try:
+                    k = infer_expr_field(c.child, in_schema).dtype.kind.value
+                except Exception:
+                    return True
+                if k in _STRING_KINDS:
+                    return True
+        return False
+
+    # -- holistic (materializing) aggregates ---------------------------------
+
+    def _holistic(self) -> Batch:
+        """(exon_tpu/plan/physical.py:247-319) The group and argument
+        expressions on the device (the fused filter as a FilterExec), each
+        batch copied to the host once, then exact groups in first-seen
+        order and each call's value per group in numpy."""
+        from .planner import infer_expr_field
+
+        inner: PhysicalPlan = self.input
+        if self.pre_filter is not None:
+            inner = FilterExec(self.pre_filter, inner)
+        in_schema = inner.schema()
+        exprs = list(self.group_exprs) + [c.child for c in self.agg_calls
+                                          if c.child is not None]
+        schema = Schema(tuple(
+            dt.Field(f"__h{i}", infer_expr_field(e, in_schema).dtype, True)
+            for i, e in enumerate(exprs)))
+        device, parts = None, []
+        for b in inner.batches():
+            device = b.device
+            parts.append(Batch(schema, [_to_column(eval_expr(e, b), b)
+                                        for e in exprs], b.length).to_host())
+        host = concat_host(schema, parts)
+        n_group = len(self.group_exprs)
+        if n_group:
+            gid, first = _host_groups(host.columns[:n_group], host.length)
+        else:  # one group, also over no rows
+            gid, first = np.zeros(host.length, np.int64), np.zeros(1, np.int64)
+        fields = self.out_schema.all_fields
+        keys = take_host(Batch(Schema(schema.all_fields[:n_group]),
+                               host.columns[:n_group], host.length), first)
+        cols = list(keys.columns)
+        at = n_group
+        for call, f in zip(self.agg_calls, fields[n_group:]):
+            col = None
+            if call.child is not None:
+                col, at = host.columns[at], at + 1
+            cols.append(_holistic_column(call, col, gid, len(first), f.dtype))
+        out = Batch(self.out_schema, cols, len(first))
+        return out if device is None else out.to_device(device)
 
     def _mask(self, b: Batch) -> torch.Tensor:
         mask = b.row_mask()
@@ -476,6 +558,138 @@ class AggregateExec(PhysicalPlan):
         return Batch(self.out_schema, cols, g).to_device(res.keys.device)
 
 
+def _host_groups(keys: list, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Exact groups of host key columns: (group id per row, each
+    group's first row), groups numbered in first-seen order. NULL is a key
+    value of its own, apart from '' and 0."""
+    codes = []
+    for c in keys:
+        valid = np.asarray(c.validity)[:n]
+        if isinstance(c, VarColumn):
+            offs = np.asarray(c.offsets).tolist()
+            raw = np.asarray(c.values).tobytes()
+            seen: dict = {}
+            code = np.fromiter((seen.setdefault(raw[offs[i]:offs[i + 1]],
+                                                len(seen))
+                                for i in range(n)), np.int64, n)
+        elif isinstance(c, DictColumn):
+            code = np.asarray(c.codes)[:n].astype(np.int64)
+        else:
+            code = np.unique(np.asarray(c.values)[:n],
+                             return_inverse=True)[1].reshape(-1)
+        codes.append(np.where(valid, code, -1))
+    if n == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    inv = np.unique(np.stack(codes, axis=1), axis=0,
+                    return_inverse=True)[1].reshape(-1)
+    first = np.full(int(inv.max()) + 1, n, np.int64)
+    np.minimum.at(first, inv, np.arange(n, dtype=np.int64))
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return rank[inv], first[order]
+
+
+def _holistic_column(call: AggregateCall, col, gid: np.ndarray, ng: int,
+                     dtype: dt.DataType):
+    """One call's host column over ``ng`` groups (``_holistic_value``,
+    exon_tpu/plan/physical.py:495-535): ``median`` in float64 (rounded half
+    to even for integers), ``string_agg`` joined in row order with its
+    values printed as Python prints them, MIN/MAX of strings by their bytes
+    (code-point order for UTF-8), ``count`` of non-NULL values, and the
+    other aggregates over the group's non-NULL values, NULL where there are
+    none."""
+    fn = call.fn
+    n = gid.shape[0]
+    if fn == "count":
+        rows = gid if col is None else gid[np.asarray(col.validity)[:n]]
+        return FixedColumn(np.bincount(rows, minlength=ng).astype(np.int64),
+                           np.ones(ng, np.bool_))
+    valid = np.asarray(col.validity)[:n]
+    g = gid[valid]
+    cnt = np.bincount(g, minlength=ng)
+    has = cnt > 0
+    if fn == "string_agg" or (fn in ("min", "max") and
+                              not isinstance(col, FixedColumn)):
+        vals = [x for x, ok in zip(host_pylists(Batch(None, [col], n))[0],
+                                   valid.tolist()) if ok]
+        if fn == "string_agg":
+            sep = (call.extra[0] if call.extra else ",") or ""
+            groups: list = [[] for _ in range(ng)]
+            for k, x in zip(g.tolist(), vals):
+                groups[k].append(x if isinstance(x, str) else str(x))
+            return utf8_column([sep.join(p) if p else None for p in groups])
+        enc = [x.encode() for x in vals]
+        distinct = sorted(set(enc))
+        rank_of = {s: i for i, s in enumerate(distinct)}
+        ranks = np.fromiter((rank_of[s] for s in enc), np.int64, len(enc))
+        best = np.full(ng, len(distinct) if fn == "min" else -1, np.int64)
+        (np.minimum if fn == "min" else np.maximum).at(best, g, ranks)
+        return utf8_column([distinct[k].decode() if ok else None
+                            for k, ok in zip(best.tolist(), has.tolist())])
+    x = np.asarray(col.values)[:n][valid]
+    npdt = dt.numpy_dtype(dtype)
+    if fn == "median":
+        out = _group_medians(x.astype(np.float64), g, cnt)
+        if x.dtype.kind in "iub":
+            out = np.rint(out)
+    elif fn in ("sum", "avg"):
+        if x.dtype.kind == "f":
+            # Python's sum of floats (compensated since 3.12), as the JAX
+            # package sums its to_pylist values
+            acc = np.asarray([sum(p) for p in _group_lists(x, g, cnt)],
+                             np.float64)
+        else:
+            acc = np.zeros(ng, np.int64)
+            np.add.at(acc, g, x)
+        out = acc.astype(np.float64) / np.maximum(cnt, 1) if fn == "avg" \
+            else acc
+    elif fn in ("min", "max"):
+        lo = fn == "min"
+        init = (np.inf if lo else -np.inf) if x.dtype.kind == "f" else \
+            (lo if x.dtype.kind == "b" else
+             (np.iinfo(x.dtype).max if lo else np.iinfo(x.dtype).min))
+        out = np.full(ng, init, x.dtype)
+        (np.minimum if lo else np.maximum).at(out, g, x)
+    elif fn in VAR_FNS:
+        out = np.zeros(ng, np.float64)
+        pop = fn.endswith("_pop")
+        has = cnt >= (1 if pop else 2)
+        for k, xs in enumerate(_group_lists(x, g, cnt)):
+            if has[k]:
+                var = np.asarray(xs, np.float64).var(ddof=0 if pop else 1)
+                out[k] = np.sqrt(var) if fn.startswith("stddev") else var
+    else:
+        raise ExecutionError(f"aggregate {fn} unsupported in holistic path")
+    return FixedColumn(np.where(has, out, 0).astype(npdt), has)
+
+
+def _group_lists(x: np.ndarray, g: np.ndarray, cnt: np.ndarray) -> list:
+    """Each group's values as a list of Python numbers, in row order."""
+    xs = x[np.argsort(g, kind="stable")].tolist()
+    ends = np.cumsum(cnt).tolist()
+    return [xs[e - c:e] for e, c in zip(ends, cnt.tolist())]
+
+
+def _group_medians(x: np.ndarray, g: np.ndarray, cnt: np.ndarray
+                   ) -> np.ndarray:
+    """np.median of each group's float64 values: the middle value, or the
+    mean of the two middle ones; NaN where a group holds a NaN."""
+    order = np.lexsort((x, g))
+    xs = x[order]
+    start = np.cumsum(cnt) - cnt
+    has = cnt > 0
+    lo = np.where(has, start + (cnt - 1) // 2, 0)
+    hi = np.where(has, start + cnt // 2, 0)
+    out = np.zeros(cnt.shape[0], np.float64)
+    if xs.shape[0]:
+        even = has & (cnt % 2 == 0)
+        out = np.where(even, (xs[lo] + xs[hi]) / 2.0, xs[lo])
+        nan = np.bincount(g[np.isnan(x)], minlength=cnt.shape[0]) > 0
+        out = np.where(nan, np.nan, out)
+    return out
+
+
 def _merge_ungrouped(fn: str, a: tuple, b: tuple) -> tuple:
     """Two host partials of one call (exon_tpu/plan/physical.py:864-886)."""
     if fn not in ("min", "max"):
@@ -559,7 +773,8 @@ def concat_batches(schema: Schema, batches: list[Batch], device) -> Batch:
         return batches[0]
     cols = [_cat_columns([b.columns[i] for b in batches])
             for i in range(len(schema.all_fields))]
-    return Batch(schema, cols, sum(b.length for b in batches))
+    return Batch(schema, cols, sum(b.length for b in batches),
+                 batches[0].device)
 
 
 def _cat_columns(parts: list):

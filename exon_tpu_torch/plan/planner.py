@@ -3,7 +3,9 @@
 Counterpart of exon_tpu/plan/planner.py: ``infer_expr_field`` (:34) for the
 ported expressions (a function call takes the return type registered
 beside its function, where the JAX package keeps a second registry,
-:25-31,71-77), ``optimize`` (:166) reduced to resolving table
+:25-31,71-77: a fixed type, or a callable of the Fields of the call's
+non-literal arguments; the aggregates' types follow logical.py:86-100),
+``optimize`` (:166) reduced to resolving table
 qualifiers (:231), filter pushdown into the scan (:385; providers answer
 exact/inexact/none), projection pushdown into the scan (:411) and
 identity-projection elision (:175), and ``create_physical_plan`` (:551-668)
@@ -80,10 +82,15 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
             return Field(expr.display_name(), dt.int64, False)
         if expr.fn == "avg" or expr.fn in L.VAR_FNS:
             return Field(expr.display_name(), dt.float64, True)
+        if expr.fn == "string_agg":
+            return Field(expr.display_name(), dt.utf8, True)
         inner = infer_expr_field(expr.child, schema)
         return Field(expr.display_name(), inner.dtype, True)
     if isinstance(expr, FunctionCall):
         _fn, dtype = get_function(expr.name)
+        if callable(dtype):
+            dtype = dtype([infer_expr_field(a, schema) for a in expr.args
+                           if not isinstance(a, Literal)])
         return Field(expr.display_name(), dtype, True)
     raise NotImplementedError(
         f"cannot type {expr!r}: not ported yet (ROADMAP Queue 1)")

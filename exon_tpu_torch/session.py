@@ -5,7 +5,8 @@ Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
 with region pushdown, as ``_make_provider`` :121 gives it), the table registry (``register_table``,
 ``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
 which runs the port's copy of the SQL frontend. Creating a session
-registers the UDFs of the port's udfs.py. The session names the
+registers the UDFs of the port's udfs.py and the SQL functions of its
+ops/sqlfuncs.py. The session names the
 torch device every operator runs on: ``"cuda"`` by default, which raises
 when there is no card; CPU execution (the kernels' plain twins) must be
 asked for with ``device="cpu"``. The other formats, object stores and the
@@ -35,8 +36,9 @@ class ExonSession:
         self.device = device
         self.device_batch_size = device_batch_size
         self.tables: dict[str, object] = {}
-        # register the UDFs (exon_tpu/session.py:73)
+        # register the UDFs and the SQL functions (exon_tpu/session.py:73-74)
         from . import udfs  # noqa: F401
+        from .ops import sqlfuncs  # noqa: F401
 
     @staticmethod
     def new_exon(device="cuda") -> "ExonSession":

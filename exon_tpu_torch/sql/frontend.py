@@ -11,10 +11,11 @@ DISTINCT, inner/left/right JOIN, ORDER BY, LIMIT/OFFSET, subqueries, WITH),
 CREATE EXTERNAL TABLE, DESCRIBE, SHOW TABLES and DROP TABLE over the
 port's formats. Statements and table kinds the port does not carry raise
 NotImplementedError naming their ROADMAP Queue 1 item: COPY (item 10),
-EXPLAIN (item 11), CREATE FUNCTION (item 8), SET, CREATE TABLE [AS], INSERT
+EXPLAIN (item 11), SET, CREATE TABLE [AS], INSERT
 and VALUES (item 14), PARQUET/Delta tables, partitioned tables and the
 indexed tables and ``*_indexed_scan`` region forms of formats other than
-VCF (item 2c). Plans that need a Union
+VCF (item 2c). CREATE FUNCTION parses and raises PlanError, as in the JAX
+package. Plans that need a Union
 or a Window (set operations, FULL JOIN, GROUPING SETS, windows, DISTINCT
 ON) are built as in the JAX package and raise when lowered (item 7).
 Subquery results are read through ``collect_host``, so SQL needs no
@@ -115,7 +116,9 @@ def _execute_stmt(session, stmt):
         return _result_df(session, dt.Schema.of(
             dt.Field("status", dt.utf8, False)), [("ok",)])
     if isinstance(stmt, A.CreateFunctionStmt):
-        raise _not_ported("CREATE FUNCTION", "8: UDFs and SQL functions")
+        # parsed, then rejected as the JAX package rejects it
+        # (exon_tpu/sql/frontend.py:124-127)
+        raise PlanError(f"Unsupported function definition: {stmt.name}")
     if isinstance(stmt, (A.CreateMemoryTable, A.InsertStmt, A.ValuesQuery)):
         raise _not_ported("CREATE TABLE, INSERT and VALUES",
                           "14: session config and memory tables")

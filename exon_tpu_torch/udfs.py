@@ -14,10 +14,10 @@ like_match, or through the vocabulary of a dictionary column.
 Registration follows ``_register_all`` (:436-508). The VCF and BCF
 region-filter markers are registered as the JAX package does: a provider
 plans them away, and one that reaches execution raises PlanError. The
-list-column UDFs, ``locate_regex``, the mass-spec UDFs, the markers of
-formats without an indexed provider and the SQL functions of
-exon_tpu/ops/sqlfuncs.py are registered as not ported: calling one raises
-NotImplementedError naming its ROADMAP item.
+list-column UDFs, ``locate_regex``, the mass-spec UDFs and the markers of
+formats without an indexed provider are registered as not ported: calling
+one raises NotImplementedError naming its ROADMAP item. The SQL functions
+of exon_tpu/ops/sqlfuncs.py are in ops/sqlfuncs.py.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def _complement_table(device: torch.device) -> torch.Tensor:
 def reverse_complement(batch: Batch, seq) -> VarColumn:
     col = _require_var(seq, "reverse_complement", batch)
     table = _complement_table(col.values.device)
-    return VarColumn(map_bytes(col.offsets, col.values, table, True),
+    return VarColumn(map_bytes(col.offsets, col.values, table, "mirror"),
                      col.offsets, col.validity)
 
 
@@ -238,23 +238,6 @@ LIST_UDFS = ("integer_encode_dna", "integer_encoding",
 # marker shares the VCF semantics); the rest wait for their formats'
 # indexed providers
 PUSHED_REGION_FILTERS = ("vcf_region_filter", "bcf_region_filter")
-# the names exon_tpu/ops/sqlfuncs.py:1010-1104 registers
-SQL_FUNCTIONS = (
-    "upper", "lower", "octet_length", "bit_length", "md5", "sha256",
-    "sha512", "to_hex", "factorial", "gcd", "lcm", "random", "uuid",
-    "levenshtein", "find_in_set", "overlay", "substr", "substring", "left",
-    "right", "reverse", "trim", "btrim", "ltrim", "rtrim", "strpos", "instr",
-    "position", "starts_with", "ends_with", "contains", "concat",
-    "concat_op", "concat_ws", "repeat", "lpad", "rpad", "translate", "chr",
-    "ascii", "initcap", "replace", "split_part", "regexp_like",
-    "regexp_replace", "coalesce", "nullif", "ifnull", "nvl", "greatest",
-    "least", "abs", "round", "trunc", "ceil", "ceiling", "floor", "sqrt",
-    "exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin", "acos",
-    "atan", "sinh", "cosh", "tanh", "degrees", "radians", "cbrt", "isnan",
-    "asinh", "acosh", "atanh", "signum", "sign", "power", "pow", "atan2",
-    "mod", "log", "pi")
-
-
 def _region_marker(name: str):
     def fn(batch, *args):
         raise PlanError(
@@ -281,7 +264,7 @@ def _register_all() -> None:
     register_function("chrom_match", chrom_match, dt.bool_)
     register_function("interval_match", interval_match, dt.bool_)
     register_function("region_match", region_match, dt.bool_)
-    register_not_ported(LIST_UDFS, "item 2: list, struct and mzML columns")
+    register_not_ported(LIST_UDFS, "item 2b: list, struct and mzML columns")
     # region-filter markers (exon_tpu/udfs.py:493-509): planned away by
     # the provider, never executed
     for name in PUSHED_REGION_FILTERS:
@@ -289,8 +272,6 @@ def _register_all() -> None:
     register_not_ported(
         [n for n in REGION_FILTER_UDFS if n not in PUSHED_REGION_FILTERS],
         "item 2c: indexed tables of other formats and their region filters")
-    register_not_ported(SQL_FUNCTIONS,
-                        "item 8: the SQL functions of ops/sqlfuncs.py, K12")
 
 
 _register_all()

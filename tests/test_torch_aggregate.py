@@ -3,8 +3,13 @@ exon_tpu's grouped AggregateExec on JAX CPU: count/sum/min/max/avg, NULL
 values, NULL keys and first-seen group order across several batches; the
 seven var/stddev names grouped and ungrouped (K4b); var-width keys, NULL
 apart from '', keys past 32 bytes, mixed dictionary, var-width and int64
-keys, SELECT DISTINCT and COUNT(DISTINCT) on a string; and a forced 64-bit
-hash collision, which the port refuses where the JAX package merges (F3).
+keys, SELECT DISTINCT and COUNT(DISTINCT) on a string; a forced 64-bit
+hash collision, which the port refuses where the JAX package merges (F3);
+and the holistic aggregates (median, string_agg, MIN/MAX over strings and
+dictionaries, with count/sum/avg/min/max/var beside them), grouped and
+ungrouped, under a fused WHERE that drops whole batches, over an empty
+scan, and in SQL over GFF, VCF and query J_agg's FASTA at a small size
+(exact).
 Tolerance: exact, except float64 sums and averages, relative 1e-12, and
 var/stddev results, relative 1e-9 (the two engines add in different
 orders, and Σx² − (Σx)²/n cancels)."""
@@ -367,3 +372,205 @@ def test_string_distinct_and_group_by_sql_match_jax(fasta_sessions, sql):
     got, want = ts.sql(sql).collect_arrow(), js.sql(sql).collect_arrow()
     assert_var_tables_match(got, want)
     assert got.num_rows >= 1
+
+
+# ---------------------------------------------------------------------------
+# the holistic aggregates: median, string_agg and MIN/MAX over strings and
+# dictionaries (exon_tpu/plan/physical.py:218-319, 495-535), on the host
+# without pyarrow in the port. Tolerance: exact (float results bit for
+# bit; both engines add and average in row order in float64).
+# ---------------------------------------------------------------------------
+
+HSCHEMA = jdt.Schema.of(jdt.Field("chrom", jdt.dictionary),
+                        jdt.Field("s", jdt.utf8),
+                        jdt.Field("k", jdt.int64),
+                        jdt.Field("v", jdt.int64),
+                        jdt.Field("f", jdt.float64),
+                        jdt.Field("g", jdt.float32))
+# code-point order differs from a naive one: 'Z' < 'a' < 'z' < 'ä' < 'é'
+HSTRINGS = ["", "a", "apple", "Z", "z", "ä", "é", "éa", "naïve", "x" * 70]
+
+
+def _holistic_batches(seed=0, n_batches=3, n=97, k_range=7):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        vocab = list(rng.permutation(VOCAB))
+        data = [HSTRINGS[i].encode()
+                for i in rng.integers(0, len(HSTRINGS), n)]
+        offs = np.zeros(n + 1, np.int32)
+        np.cumsum([len(d) for d in data], out=offs[1:])
+        cols = [
+            jb.DictColumn(rng.integers(0, len(vocab), n).astype(np.int32),
+                          rng.random(n) < 0.9, tuple(vocab)),
+            jb.VarColumn(np.frombuffer(b"".join(data) or b"\0", np.uint8)
+                         [: offs[-1]].copy(), offs, rng.random(n) < 0.85),
+            jb.FixedColumn(rng.integers(0, k_range, n).astype(np.int64),
+                           rng.random(n) < 0.9),
+            jb.FixedColumn(rng.integers(-50, 50, n).astype(np.int64),
+                           rng.random(n) < 0.8),
+            jb.FixedColumn(rng.standard_normal(n) * 10, rng.random(n) < 0.8),
+            jb.FixedColumn((rng.standard_normal(n) / 3).astype(np.float32),
+                           rng.random(n) < 0.8),
+        ]
+        out.append(jb.Batch(HSCHEMA, cols, np.int32(n)))
+    return out
+
+
+def _holistic_calls(mod):
+    c = mod.col
+    call = T.AggregateCall if mod is T else JAggregateCall
+    calls = [mod.count(), call("median", c("v")), call("median", c("f")),
+             call("median", c("g")), call("string_agg", c("s")),
+             call("string_agg", c("s"), extra=("",)),
+             call("string_agg", c("v"), extra=("|",)),
+             call("string_agg", c("g"), extra=("; ",)),
+             call("string_agg", c("chrom"), extra=(",",)),
+             mod.min_(c("s")), mod.max_(c("s")), mod.min_(c("chrom")),
+             mod.max_(c("chrom")), mod.count(c("s")), mod.sum_(c("v")),
+             mod.avg(c("f")), mod.min_(c("v")), mod.max_(c("f")),
+             mod.sum_(c("g")), call("var_samp", c("f")),
+             call("stddev_pop", c("v"))]
+    return calls, [f"h{i}" for i in range(len(calls))]
+
+
+def _run_holistic(mod, keys, batches, pre_filter=None, calls_of=None):
+    """One engine's AggregateExec over ``batches`` (HSCHEMA, possibly
+    none at all)."""
+    calls, names = (calls_of or _holistic_calls)(mod)
+    if mod is J:
+        plan = JL.Aggregate([J.col(k) for k in keys], calls, names,
+                            _Input(HSCHEMA))
+        scan = JP.ScanExec(HSCHEMA, lambda: iter(batches))
+        return JP.AggregateExec(plan.group_exprs, calls, plan.schema(), scan,
+                                pre_filter=pre_filter).collect_arrow()
+    host = [tb.from_numpy_batch(b) for b in batches]
+    schema = tb.from_numpy_batch(jb.Batch(HSCHEMA, [], np.int32(0))).schema \
+        if not host else host[0].schema
+    plan = TL.Aggregate([T.col(k) for k in keys], calls, names,
+                        _Input(schema))
+    scan = TP.ScanExec(schema, lambda: iter(host), "cpu")
+    return TP.AggregateExec(plan.group_exprs, calls, plan.schema(), scan,
+                            pre_filter=pre_filter).collect_arrow()
+
+
+def assert_exact(got, want):
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows
+    for name in want.column_names:
+        g, w = got.column(name).to_pylist(), want.column(name).to_pylist()
+        if want.column(name).type in ("double", "float"):
+            g = [None if x is None else np.float64(x).tobytes() for x in g]
+            w = [None if x is None else np.float64(x).tobytes() for x in w]
+        assert g == w, name
+
+
+@pytest.mark.parametrize("keys", [["k"], ["chrom"], ["s"], ["chrom", "k"],
+                                  []],
+                         ids=["int_key", "dict_key", "string_key",
+                              "dict_int_keys", "ungrouped"])
+def test_holistic_aggregates_match_jax(keys):
+    batches = _holistic_batches(seed=1)
+    got = _run_holistic(T, keys, batches)
+    assert_exact(got, _run_holistic(J, keys, batches))
+    assert got.num_rows >= 1
+
+
+@pytest.mark.parametrize("keys", [["k"], []], ids=["grouped", "ungrouped"])
+def test_holistic_aggregates_under_a_filter_that_drops_whole_batches(keys):
+    """The fused WHERE (a FilterExec on this path) rejects every row of
+    the first two batches; then every row of every batch."""
+    batches = _holistic_batches(seed=2, n_batches=4)
+    for b in batches[:2]:
+        n = b.columns[2].values.shape[0]
+        b.columns[2] = jb.FixedColumn(np.zeros(n, np.int64), np.ones(n, bool))
+    for part in (batches, batches[:2]):
+        got = _run_holistic(T, keys, part, pre_filter=T.col("k") > 0)
+        assert_exact(got, _run_holistic(J, keys, part,
+                                        pre_filter=J.col("k") > 0))
+    assert got.num_rows == (0 if keys else 1)
+
+
+@pytest.mark.parametrize("keys", [["chrom"], []], ids=["grouped",
+                                                      "ungrouped"])
+def test_holistic_aggregates_over_an_empty_scan(keys):
+    got = _run_holistic(T, keys, [])
+    assert_exact(got, _run_holistic(J, keys, []))
+    # an ungrouped aggregate over no rows is one row: count 0, NULL others
+    assert got.num_rows == (0 if keys else 1)
+
+
+def test_median_even_odd_and_all_null_groups():
+    """k in 0..39 over 97 rows: groups of one, two and more values, some
+    with every value NULL."""
+    batches = _holistic_batches(seed=3, n_batches=1, k_range=40)
+    b = batches[0]
+    v = b.columns[3]
+    b.columns[3] = jb.FixedColumn(v.values, v.validity
+                                  & (b.columns[2].values % 5 != 0))
+    calls_of = lambda mod: ([  # noqa: E731
+        (T.AggregateCall if mod is T else JAggregateCall)("median", mod.col(c))
+        for c in ("v", "f", "g")], ["mv", "mf", "mg"])
+    got = _run_holistic(T, ["k"], batches, calls_of=calls_of)
+    assert_exact(got, _run_holistic(J, ["k"], batches, calls_of=calls_of))
+    assert got.column("mv").null_count > 0
+
+
+@pytest.fixture(scope="module")
+def holistic_sessions(tmp_path_factory):
+    """Query J_agg's FASTA at a small size (record numbers spread over
+    0-599,999, the shape benchlib.fixtures.make_fasta writes), a GFF and a
+    VCF, registered in both packages."""
+    from benchlib.fasta_records import fasta_records
+    from benchlib.gff_fixture import make_gff
+    from benchlib.vcf_fixture import make_vcf
+
+    d = tmp_path_factory.mktemp("holistic")
+    idx = np.sort(np.random.default_rng(6).choice(600_000, 1200,
+                                                  replace=False)).tolist()
+    flat, offs = fasta_records(len(idx), mean_len=130, seed=6)
+    with open(d / "a.fasta", "wb") as f:
+        for k, i in enumerate(idx):
+            f.write(b">sp|P%06d|PROT%d synthetic protein %d\n%s\n"
+                    % (i, i, i, flat[offs[k]:offs[k + 1]].tobytes()))
+    files = {"a": str(d / "a.fasta"),
+             "g": make_gff(1500, seed=5, path=str(d / "g.gff3")),
+             "v": make_vcf(3000, seed=3, path=str(d / "v.vcf.gz"))}
+    js = J.ExonSession.new_exon()
+    js.config.device_batch_size = 500
+    ts = T.ExonSession(device="cpu", device_batch_size=500)
+    yield ts, js, files
+
+
+@pytest.mark.parametrize("sql", [
+    # query J_agg of the smoke: 60 accession buckets, MAX of the
+    # descriptions lexicographic ('… 99999' > '… 100000')
+    "SELECT substr(id, 5, 2) AS bucket, COUNT(*) AS n, MIN(id) AS first_id, "
+    "MAX(description) AS last_desc, MEDIAN(length(sequence)) AS median_len "
+    "FROM fasta_scan('{a}') GROUP BY substr(id, 5, 2)",
+    "SELECT type, MIN(seqname) AS lo, MAX(seqname) AS hi, "
+    "STRING_AGG(strand, '') AS st, MEDIAN(start) AS m FROM gff_scan('{g}') "
+    "GROUP BY type",
+    "SELECT MIN(seqname) AS lo, MAX(source) AS hi, MEDIAN(score) AS ms "
+    "FROM gff_scan('{g}') WHERE strand = '+'",
+    "SELECT ref, MIN(chrom) AS lo, MAX(chrom) AS hi, MEDIAN(pos) AS m, "
+    "MEDIAN(qual) AS mq, COUNT(*) AS n FROM vcf_scan('{v}') GROUP BY ref",
+    "SELECT MIN(chrom) AS lo, MAX(chrom) AS hi, STRING_AGG(ref, ',') AS r "
+    "FROM vcf_scan('{v}') WHERE pos < 30000000",
+    "SELECT MIN(chrom) AS lo, MEDIAN(pos) AS m FROM vcf_scan('{v}') WHERE "
+    "pos < 0",
+], ids=["query_j_agg", "gff_grouped", "gff_ungrouped", "vcf_grouped",
+        "vcf_ungrouped", "vcf_no_rows"])
+def test_holistic_sql_matches_jax(holistic_sessions, sql):
+    ts, js, files = holistic_sessions
+    sql = sql.format(**files)
+    got = ts.sql(sql).collect_arrow()
+    assert_exact(got, js.sql(sql).collect_arrow())
+    assert got.num_rows >= 1
+
+
+def test_array_agg_is_not_ported(holistic_sessions):
+    ts, _js, files = holistic_sessions
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        ts.sql(f"SELECT ARRAY_AGG(start) AS a FROM gff_scan('{files['g']}')"
+               ).collect_arrow()

@@ -6,7 +6,12 @@ aggregate, relative 1e-12 (atomic order changes the rounding); the slot the
 kernel writes for each row must hold that row's key. The twins of string_cmp, parse_number
 and format_int are also held to the JAX functions they replace, bit for
 bit, outside the JAX faults F8 and F10 (ROADMAP Queue 3); those of sw_score,
-count_bytes, map_bytes and polya_tail are, in test_torch_udfs.py."""
+count_bytes, map_bytes and polya_tail are, in test_torch_udfs.py. The SQL
+function kernels (span_concat, and the class runs of polya_tail, the
+position mode of like_match and the word-start mode of map_bytes) are held
+to exon_tpu/ops/sqlfuncs.py's _slice_var, _trim_counts, _concat_cols, _pad,
+fn_repeat, fn_initcap and fn_translate and to ops/strings.py's _find_from,
+exactly, on seeded strings."""
 
 import numpy as np
 import pytest
@@ -27,10 +32,13 @@ from exon_tpu_torch.kernels import parse_number as kp
 from exon_tpu_torch.kernels import polya_tail as kpt
 from exon_tpu_torch.kernels import row_hash as kr
 from exon_tpu_torch.kernels import sort_keys as kk
+from exon_tpu_torch.kernels import span_concat as kconcat
 from exon_tpu_torch.kernels import string_cmp as kcmp
 from exon_tpu_torch.kernels import string_eq as ks
 from exon_tpu_torch.kernels import sw_score as ksw
 from exon_tpu_torch.kernels import text_records as ktr
+from exon_tpu_torch.batch import host_pylists as host_rows
+from exon_tpu_torch.errors import ExecutionError as T_ExecutionError
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 from exon_tpu_torch.ops.strings import tokenize_like
 
@@ -83,7 +91,8 @@ def test_cpu_tensors_run_the_twins_without_launching():
     ksw.sw_score(offs, vals, torch.tensor(list(b"ACK"), dtype=torch.uint8))
     ksw.sw_score_pairwise(offs, vals, offs, vals)
     kcb.count_bytes(offs, vals, b"KM")
-    kmb.map_bytes(offs, vals, torch.arange(256).to(torch.uint8).flip(0), True)
+    kmb.map_bytes(offs, vals, torch.arange(256).to(torch.uint8).flip(0),
+                  "mirror")
     keep = kpt.polya_tail(offs, vals)
     dst = (torch.cumsum(keep, 0) - keep).to(torch.int32)
     kgs.gather_spans(vals, offs[:-1], offs[:-1] + keep, dst,
@@ -137,18 +146,26 @@ _VALS = torch.tensor(list(b"ACG"), dtype=torch.uint8)
     lambda: kcb.count_bytes(_OFFS.long(), _VALS, b"GC"),
     lambda: kcb.count_bytes(_OFFS, _VALS.to(torch.int8), b"GC"),
     lambda: kmb.map_bytes(_OFFS, _VALS, torch.zeros(256, dtype=torch.int32),
-                          True),
+                          "mirror"),
     lambda: kmb.map_bytes(_OFFS, _VALS, torch.zeros(255, dtype=torch.uint8),
-                          False),
+                          "table"),
     lambda: kmb.map_bytes(_OFFS.long(), _VALS,
-                          torch.zeros(256, dtype=torch.uint8), False),
+                          torch.zeros(256, dtype=torch.uint8), "table"),
+    lambda: kmb.map_bytes(_OFFS, _VALS, torch.zeros(256, dtype=torch.uint8),
+                          "word_start"),
     lambda: kpt.polya_tail(_OFFS, _VALS.to(torch.int32)),
 ], ids=["sw_offsets", "sw_values", "sw_query", "sw_pairwise", "count_offsets",
         "count_values", "map_table_dtype", "map_table_shape", "map_offsets",
-        "polya_values"])
+        "map_word_start_shape", "polya_values"])
 def test_new_wrappers_check_dtypes(call):
     with pytest.raises(TypeError):
         call()
+
+
+@pytest.mark.parametrize("mode", [True, False, 2, "initcap"])
+def test_map_bytes_takes_only_its_three_modes(mode):
+    with pytest.raises(ValueError, match="mode must be one of"):
+        kmb.map_bytes(_OFFS, _VALS, torch.zeros(256, dtype=torch.uint8), mode)
 
 
 def test_hash_aggregate_refuses_an_integer_sum_of_squares():
@@ -776,11 +793,296 @@ def test_count_map_and_polya_kernels_match_twins(card):
                            kcb.count_bytes_plain(offs, vals, members))
     table = torch.from_numpy(np.random.default_rng(22).permutation(256)
                              .astype(np.uint8)).to(card)
-    for mirror in (True, False):
-        assert torch.equal(kmb.map_bytes(offs, vals, table, mirror),
-                           kmb.map_bytes_plain(offs, vals, table, mirror))
+    for mode in ("mirror", "table"):
+        assert torch.equal(kmb.map_bytes(offs, vals, table, mode),
+                           kmb.map_bytes_plain(offs, vals, table, mode))
     keep = kpt.polya_tail(offs, vals)
     assert torch.equal(keep, kpt.polya_tail_plain(offs, vals))
     dst = (torch.cumsum(keep, 0) - keep).to(torch.int32)
     args = (vals, offs[:-1], offs[:-1] + keep, dst, int(keep.sum()), ())
     assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# the SQL function kernels (K12): span_concat, and the new modes of
+# polya_tail (class runs from either end), like_match (first position) and
+# map_bytes (word starts); twins against exon_tpu/ops/sqlfuncs.py on the
+# CPU, kernels against twins on the card. All exact.
+# ---------------------------------------------------------------------------
+
+_WORDS = ["Hello", "World", "  pad  ", "abc", "x1", "naïve", "café", "☃", "é",
+          "ACGT", "N", "a", "-", "_", "7th", "", " ", "AGATCGGAAGAGC"]
+
+
+def _text_rows(rng, n: int) -> list:
+    """Seeded strings: words with spaces and punctuation, multi-byte UTF-8,
+    empty rows, rows past 64 bytes and rows of one repeated byte."""
+    out = []
+    for i in range(n):
+        k = int(rng.integers(0, 8 if i % 11 else 30))
+        s = "".join(str(rng.choice(_WORDS)) + str(rng.choice(["", " ", "|"]))
+                    for _ in range(k))
+        if i % 17 == 3:
+            s = str(rng.choice(["a", " ", "N"])) * int(rng.integers(0, 9))
+        out.append(s)
+    return out
+
+
+def _both_vars(rng, n: int, p_null: float = 0.1):
+    """The same column for both packages: (JAX VarColumn, port VarColumn,
+    its numpy (offsets, values, validity))."""
+    from exon_tpu.batch import VarColumn as JVarColumn
+
+    from exon_tpu_torch.batch import VarColumn as TVarColumn
+
+    offs, vals, valid = _strings(_text_rows(rng, n), rng, p_null)
+    j = JVarColumn(vals, offs, valid)
+    t = TVarColumn(torch.from_numpy(vals), torch.from_numpy(offs),
+                   torch.from_numpy(valid))
+    return j, t, (offs, vals, valid)
+
+
+def _rows(col) -> tuple[list, list]:
+    """(each row's bytes, NULL rows included; the validity) of a column of
+    either package."""
+    offs = np.asarray(col.offsets).tolist()
+    raw = np.asarray(col.values).tobytes()
+    return ([raw[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)],
+            np.asarray(col.validity).tolist())
+
+
+def _same_column(got, want) -> None:
+    assert _rows(got) == _rows(want)
+
+
+def test_slice_var_twins_match_jax(jx):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    from exon_tpu_torch.ops import sqlfuncs as TS
+
+    _E, _var, jnp = jx
+    rng = np.random.default_rng(31)
+    j, t, (offs, _v, _ok) = _both_vars(rng, 400)
+    n = np.diff(offs)
+    start = (rng.random(400) * (n + 1)).astype(np.int32)
+    lens = (rng.random(400) * (n - start + 1)).astype(np.int32)
+    _same_column(TS._slice_var(t, torch.from_numpy(start),
+                               torch.from_numpy(lens)),
+                 JS._slice_var(j, jnp.asarray(start), jnp.asarray(lens)))
+    # mirrored: reverse rides map_bytes through the identity table
+    _same_column(TS.fn_reverse(None, t),
+                 JS._slice_var(j, jnp.zeros(400, jnp.int32), jnp.asarray(n),
+                               reverse=True))
+
+
+@pytest.mark.parametrize("chars", [b" ", b"aA", "é".encode(), b" |N", b""],
+                         ids=["space", "two", "multibyte", "three", "empty"])
+def test_trim_counts_twin_matches_jax(jx, chars):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    rng = np.random.default_rng(32)
+    j, t, (offs, _v, _ok) = _both_vars(rng, 400)
+    lead, trail = (np.asarray(x) for x in JS._trim_counts(j, chars))
+    n = np.diff(offs)
+    got_lead = kpt.polya_tail(t.offsets, t.values, chars, from_start=True)
+    got_keep = kpt.polya_tail(t.offsets, t.values, chars)
+    assert got_lead.numpy().tolist() == lead.tolist()
+    assert (n - got_keep.numpy()).tolist() == trail.tolist()
+
+
+@pytest.mark.parametrize("skip_null", [True, False], ids=["concat", "pipe"])
+def test_concat_cols_twin_matches_jax(jx, skip_null):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    from exon_tpu_torch.ops import sqlfuncs as TS
+
+    rng = np.random.default_rng(33)
+    cols = [_both_vars(rng, 300, p_null=0.3) for _ in range(3)]
+    _same_column(TS._concat_cols([c[1] for c in cols], 300, skip_null, None),
+                 JS._concat_cols([c[0] for c in cols], 300, skip_null, None))
+
+
+@pytest.mark.parametrize("width,pad", [(0, "*"), (5, None), (12, "xyz"),
+                                       (9, "é"), (70, "ab")],
+                         ids=["zero", "space", "cycle", "multibyte", "long"])
+@pytest.mark.parametrize("left", [True, False], ids=["lpad", "rpad"])
+def test_pad_twin_matches_jax(jx, width, pad, left):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    from exon_tpu_torch.ops import sqlfuncs as TS
+
+    rng = np.random.default_rng(34)
+    j, t, _np = _both_vars(rng, 300)
+    name = "lpad" if left else "rpad"
+    _same_column(TS._pad(None, t, width, pad, left, name),
+                 JS._pad(None, j, width, pad, left, name))
+
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_repeat_twin_matches_jax(jx, k):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    from exon_tpu_torch.ops import sqlfuncs as TS
+
+    rng = np.random.default_rng(35)
+    j, t, _np = _both_vars(rng, 300)
+    _same_column(TS.fn_repeat(None, t, k), JS.fn_repeat(None, j, k))
+
+
+@pytest.mark.parametrize("needle", [b"a", b"AGATCGGAAGAGC", "é".encode(),
+                                    b"  ", b"World|"],
+                         ids=["byte", "adapter", "multibyte", "spaces",
+                              "word"])
+def test_find_from_twin_matches_jax(jx, needle):
+    from exon_tpu.ops import strings as JST
+
+    _E, _var, jnp = jx
+    rng = np.random.default_rng(36)
+    j, t, (offs, _v, _ok) = _both_vars(rng, 400)
+    pos, found = JST._find_from(j, needle, jnp.asarray(offs[:-1]), False)
+    want = np.where(np.asarray(found), np.asarray(pos) - offs[:-1], -1)
+    got = kl.like_find(t.offsets, t.values, tuple(needle))
+    assert got.numpy().tolist() == want.tolist()
+    assert (want >= 0).any()
+
+
+def test_initcap_and_translate_twins_match_jax(jx):
+    from exon_tpu.ops import sqlfuncs as JS
+
+    from exon_tpu_torch.ops import sqlfuncs as TS
+
+    rng = np.random.default_rng(37)
+    j, t, _np = _both_vars(rng, 400)
+    _same_column(TS.fn_initcap(None, t), JS.fn_initcap(None, j))
+    for frm, to in (("lo", "LO"), ("ael ", "A"), ("é", "e"), ("xyz", "")):
+        _same_column(TS.fn_translate(None, t, frm, to),
+                     JS.fn_translate(None, j, frm, to))
+
+
+def _pieces(rng, n: int, device):
+    """Two sources and five pieces: copies of source rows, cycled patterns
+    (spans shorter than their pieces), empty pieces."""
+    offs, vals = _var(rng, n, device)
+    pat = torch.tensor(list(b"xyz"), dtype=torch.uint8, device=device)
+    lens = (offs[1:] - offs[:-1]).to(torch.int32)
+    zero = torch.zeros_like(lens)
+    cut = torch.from_numpy(rng.integers(0, 60, n).astype(np.int32)).to(device)
+    three = torch.full_like(lens, 3)
+    return [vals, pat], [
+        (0, offs[:-1], lens, lens),
+        (1, zero, three, cut),
+        (0, offs[:-1], lens.clamp(min=1), torch.where(lens > 0, 3 * lens, 0)
+         .to(torch.int32)),
+        (1, torch.ones_like(lens), torch.full_like(lens, 2), zero),
+        (0, offs[:-1], lens, torch.minimum(lens, cut))]
+
+
+def test_span_concat_twin_assembles_pieces():
+    srcs = [torch.tensor(list(b"ABCDE"), dtype=torch.uint8),
+            torch.tensor(list(b"xy"), dtype=torch.uint8)]
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32)  # noqa: E731
+    offsets, values = kconcat.span_concat(srcs, [
+        (0, i32([0, 2, 4]), i32([2, 2, 1]), i32([2, 5, 0])),
+        (1, i32([0, 0, 1]), i32([2, 2, 1]), i32([3, 0, 2]))])
+    assert offsets.tolist() == [0, 5, 10, 12]
+    assert bytes(values.tolist()) == b"ABxyx" + b"CDCDC" + b"yy"
+
+
+def test_span_concat_refuses_totals_past_int32():
+    src = torch.zeros(1, dtype=torch.uint8)
+    big = torch.full((2,), 1 << 30, dtype=torch.int32)
+    one = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(T_ExecutionError, match="2\\^31"):
+        kconcat.span_concat([src], [(0, one - 1, one, big)])
+
+
+@pytest.mark.cuda
+def test_span_concat_kernel_matches_twin(card):
+    srcs, pieces = _pieces(np.random.default_rng(41), 20_000, card)
+    o1, v1 = kconcat.span_concat(srcs, pieces)
+    o2, v2 = kconcat.span_concat_plain(srcs, pieces)
+    assert torch.equal(o1, o2) and torch.equal(v1, v2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [b"Aa", b"N", b" ", b"ACGTacgtN", b""],
+                         ids=["polya", "n", "space", "all", "empty"])
+def test_polya_tail_class_runs_match_twin(card, members):
+    offs, vals = _seqs(np.random.default_rng(42), 20_000, card)
+    for from_start in (False, True):
+        assert torch.equal(
+            kpt.polya_tail(offs, vals, members, from_start),
+            kpt.polya_tail_plain(offs, vals, members, from_start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needle,ci", [(b"AGATCGGAAGAGC", False), (b"a", False),
+                                       (b"acgt", True), (b"A_C", False),
+                                       (b"", False)],
+                         ids=["adapter", "byte", "ci", "underscore", "empty"])
+def test_like_find_kernel_matches_twin(card, needle, ci):
+    offs, vals = _seqs(np.random.default_rng(43), 20_000, card)
+    got = kl.like_find(offs, vals, tuple(needle), ci)
+    assert torch.equal(got, kl.like_find_plain(offs, vals, tuple(needle), ci))
+
+
+@pytest.mark.cuda
+def test_map_bytes_word_start_matches_twin(card):
+    from exon_tpu_torch.ops.strings import LOWER, UPPER
+
+    rng = np.random.default_rng(44)
+    offs, vals, _ok = _strings(_text_rows(rng, 20_000), rng)
+    offs, vals = torch.from_numpy(offs).to(card), torch.from_numpy(vals).to(card)
+    lower = torch.from_numpy(LOWER).to(card)
+    upper = torch.from_numpy(UPPER).to(card)
+    initcap = torch.cat([lower, upper])
+    assert torch.equal(kmb.map_bytes(offs, vals, initcap, "word_start"),
+                       kmb.map_bytes_plain(offs, vals, initcap, "word_start"))
+    for mode in ("table", "mirror"):  # the old modes
+        assert torch.equal(kmb.map_bytes(offs, vals, upper, mode),
+                           kmb.map_bytes_plain(offs, vals, upper, mode))
+
+
+@pytest.mark.cuda
+def test_sql_functions_on_the_card_match_the_cpu(card, tmp_path):
+    """Queries J and K's functions through ExonSession.sql on the card
+    equal the CPU run (every kernel against its twin, end to end)."""
+    import exon_tpu_torch as T
+
+    rng = np.random.default_rng(45)
+    path = tmp_path / "t.fasta"
+    path.write_text("".join(
+        f">sp|P{i:06d}|PROT{i}" + (f" {s}" if i % 5 else "") + "\n"
+        + "".join(rng.choice(list("ACGTKN"), int(rng.integers(0, 200))))
+        + "\n" for i, s in enumerate(_text_rows(rng, 3000))))
+    sql = (f"SELECT concat_ws('|', upper(id), initcap(trim(description)), "
+           f"lpad(CAST(length(sequence) AS VARCHAR), 5, '0'), "
+           f"rtrim(left(sequence, coalesce(nullif(strpos(sequence, 'KK'), 0)"
+           f" - 1, length(sequence))), 'N'), repeat(substr(id, 5, 2), 3), "
+           f"translate(description, 'ae ', 'A'), reverse(id)) AS s "
+           f"FROM fasta_scan('{path}')")
+    got = T.ExonSession(device="cuda").sql(sql).collect_host()
+    want = T.ExonSession(device="cpu").sql(sql).collect_host()
+    assert host_rows(got) == host_rows(want)
+
+
+@pytest.mark.cuda
+def test_literal_functions_over_a_table_run_on_the_card(card, tmp_path):
+    """A function of literals only over a table (its scan projected to no
+    columns) builds its column on the card and launches the kernels there:
+    upper on map_bytes, concat_ws and lpad on span_concat; random draws on
+    the card."""
+    import exon_tpu_torch as T
+
+    path = tmp_path / "t.fasta"
+    path.write_text("".join(f">r{i}\nACGT\n" for i in range(1000)))
+    sql = ("SELECT upper('abc') AS u, concat_ws('-', 'a', 'b') AS c, "
+           "lpad('7', 3, '0') AS p, random() AS r "
+           f"FROM fasta_scan('{path}')")
+    kernels.reset_launch_counts()
+    got = T.ExonSession(device="cuda").sql(sql).collect_host()
+    counts = kernels.launch_counts()
+    assert counts["map_bytes"] > 0 and counts["span_concat"] > 0
+    rows = host_rows(got)
+    assert rows[:3] == [["ABC"] * 1000, ["a-b"] * 1000, ["007"] * 1000]
+    assert all(0.0 <= r < 1.0 for r in rows[3]) and len(set(rows[3])) > 900
