@@ -40,7 +40,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    its word-start mode on J's trimmed descriptions (initcap); polya_tail's
    leading space run on J's descriptions (trim) and trailing 'N' run on
    K's cut reads of the first FASTQ chunk (rtrim); like_match's position
-   mode on K's strpos over that chunk.
+   mode on K's strpos over that chunk; translate (on no query's path) at
+   J's shape, beside table[values]. Batch.to_device is timed beside its
+   bound over the host link. The window kernels (K10) run at Query L's
+   shape, the panel's 1,008,303 rows concatenated on the card:
+   window_bounds on the sorted key matrices of (chrom, pos) and (chrom,
+   qual DESC), window_frame in every mode (L's four calls, the rest of the
+   rank family, lead with a default, sum, avg and the value picks over L's
+   ROWS frame, min over its RANGE frame through the sparse table).
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -66,7 +73,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    CAST, lpad and concat_ws), J_agg (A's records in 56 accession buckets
    with MIN(id), MAX(description) and MEDIAN(length(sequence))) and K (the
    3' TruSeq adapter trim of E's lane, strpos, nullif, coalesce, left and
-   rtrim, as a trimmed-length histogram). Each is checked against numpy
+   rtrim, as a trimmed-length histogram), and two over I_panel's scan: L
+   (windows: the gap to the previous call, a RANGE count of calls within
+   35 bp, a ROWS max of qual over 11 calls and a per-contig rank by qual
+   DESC) and M (a ROLLUP of per-(chrom, ref) counts with qual >= 30: three
+   aggregate branches joined by a union). Each is checked against numpy
    computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -83,7 +94,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    device batches already in memory, with the kernels (median of 5
    host-clock runs ending in a sync), beside the bound of their input and
    output bytes; then one run
-   of D, A, E, I, I_panel, J, J_agg and K under torch.profiler, with the
+   of A, E, I, I_panel, J, J_agg, K and L under torch.profiler, with the
    device time of its CUDA kernels and copies and the largest of them.
 
 The smoke prints its total time and the card's name and power limit once
@@ -153,6 +164,9 @@ KERNELS = {
     "map_bytes": ("exon_tpu/udfs.py:87", "map_bytes.cu"),
     "polya_tail": ("exon_tpu/udfs.py:131", "polya_tail.cu"),
     "span_concat": ("exon_tpu/ops/sqlfuncs.py:268", "span_concat.cu"),
+    "window_bounds": ("exon_tpu/plan/window_exec.py:123",
+                      "window_bounds.cu"),
+    "window_frame": ("exon_tpu/plan/window_exec.py:263", "window_frame.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -188,6 +202,11 @@ PATH_KERNELS = {
     "J_agg": DECODE,
     "K": DECODE + ("like_match", "polya_tail", "hash_aggregate",
                    "sort_keys"),
+    # the windows: the key matrix, the bounds and every call's frame
+    "L": ("sort_keys", "window_bounds", "window_frame"),
+    # ROLLUP: three aggregate branches over the panel, joined by a union
+    "M": ("hash_aggregate", "row_hash", "string_eq", "gather_var",
+          "compact_mask"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -228,6 +247,22 @@ SQL_K = ("SELECT length(t) AS len, COUNT(*) AS n, SUM(length(sequence) - "
          "coalesce(nullif(strpos(sequence, 'AGATCGGAAGAGC'), 0) - 1, "
          "length(sequence))), 'N') AS t FROM fastq_scan('{fq}')) GROUP BY "
          "length(t) ORDER BY len")
+# L: neighbour gaps, a SNP-cluster count (GATK VariantFiltration
+# --cluster-window-size 35), a local quality envelope and a per-contig
+# quality rank over I_panel's scan; M: per-contig and genome-wide call
+# counts by REF (bcftools stats) as a ROLLUP over the same scan
+SQL_L = ("SELECT chrom, pos, qual, pos - lag(pos) OVER (PARTITION BY chrom "
+         "ORDER BY pos) AS gap, COUNT(*) OVER (PARTITION BY chrom ORDER BY "
+         "pos RANGE BETWEEN 35 PRECEDING AND 35 FOLLOWING) AS cluster_n, "
+         "MAX(qual) OVER (PARTITION BY chrom ORDER BY pos ROWS BETWEEN 5 "
+         "PRECEDING AND 5 FOLLOWING) AS local_max_qual, rank() OVER ("
+         "PARTITION BY chrom ORDER BY qual DESC) AS qual_rank FROM "
+         "vcf_indexed_scan('{vcf}', '{panel}')")
+SQL_M = ("SELECT chrom, ref, COUNT(*) AS n FROM vcf_indexed_scan('{vcf}', "
+         "'{panel}') WHERE qual >= 30 GROUP BY ROLLUP(chrom, ref)")
+# PCIe Gen5 x16 between the H100 SXM and its host, each way (NVIDIA data
+# sheet: 128 GB/s both ways together)
+HOST_LINK_BYTES_PER_S = 64e9
 
 
 def fail(msg: str) -> None:
@@ -1069,6 +1104,14 @@ def check_library_programs(rng, torch, offs, vals) -> None:
     print(f"K14 concat_batches (12 x {n} rows, {vals.shape[0]} bytes of text "
           f"each): {ms:.4f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes} "
           "bytes)")
+    host = batch.to_host()
+    ms = median_ms(lambda: host.to_device("cuda"), torch)
+    # every column copied once from pageable host memory over the link
+    nbytes = one
+    print(f"K14 Batch.to_device ({n} rows, {vals.shape[0]} bytes of text): "
+          f"{ms:.4f} ms, bound {1e3 * nbytes / HOST_LINK_BYTES_PER_S:.4f} ms "
+          f"by the host link at {HOST_LINK_BYTES_PER_S / 1e9:.0f} GB/s "
+          f"({nbytes} bytes)")
 
 
 def _first_batch(read):
@@ -1153,6 +1196,28 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
           lambda: km.map_bytes(o, v, initcap, "word_start"),
           lambda: km.map_bytes_plain(o, v, initcap, "word_start"),
           4 * (n + 1) + 2 * total + 512, f"{n} descriptions, {total} bytes")
+    # translate, on no query's path, at J's shape: the descriptions with
+    # 'a' mapped to 'A' and 'e' and ' ' deleted; the twin runs each kernel's
+    # twin (map_bytes, count_bytes, compact_mask), the library call is the
+    # map alone
+    swaps = [("exon_tpu_torch.ops.sqlfuncs", k)
+             for k in ("map_bytes", "count_bytes", "compact_mask")]
+
+    def translate():
+        t = S.fn_translate(b, desc, "ae ", "A")
+        return t.offsets, t.values
+
+    def translate_twin():
+        with _swapped(swaps):
+            return translate()
+
+    table = torch.arange(256, dtype=torch.uint8, device="cuda")
+    table[ord("a")] = ord("A")
+    total, kept = int(_lens(desc).sum()), int(translate()[0][-1])
+    _case(torch, "fn_translate J descriptions ('ae ' -> 'A')", translate,
+          translate_twin, 4 * (n + 1) + n + total + kept + 4 * (n + 1),
+          f"{n} descriptions, {total} bytes in, {kept} out",
+          library=lambda: table[desc.values.long()])
     text = _eval_cast(_lens(seq), dt.utf8, b)
     width = torch.full((n,), 5, dtype=torch.int32, device="cuda")
     pad = S.pad_pieces(text, width, b"0", True)
@@ -1230,6 +1295,110 @@ def _class_runs(torch, label: str, col, members: bytes, from_start: bool,
     return run
 
 
+def _panel_batch(vcf: str):
+    """Query L's window input: I_panel's scan (chrom, pos, qual)
+    concatenated on the card, as WindowExec concatenates it."""
+    import exon_tpu_torch as T
+    from exon_tpu_torch.plan.physical import concat_batches
+
+    df = T.ExonSession(device="cuda").sql(
+        "SELECT chrom, pos, qual FROM vcf_indexed_scan("
+        f"'{vcf}', '{_panel_file(vcf)}')")
+    plan = df._execute(df.logical_plan())
+    return concat_batches(plan.schema(), list(plan.batches()), "cuda")
+
+
+def _frame_bytes(fn: str, n: int, values, frame, loop: bool) -> int:
+    """What window_frame must move for ``fn`` over n rows: perm and the
+    four bounds, the values (as the kernel reads them, 8 bytes) and their
+    validity, the prefix arrays the function reads and a RANGE key with
+    its validity, each once; the result and its validity written once. A
+    sparse-table lookup reads two words a row."""
+    nbytes = 8 * n + 16 * n + 9 * n
+    if values is not None:
+        nbytes += 9 * n
+    if fn in ("count", "sum", "avg", "min", "max"):
+        nbytes += 8 * n                      # the valid count
+    if fn in ("sum", "avg", "dense_rank"):
+        nbytes += 8 * n                      # the sum, or the peer starts
+    if fn in ("min", "max") and not loop:
+        nbytes += 16 * n
+    if frame is not None and frame.key is not None:
+        nbytes += (frame.key.element_size() + 1) * n
+    return nbytes
+
+
+def check_window_kernels(torch, batch) -> dict:
+    """K10 at Query L's shape, the panel's 1,008,303 rows concatenated:
+    window_bounds on the sorted key matrix of (chrom, pos) (the kernels
+    line) and of (chrom, qual DESC); window_frame in every mode, each
+    against its twin bit for bit: L's four calls (lag of pos, the RANGE
+    count, the ROWS max, rank under qual DESC), the rest of the rank family
+    on the qual sort, lead with a default, sum and avg over L's ROWS frame,
+    the value picks over it, and min over the RANGE frame (the sparse-table
+    path). No single PyTorch call computes either function."""
+    from exon_tpu_torch.kernels import window_bounds as kb
+    from exon_tpu_torch.kernels import window_frame as kf
+    from exon_tpu_torch.plan import window_exec as W
+    from exon_tpu_torch.plan.expressions import ColumnRef, WindowCall
+
+    n, c = batch.length, ColumnRef
+    sorts, res = {}, {}
+    for label, order in (("chrom, pos", (c("pos"), True)),
+                         ("chrom, qual DESC", (c("qual"), False))):
+        call = WindowCall("rank", None, [c("chrom")], [order])
+        perm, keys, n_part = W.sort_rows(call, batch)
+        r = _case(torch, f"window_bounds L ({label})",
+                  lambda: kb.window_bounds(keys, n_part),
+                  lambda: kb.window_bounds_plain(keys, n_part),
+                  8 * keys.numel() + 16 * n,
+                  f"{n} rows, {keys.shape[0]} key rows")
+        res.setdefault("window_bounds", r)
+        sorts[label] = (perm, kb.window_bounds(keys, n_part))
+    pos, qual = batch.column("pos"), batch.column("qual")
+    perm, bounds = sorts["chrom, pos"]
+    range35 = W._frame(WindowCall("count", None, [c("chrom")],
+                                  [(c("pos"), True)],
+                                  frame=("range", -35, 35)), batch, perm)
+    rows5 = kf.Frame(kf.ROWS, -5, 5)
+    q = (qual.values, qual.validity)
+    p = (pos.values, pos.validity)
+    qrank = sorts["chrom, qual DESC"]
+    cases = [  # label, fn, sort, values, frame, offset, default
+        ("count RANGE 35 (L's cluster_n)", "count", sorts["chrom, pos"],
+         (None, None), range35, 1, None),
+        ("lag(pos) (L's gap)", "lag", sorts["chrom, pos"], p, None, 1, None),
+        ("max(qual) ROWS 5 (L's local_max_qual)", "max",
+         sorts["chrom, pos"], q, rows5, 1, None),
+        ("rank, qual DESC (L's qual_rank)", "rank", qrank, (None, None),
+         None, 1, None),
+        ("lead(pos, 2, -1)", "lead", sorts["chrom, pos"], p, None, 2, -1),
+        ("sum(qual) ROWS 5", "sum", sorts["chrom, pos"], q, rows5, 1, None),
+        ("avg(qual) ROWS 5", "avg", sorts["chrom, pos"], q, rows5, 1, None),
+        ("min(qual) RANGE 35 (sparse table)", "min", sorts["chrom, pos"], q,
+         range35, 1, None),
+        ("first_value(qual) ROWS 5", "first_value", sorts["chrom, pos"], q,
+         rows5, 1, None),
+        ("last_value(qual) ROWS 5", "last_value", sorts["chrom, pos"], q,
+         rows5, 1, None),
+        ("nth_value(qual, 3) ROWS 5", "nth_value", sorts["chrom, pos"], q,
+         rows5, 3, None),
+    ] + [(f"{fn}, qual DESC", fn, qrank, (None, None), None,
+          4 if fn == "ntile" else 1, None)
+         for fn in ("row_number", "dense_rank", "percent_rank", "cume_dist",
+                    "ntile")]
+    for label, fn, (perm, bounds), (vals, ok), fr, off, d in cases:
+        loop = fn in ("min", "max") and fr is rows5
+        r = _case(torch, f"window_frame L {label}",
+                  lambda: kf.window_frame(fn, bounds, perm, vals, ok, fr,
+                                          off, d),
+                  lambda: kf.window_frame_plain(fn, bounds, perm, vals, ok,
+                                                fr, off, d),
+                  _frame_bytes(fn, n, vals, fr, loop), f"{n} rows, {label}")
+        res.setdefault("window_frame", r)
+    return res
+
+
 def phase_kernels(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import make_bam, template_names
@@ -1295,6 +1464,10 @@ def phase_kernels(torch) -> dict:
     results["span_concat"] = check_sql_kernels(
         torch, _first_batch(lambda s: s.read_fasta(fa_path)),
         _first_batch(lambda s: s.read_fastq(fq_path).select("sequence")))
+    from benchlib.vcf_fixture import make_vcf
+
+    results.update(check_window_kernels(
+        torch, _panel_batch(make_vcf(VCF_RECORDS, VCF_SEED))))
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = _bound(r)
         lib = "" if r["library_ms"] is None else \
@@ -1875,17 +2048,17 @@ def _chunk_records(vcf: str, regions: list) -> int:
     return n
 
 
-def _check_i(host, calls: dict, regions: list, label: str) -> None:
-    """Query I against numpy over the fixture's arrays: per (chrom, ref) in
-    first-seen order, the count exact, the mean of the float32 qual at
-    relative 1e-5, the sample stddev and the population variance at
-    relative 1e-9 against a two-pass float64 computation; NULL stddev for
-    a group of one row."""
-    from benchlib.gff_fixture import SEQNAMES
-
+def _qual30_rows(calls: dict, regions: list) -> np.ndarray:
+    """The fixture's rows in the regions with qual >= 30, in file order."""
     keep = _in_regions(calls, regions) & calls["qual_valid"] & \
         (calls["qual"] >= np.float32(30))
-    rows = np.flatnonzero(keep)
+    return np.flatnonzero(keep)
+
+
+def _chrom_ref_groups(calls: dict, rows: np.ndarray) -> tuple:
+    """The (chrom, REF) groups of ``rows``: each group's first row (an
+    index into ``rows``), the groups in first-seen order, and each row's
+    group in that order."""
     ro = calls["ref_offsets"]
     lens = ro[rows + 1] - ro[rows]
     # each REF (1-12 of ACGT) packed 2 bits a base beside its length and
@@ -1904,7 +2077,19 @@ def _check_i(host, calls: dict, regions: list, label: str) -> None:
     order = np.argsort(first)           # groups in first-seen order
     rank = np.empty_like(order)
     rank[order] = np.arange(len(order))
-    g = rank[inv]
+    return first, order, rank[inv]
+
+
+def _check_i(host, calls: dict, regions: list, label: str) -> None:
+    """Query I against numpy over the fixture's arrays: per (chrom, ref) in
+    first-seen order, the count exact, the mean of the float32 qual at
+    relative 1e-5, the sample stddev and the population variance at
+    relative 1e-9 against a two-pass float64 computation; NULL stddev for
+    a group of one row."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    rows = _qual30_rows(calls, regions)
+    first, order, g = _chrom_ref_groups(calls, rows)
     x = calls["qual"][rows].astype(np.float64)
     n = np.bincount(g)
     mean = np.bincount(g, x) / n
@@ -1917,6 +2102,7 @@ def _check_i(host, calls: dict, regions: list, label: str) -> None:
     got_refs = [bytes(ref.values[ref.offsets[i]:ref.offsets[i + 1]])
                 for i in range(host.length)]
     fr = rows[first[order]]
+    ro = calls["ref_offsets"]
     want_refs = [bytes(calls["ref_values"][ro[r]:ro[r + 1]]) for r in fr]
     if names != want_names or got_refs != want_refs:
         fail(f"query {label}: group keys or their first-seen order differ")
@@ -1940,6 +2126,102 @@ def _check_i(host, calls: dict, regions: list, label: str) -> None:
           f"{len(rows)} rows with qual >= 30 match numpy (counts exact, "
           f"var/stddev within {VAR_RTOL}, mean within {AVG_RTOL}; "
           f"{int((~multi).sum())} one-row groups with NULL stddev)")
+
+
+def _check_l(host, calls: dict) -> None:
+    """Query L against numpy over the fixture's panel rows (file order,
+    which is (contig, pos) order): gap by np.diff within each contig, the
+    RANGE count by np.searchsorted, the ROWS max as a sliding max that
+    skips NULL quals, the rank as the min-method rank of -qual with NULLs
+    first; all exact."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    rows = np.flatnonzero(_in_regions(calls, _panel_regions()))
+    if host.length != len(rows):
+        fail(f"query L: {host.length} rows, expected {len(rows)}")
+    chrom, pos = calls["chrom"][rows], calls["pos"][rows].astype(np.int64)
+    q, qv = calls["qual"][rows], calls["qual_valid"][rows]
+    col = host.column("chrom")
+    codes = np.asarray([SEQNAMES.index(v) for v in col.vocab])[col.codes]
+    if not (np.array_equal(codes, chrom)
+            and np.array_equal(host.column("pos").values, pos)
+            and np.array_equal(host.column("qual").validity, qv)):
+        fail("query L: chrom, pos or qual's NULLs differ from the fixture")
+    new = np.r_[True, chrom[1:] != chrom[:-1]]
+    gap = host.column("gap")
+    if not (np.array_equal(gap.validity, ~new) and np.array_equal(
+            gap.values[~new], np.diff(pos)[~new[1:]])):
+        fail("query L: gap differs from np.diff within each contig")
+    want_n = np.zeros(len(rows), np.int64)
+    want_max = np.zeros(len(rows), np.float32)
+    want_ok = np.zeros(len(rows), bool)
+    want_rank = np.zeros(len(rows), np.int64)
+    for c in np.unique(chrom):
+        at = np.flatnonzero(chrom == c)
+        p = pos[at]
+        want_n[at] = np.searchsorted(p, p + 35, "right") - \
+            np.searchsorted(p, p - 35, "left")
+        x = np.pad(np.where(qv[at], q[at], -np.inf), 5,
+                   constant_values=-np.inf)
+        win = np.lib.stride_tricks.sliding_window_view(x, 11).max(axis=1)
+        want_max[at], want_ok[at] = np.where(win > -np.inf, win, 0), \
+            win > -np.inf
+        nulls = int((~qv[at]).sum())
+        neg = np.sort(-q[at][qv[at]])
+        want_rank[at] = np.where(qv[at], nulls + 1 + np.searchsorted(
+            neg, -q[at], "left"), 1)
+    mx = host.column("local_max_qual")
+    checks = (
+        ("cluster_n", np.array_equal(host.column("cluster_n").values,
+                                     want_n)),
+        ("local_max_qual", np.array_equal(mx.validity, want_ok)
+         and np.array_equal(mx.values[want_ok], want_max[want_ok])),
+        ("qual_rank", np.array_equal(host.column("qual_rank").values,
+                                     want_rank)))
+    for name, ok in checks:
+        if not ok:
+            fail(f"query L: {name} differs from numpy")
+    print(f"query L: {host.length} rows over {len(np.unique(chrom))} contigs "
+          f"match numpy exactly (gap, RANGE 35 counts up to "
+          f"{int(want_n.max())}, ROWS 5 max with {int((~want_ok).sum())} "
+          f"NULL windows, qual ranks with {int((~qv).sum())} NULL quals "
+          "first)")
+
+
+def _check_m(host, calls: dict) -> None:
+    """Query M against numpy: the (chrom, REF) counts of the panel's rows
+    with qual >= 30 in first-seen order, then each contig's subtotal (REF
+    NULL), then the total (both NULL); exact."""
+    from benchlib.gff_fixture import SEQNAMES
+
+    rows = _qual30_rows(calls, _panel_regions())
+    first, order, g = _chrom_ref_groups(calls, rows)
+    n_groups = len(order)
+    chroms = calls["chrom"][rows]
+    _u, cfirst = np.unique(chroms, return_index=True)
+    contigs = chroms[np.sort(cfirst)]   # first-seen order
+    if host.length != n_groups + len(contigs) + 1:
+        fail(f"query M: {host.length} rows, expected {n_groups} + "
+             f"{len(contigs)} + 1")
+    from exon_tpu_torch.batch import host_pylists
+
+    names, refs, cnt = host_pylists(host)
+    cnt = np.asarray(cnt)
+    fr = rows[first[order]]
+    ro = calls["ref_offsets"]
+    want_refs = [bytes(calls["ref_values"][ro[r]:ro[r + 1]]).decode()
+                 for r in fr] + [None] * (len(contigs) + 1)
+    want = ([SEQNAMES[c] for c in calls["chrom"][fr]]
+            + [SEQNAMES[c] for c in contigs] + [None])
+    if names != want or refs != want_refs:
+        fail("query M: the ROLLUP's keys or their order differ")
+    sub = [int((chroms == c).sum()) for c in contigs]
+    if not (np.array_equal(cnt[:n_groups], np.bincount(g))
+            and cnt[n_groups:-1].tolist() == sub and cnt[-1] == len(rows)):
+        fail("query M: counts differ from numpy")
+    print(f"query M: {n_groups} (chrom, ref) rows, {len(contigs)} contig "
+          f"subtotals and the total ({len(rows)} calls with qual >= 30) "
+          "match numpy exactly")
 
 
 @contextlib.contextmanager
@@ -2118,6 +2400,11 @@ def phase_main_path(torch) -> dict:
                   FASTA_RECORDS),
         "K": (lambda: session.sql(SQL_K.format(fq=fq)).collect_host(),
               FASTQ_READS),
+        # L and M read I_panel's scan (M three times, once a branch)
+        "L": (lambda: session.sql(SQL_L.format(vcf=vcf, panel=panel))
+              .collect_host(), None),
+        "M": (lambda: session.sql(SQL_M.format(vcf=vcf, panel=panel))
+              .collect_host(), None),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -2169,6 +2456,8 @@ def phase_main_path(torch) -> dict:
     _check_j(results["J"], flat, offs)
     _check_j_agg(results["J_agg"], offs)
     _check_k(results["K"], fq_reads, first_adapter)
+    _check_l(results["L"], calls)
+    _check_m(results["M"], calls)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -2191,13 +2480,17 @@ def phase_main_path(torch) -> dict:
     # the rows they yield and the records the chunks held before the exact
     # row filter
     inflated = {}
-    for q, sql, regions in (("I", sql_i, [_region(VCF_REGION)]),
-                            ("I_panel", sql_panel, _panel_regions())):
+    for q, sql, regions, scans in (
+            ("I", sql_i, [_region(VCF_REGION)], 1),
+            ("I_panel", sql_panel, _panel_regions(), 1),
+            ("L", SQL_L.format(vcf=vcf, panel=panel), _panel_regions(), 1),
+            ("M", SQL_M.format(vcf=vcf, panel=panel), _panel_regions(), 3)):
         host_scan[q], stats[q][1] = _scan_pass(session.sql(sql), torch)
-        if stats[q][1] != _region_rows(calls, regions):
-            fail(f"query {q}: the scan yielded {stats[q][1]} rows, the "
-                 f"fixture has {_region_rows(calls, regions)} in its regions")
-        inflated[q] = _chunk_records(vcf, regions)
+        want = scans * _region_rows(calls, regions)
+        if stats[q][1] != want:
+            fail(f"query {q}: its scans yielded {stats[q][1]} rows, the "
+                 f"fixture has {want} in its regions")
+        inflated[q] = scans * _chunk_records(vcf, regions)
     for q, base in (("count", "A"), ("E_count", "E"), ("C_top", "C")):
         host_scan[q] = host_scan[base]
         if base in device_scan:
@@ -2214,8 +2507,8 @@ def phase_main_path(torch) -> dict:
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{seek}{share}")
     print("main path: queries A, count, B, C, C_top, D, E, E_count, "
-          "SQL_count, SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg and K "
-          "match the generators' arrays")
+          "SQL_count, SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, "
+          "L and M match the generators' arrays")
     _sql_vs_dataframe(session, T, fa, vcf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
@@ -2352,9 +2645,15 @@ def phase_breakdown(torch) -> None:
                "D": lambda: _query_d(T, session, bam)}
     for label, query in queries.items():
         _join_and_sort_ms(query(), torch, label)
-    # C's profiled run (~50 s) is cut for the smoke's time: the card was
-    # under 0.5 % busy in it (PERF.md section 5)
-    _device_profile(lambda: queries["D"]().collect_host(), torch, "D")
+    # C's and D's profiled runs (~50 s and ~30 s) are cut for the smoke's
+    # time: the card was under 0.5 % busy in them (PERF.md section 5). The
+    # profiler's first use sets up its tracing (~10 s), which would land in
+    # the first query profiled: a trivial profiled op takes it
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
     # the device-decoded queries: how much of their wall is on the card
     fa = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
     fq = make_fastq(FASTQ_READS, FASTQ_SEED)
@@ -2375,6 +2674,9 @@ def phase_breakdown(torch) -> None:
                        ("J_agg", SQL_J_AGG.format(fa=fa)),
                        ("K", SQL_K.format(fq=fq))):
         _device_profile(lambda: session.sql(sql).collect_host(), torch, label)
+    # the windows: how much of L's wall is on the card
+    sql = SQL_L.format(vcf=vcf, panel=_panel_file(vcf))
+    _device_profile(lambda: session.sql(sql).collect_host(), torch, "L")
 
 
 def main() -> int:

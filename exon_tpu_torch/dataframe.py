@@ -72,6 +72,10 @@ class DataFrame:
         return DataFrame(self._session,
                          L.Join(self._plan, right._plan, pairs, how))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL, by position (exon_tpu/dataframe.py:78)."""
+        return DataFrame(self._session, L.Union([self._plan, other._plan]))
+
     # -- sinks --------------------------------------------------------------
 
     def count(self) -> int:

@@ -14,7 +14,7 @@ from . import (compact_mask, count_bytes, expand_segments, format_int,
                gather_spans, gather_var, hash_aggregate, like_match,
                line_index, map_bytes, parse_number, polya_tail, row_hash,
                sort_keys, span_concat, string_cmp, string_eq, sw_score,
-               text_records)
+               text_records, window_bounds, window_frame)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -36,6 +36,8 @@ KERNEL_MODULES = {
     "map_bytes": map_bytes,
     "polya_tail": polya_tail,
     "span_concat": span_concat,
+    "window_bounds": window_bounds,
+    "window_frame": window_frame,
 }
 
 

@@ -64,6 +64,8 @@ SIGNATURES = {
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
     "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
     "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
+    "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _P],
+    "exon_window_frame": [_P, _P],
 }
 
 _lib = None

@@ -18,8 +18,9 @@ the string_eq kernel (``_string_col_eq`` :763), CAST of strings to numbers
 the parse_number kernel and CAST of integers to strings the format_int
 kernel. An ordered compare of two string columns raises PlanError, as in
 the JAX package (:676-679). Expressions the port does not carry (map/struct
-access, windows and the list-column UDFs) raise NotImplementedError naming
-their ROADMAP item; a name neither package knows raises PlanError.
+access and the list-column UDFs) raise NotImplementedError naming their
+ROADMAP item; a name neither package knows raises PlanError, and so does a
+window call met outside a Window node (WindowExec computes them).
 
 Two JAX faults are not copied (ROADMAP Queue 3): a NULL row never passes a
 string compare (F8: the JAX var compares treat it as '', and its ``!=`` of
@@ -332,8 +333,8 @@ class Case(Expr):
 @dataclasses.dataclass(repr=True, eq=False)
 class WindowCall(Expr):
     """fn(...) OVER (PARTITION BY … [ORDER BY …])
-    (exon_tpu/plan/expressions.py:313); planned into a Window node, which
-    the port does not lower yet (ROADMAP Queue 1, item 7)."""
+    (exon_tpu/plan/expressions.py:313); planned into a Window node and
+    computed by WindowExec, never evaluated directly."""
 
     fn: str
     child: Optional[Expr]
@@ -341,7 +342,9 @@ class WindowCall(Expr):
     order_by: list  # [(expr, asc)]
     offset: int = 1      # lag/lead offset; ntile bucket count
     default: object = None
-    # None = the default frame, or ("rows", lo, hi) relative to the row
+    # None = the default frame (RANGE UNBOUNDED PRECEDING .. CURRENT ROW,
+    # peers share), or ("rows" | "range", lo, hi): row or value offsets
+    # relative to the current row (None = unbounded, negative = preceding)
     frame: object = None
 
     def children(self):
@@ -485,8 +488,9 @@ def eval_expr(expr: Expr, batch: Batch):
             "struct, map and list access is not ported yet (ROADMAP Queue 1, "
             "items 2-3: list and map columns)")
     if isinstance(expr, WindowCall):
-        raise NotImplementedError(
-            "window functions are not ported yet (ROADMAP Queue 1, item 7)")
+        raise PlanError(
+            f"window function {expr.fn} outside a Window node: the planner "
+            "moves window calls into a WindowExec")
     raise PlanError(f"cannot evaluate {expr!r}")
 
 

@@ -104,9 +104,11 @@ class JoinExec(PhysicalPlan):
 
     def batches(self) -> Iterator[Batch]:
         if self.how not in ("inner", "left"):
+            # the JAX JoinExec gives an inner join for any other ``how``
+            # (ROADMAP Queue 3, F21); SQL RIGHT and FULL JOIN plan through
+            # LEFT joins and a union
             raise NotImplementedError(
-                f"{self.how} joins are not ported yet (ROADMAP Queue 1, "
-                "join)")
+                f"DataFrame.join takes inner or left, not {self.how!r}")
         rschema = self.right.schema()
         parts = [b for b in self.right.batches() if b.length]
         vocab_of: dict = {}

@@ -1,10 +1,10 @@
 """Logical plan nodes: Scan / Filter / Project / Aggregate / Sort / Limit /
-Join / Values, and the nodes the SQL frontend builds that the port does
-not lower yet: Window, Union, Repeat, CopyTo and Explain.
+Join / Window / Union / Repeat / Values, and the nodes the SQL frontend
+builds that the port does not lower yet: CopyTo and Explain.
 
 Counterpart of exon_tpu/plan/logical.py:18-245. ``create_physical_plan``
-raises NotImplementedError for Window, Union and Repeat (ROADMAP Queue 1,
-item 7), CopyTo (item 10) and Explain (item 11).
+raises NotImplementedError for CopyTo (ROADMAP Queue 1, item 10) and
+Explain (item 11).
 """
 
 from __future__ import annotations
@@ -162,8 +162,13 @@ class Window(LogicalPlan):
         return [self.input]
 
     def schema(self) -> Schema:
-        raise NotImplementedError(
-            "window functions are not ported yet (ROADMAP Queue 1, item 7)")
+        from .planner import infer_window_field
+
+        in_schema = self.input.schema()
+        fields = list(in_schema.all_fields)
+        for call, name in zip(self.calls, self.names):
+            fields.append(infer_window_field(call, name, in_schema))
+        return Schema(tuple(fields))
 
 
 @dataclasses.dataclass
@@ -174,7 +179,21 @@ class Union(LogicalPlan):
         return list(self.inputs)
 
     def schema(self) -> Schema:
-        return self.inputs[0].schema()
+        return union_schema([p.schema() for p in self.inputs])
+
+
+def union_schema(schemas: list) -> Schema:
+    """A union's schema: the first input's, except that a string column
+    which is a dictionary in one input and var-width in another is utf8
+    (UnionExec decodes the dictionaries there)."""
+    fields = list(schemas[0].all_fields)
+    for i, f in enumerate(fields):
+        kinds = {s.all_fields[i].dtype.kind for s in schemas}
+        if dt.TypeKind.DICTIONARY in kinds and len(kinds) > 1 and \
+                kinds <= {dt.TypeKind.DICTIONARY, dt.TypeKind.UTF8,
+                          dt.TypeKind.LARGE_UTF8}:
+            fields[i] = Field(f.name, dt.utf8, f.nullable)
+    return Schema(tuple(fields))
 
 
 @dataclasses.dataclass

@@ -44,6 +44,7 @@ from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
                      take_host, utf8_column)
 from ..errors import ExecutionError
 from ..kernels import hash_aggregate as hk
+from ..kernels.expand_segments import expand_segments
 from ..kernels.row_hash import row_hash
 from ..kernels.sort_keys import FixedKey, VarKey, sort_keys
 from ..kernels.string_eq import string_eq
@@ -51,7 +52,7 @@ from ..ops import aggregate as agg_ops
 from ..ops import layout as layout_ops
 from .expressions import (AggregateCall, Expr, NullsOrder, _as_values,
                           _full, _validity_of, as_bool_mask, eval_expr)
-from .logical import VAR_FNS
+from .logical import VAR_FNS, union_schema
 
 
 class PhysicalPlan:
@@ -864,33 +865,9 @@ class SortExec(PhysicalPlan):
         yield merged.to_device(device)
 
     def _key_specs(self, batch: Batch) -> list:
-        """The sort_keys specs of one run; var-width keys (dictionaries
-        decoded to bytes, so keys compare across runs) get enough 8-byte
-        chunks for their longest row, widened to earlier runs' widths."""
-        specs, var_lens = [], []
-        for e, asc in self.keys:
-            nulls_first = None
-            if isinstance(e, NullsOrder):
-                nulls_first, e = e.first, e.child
-            v = eval_expr(e, batch)
-            if isinstance(v, DictColumn):
-                v = layout_ops.dict_to_var(v)
-            if isinstance(v, VarColumn):
-                specs.append(VarKey(v.offsets, v.values, v.validity, 0, asc,
-                                    nulls_first))
-                var_lens.append((v.offsets[1:] - v.offsets[:-1]).max())
-            elif isinstance(v, FixedColumn):
-                specs.append(FixedKey(v.values, v.validity, asc, nulls_first))
-            else:
-                col = _to_column(v, batch)
-                specs.append(FixedKey(col.values, col.validity, asc,
-                                      nulls_first))
-        maxlens = iter(torch.stack(var_lens).tolist() if var_lens else [])
-        prev = self._chunks_seen
-        for j, s in enumerate(specs):
-            if isinstance(s, VarKey):
-                s.nchunks = max(1, (next(maxlens) + 7) // 8,
-                                prev[j] if prev else 0)
+        """The sort_keys specs of one run, var-width keys widened to
+        earlier runs' chunk counts so that runs merge."""
+        specs = sort_key_specs(self.keys, batch, self._chunks_seen)
         self._chunks_seen = [s.nchunks if isinstance(s, VarKey) else 0
                              for s in specs]
         return specs
@@ -908,6 +885,39 @@ class SortExec(PhysicalPlan):
             perm = perm[: self.fetch]
         out = layout_ops.take_batch(combined, perm.to(torch.int32))
         return out, mat[1:, perm], list(self._chunks_seen)
+
+
+def sort_key_specs(keys: list, batch: Batch,
+                   widths: Optional[list] = None) -> list:
+    """The sort_keys specs of ``keys`` [(Expr, ascending)] over one batch:
+    var-width keys (dictionaries decoded to bytes, so keys compare across
+    batches and vocabularies) get enough 8-byte chunks for their longest
+    row, widened to ``widths`` (earlier runs' chunk counts) where given.
+    Shared by SortExec and WindowExec."""
+    specs, var_lens = [], []
+    for e, asc in keys:
+        nulls_first = None
+        if isinstance(e, NullsOrder):
+            nulls_first, e = e.first, e.child
+        v = eval_expr(e, batch)
+        if isinstance(v, DictColumn):
+            v = layout_ops.dict_to_var(v)
+        if isinstance(v, VarColumn):
+            specs.append(VarKey(v.offsets, v.values, v.validity, 0, asc,
+                                nulls_first))
+            var_lens.append((v.offsets[1:] - v.offsets[:-1]).max())
+        elif isinstance(v, FixedColumn):
+            specs.append(FixedKey(v.values, v.validity, asc, nulls_first))
+        else:
+            col = _to_column(v, batch)
+            specs.append(FixedKey(col.values, col.validity, asc,
+                                  nulls_first))
+    maxlens = iter(torch.stack(var_lens).tolist() if var_lens else [])
+    for j, s in enumerate(specs):
+        if isinstance(s, VarKey):
+            s.nchunks = max(1, (next(maxlens) + 7) // 8,
+                            widths[j] if widths else 0)
+    return specs
 
 
 def _key_bytes(key_cols: np.ndarray) -> np.ndarray:
@@ -1006,6 +1016,71 @@ class LimitExec(PhysicalPlan):
                 fetch -= take
                 if fetch <= 0:
                     return
+
+
+@dataclasses.dataclass
+class UnionExec(PhysicalPlan):
+    """UNION ALL of the inputs' batch streams, in order
+    (exon_tpu/plan/physical.py:1551-1566). Union is positional: each
+    child's batches are rebound to the first input's field names. Where the
+    inputs disagree on a string column's encoding (a dictionary in one, a
+    var-width column in another), the dictionaries there are decoded to
+    bytes (``dict_to_var``), so every batch carries one column type."""
+
+    inputs: list
+
+    def children(self):
+        return list(self.inputs)
+
+    def schema(self) -> Schema:
+        return union_schema([p.schema() for p in self.inputs])
+
+    def batches(self) -> Iterator[Batch]:
+        schema = self.schema()
+        decode = [f.dtype.kind != dt.TypeKind.DICTIONARY
+                  for f in schema.all_fields]
+        for p in self.inputs:
+            for b in p.batches():
+                cols = [layout_ops.dict_to_var(c)
+                        if flat and isinstance(c, DictColumn) else c
+                        for c, flat in zip(b.columns, decode)]
+                yield Batch(schema, cols, b.length, b.device)
+
+
+@dataclasses.dataclass
+class RepeatExec(PhysicalPlan):
+    """Each input row ``count_expr`` times; a NULL or negative count gives
+    none (exon_tpu/plan/physical.py:971-1004, the multiset expansion of
+    INTERSECT ALL and EXCEPT ALL). The JAX version takes the rows on the
+    host through Arrow; here they go out on the device: expand_segments
+    (K1c) writes each row's index as many times as its count, after one
+    host read of the total, and ``take_batch`` gathers them (gather_var for
+    var-width columns)."""
+
+    count_expr: Expr
+    input: PhysicalPlan
+
+    def children(self):
+        return [self.input]
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def batches(self) -> Iterator[Batch]:
+        for b in self.input.batches():
+            if b.length == 0:
+                continue
+            v = eval_expr(self.count_expr, b)
+            cnt = _to_column(v, b).values.to(torch.int64)
+            cnt = torch.where(_validity_of(v, b), cnt, 0).clamp(min=0)
+            total = int(cnt.sum())
+            if total == 0:
+                continue
+            starts = torch.cumsum(cnt, 0) - cnt
+            rows, _ = expand_segments(
+                torch.zeros_like(cnt, dtype=torch.int32),
+                cnt.to(torch.int32), starts, total, 1)
+            yield layout_ops.take_batch(b, rows)
 
 
 @dataclasses.dataclass

@@ -9,12 +9,15 @@ non-literal arguments; the aggregates' types follow logical.py:86-100),
 qualifiers (:231), filter pushdown into the scan (:385; providers answer
 exact/inexact/none), projection pushdown into the scan (:411) and
 identity-projection elision (:175), and ``create_physical_plan`` (:551-668)
-for Scan / Filter / Project / Aggregate / Sort / Limit / Join / Values,
-with the same fusion of a Filter directly under an Aggregate into the
-aggregate's ``pre_filter`` and of a Limit over a Sort into a TopK sort.
-Projection pushdown runs through Sort and Join (:460-501). Window, Union,
-Repeat, CopyTo and Explain raise NotImplementedError naming their ROADMAP
-item; the distributed branches are not ported (ROADMAP Queue 2, K13).
+for Scan / Filter / Project / Aggregate / Sort / Limit / Join / Window /
+Union / Repeat / Values, with the same fusion of a Filter directly under an
+Aggregate into the aggregate's ``pre_filter`` and of a Limit over a Sort
+into a TopK sort. Window calls are typed by ``infer_window_field`` (:147).
+Projection pushdown runs through Sort, Window and Join (:460-501), and
+drops a Project's unread columns and narrows a Union's inputs, which the
+JAX planner does not. CopyTo and Explain raise NotImplementedError naming
+their ROADMAP item; the distributed branches are not ported (ROADMAP
+Queue 2, K13).
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from . import logical as L
 from . import physical as P
 from .expressions import (AggregateCall, Alias, BinaryOp, Case, Cast,
                           ColumnRef, Expr, FieldAccess, FunctionCall, InList,
-                          IsNull, Like, Literal, Not, conjoin, expr_columns,
-                          get_function, split_conjunction)
+                          IsNull, Like, Literal, Not, WindowCall, conjoin,
+                          expr_columns, get_function, split_conjunction)
 
 _NUMERIC_ORDER = ["int8", "int16", "int32", "int64", "float32", "float64"]
 
@@ -92,8 +95,22 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
             dtype = dtype([infer_expr_field(a, schema) for a in expr.args
                            if not isinstance(a, Literal)])
         return Field(expr.display_name(), dtype, True)
+    if isinstance(expr, WindowCall):
+        return infer_window_field(expr, expr.display_name(), schema)
     raise NotImplementedError(
         f"cannot type {expr!r}: not ported yet (ROADMAP Queue 1)")
+
+
+def infer_window_field(call: WindowCall, name: str, schema: Schema) -> Field:
+    """A window call's result type (exon_tpu/plan/planner.py:150-158)."""
+    if call.fn in ("row_number", "rank", "dense_rank", "count", "ntile"):
+        return Field(name, dt.int64, False)
+    if call.fn in ("percent_rank", "cume_dist"):
+        return Field(name, dt.float64, False)
+    if call.fn == "avg":
+        return Field(name, dt.float64, True)
+    inner = infer_expr_field(call.child, schema)
+    return Field(name, inner.dtype, True)
 
 
 def _case_field(expr: Case, schema: Schema) -> Field:
@@ -220,10 +237,16 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
             need = None if needed is None else needed | expr_columns(p.predicate)
             return L.Filter(p.predicate, required(p.input, need))
         if isinstance(p, L.Project):
+            exprs = p.exprs
+            if needed is not None:
+                # a column nothing above reads is not computed
+                names = p.schema().names
+                exprs = [e for e, n in zip(exprs, names)
+                         if n in needed] or exprs[:1]
             need = set()
-            for e in p.exprs:
+            for e in exprs:
                 need |= expr_columns(e)
-            return L.Project(p.exprs, required(p.input, need))
+            return L.Project(exprs, required(p.input, need))
         if isinstance(p, L.Aggregate):
             need = set()
             for e in list(p.group_exprs) + list(p.agg_exprs):
@@ -249,9 +272,19 @@ def _push_projection(plan: L.LogicalPlan) -> L.LogicalPlan:
                 for e, _asc in p.keys:
                     need |= expr_columns(e)
             return L.Sort(p.keys, required(p.input, need), p.fetch)
+        if isinstance(p, L.Window):
+            need = None
+            if needed is not None:
+                need = {n for n in needed if n not in p.names}
+                for call in p.calls:
+                    for e in call.children():
+                        need |= expr_columns(e)
+            return L.Window(p.calls, p.names, required(p.input, need))
         if isinstance(p, L.Join):
             return L.Join(*_join_needs(p, needed, required), p.on, p.how,
                           p.filter, p.right_names)
+        if isinstance(p, L.Union) and needed is not None:
+            return L.Union(_union_needs(p, needed, required))
         return _with_children(p, [required(c, None) for c in p.children()])
 
     return required(plan, None)
@@ -282,6 +315,21 @@ def _join_needs(p: L.Join, needed: Optional[set], required) -> tuple:
             if bare is not None and rschema.has_field(bare):
                 rneed.add(bare)
     return required(p.left, lneed), required(p.right, rneed)
+
+
+def _union_needs(p: L.Union, needed: set, required) -> list:
+    """A union's inputs narrowed to the positions above it needs (each
+    input projected to its columns there, so a branch never reads a column
+    nothing uses). The JAX planner reads every column of every branch;
+    the rows are the same."""
+    names = p.schema().names
+    keep = [i for i, n in enumerate(names) if n in needed] or [0]
+    kids = []
+    for c in p.inputs:
+        cols = [c.schema().names[i] for i in keep]
+        kids.append(L.Project([ColumnRef(n) for n in cols],
+                              required(c, set(cols))))
+    return kids
 
 
 def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
@@ -361,11 +409,17 @@ def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
                         plan.on, plan.how, plan.filter, plan.schema())
     if isinstance(plan, L.Values):
         return P.ValuesExec(plan.out_schema, plan.rows, device)
-    if isinstance(plan, (L.Window, L.Union, L.Repeat)):
-        raise NotImplementedError(
-            f"{type(plan).__name__} (windows, UNION / INTERSECT / EXCEPT, "
-            "FULL JOIN, GROUPING SETS) is not ported yet (ROADMAP Queue 1, "
-            "item 7: remaining operators)")
+    if isinstance(plan, L.Window):
+        from .window_exec import WindowExec
+
+        return WindowExec(plan.calls, plan.names, plan.schema(),
+                          create_physical_plan(plan.input, device), device)
+    if isinstance(plan, L.Union):
+        return P.UnionExec([create_physical_plan(c, device)
+                            for c in plan.inputs])
+    if isinstance(plan, L.Repeat):
+        return P.RepeatExec(plan.count_expr,
+                            create_physical_plan(plan.input, device))
     if isinstance(plan, L.CopyTo):
         raise NotImplementedError(
             "COPY is not ported yet (ROADMAP Queue 1, item 10: sinks)")

@@ -7,19 +7,19 @@ exon_context_ext.rs:216-258) resolve to format scans.
 
 Copied from exon_tpu/sql/frontend.py:1-1593 (pure Python, no JAX),
 restricted to what the port carries: SELECT (with WHERE, GROUP BY/HAVING,
-DISTINCT, inner/left/right JOIN, ORDER BY, LIMIT/OFFSET, subqueries, WITH),
-CREATE EXTERNAL TABLE, DESCRIBE, SHOW TABLES and DROP TABLE over the
-port's formats. Statements and table kinds the port does not carry raise
+GROUPING SETS/ROLLUP/CUBE, DISTINCT, DISTINCT ON, window functions,
+inner/left/right/full JOIN, UNION/INTERSECT/EXCEPT [ALL], ORDER BY,
+LIMIT/OFFSET, subqueries, WITH), CREATE EXTERNAL TABLE, DESCRIBE, SHOW
+TABLES and DROP TABLE over the port's formats. Statements and table kinds the port does not carry raise
 NotImplementedError naming their ROADMAP Queue 1 item: COPY (item 10),
 EXPLAIN (item 11), SET, CREATE TABLE [AS], INSERT
 and VALUES (item 14), PARQUET/Delta tables, partitioned tables and the
 indexed tables and ``*_indexed_scan`` region forms of formats other than
 VCF (item 2c). CREATE FUNCTION parses and raises PlanError, as in the JAX
-package. Plans that need a Union
-or a Window (set operations, FULL JOIN, GROUPING SETS, windows, DISTINCT
-ON) are built as in the JAX package and raise when lowered (item 7).
-Subquery results are read through ``collect_host``, so SQL needs no
-pyarrow.
+package. Set operations, FULL JOIN and GROUPING SETS plan through Union
+(and Repeat for INTERSECT ALL / EXCEPT ALL), windows and DISTINCT ON
+through Window, as in the JAX package. Subquery results are read through
+``collect_host``, so SQL needs no pyarrow.
 """
 
 from __future__ import annotations

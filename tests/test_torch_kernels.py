@@ -13,6 +13,8 @@ to exon_tpu/ops/sqlfuncs.py's _slice_var, _trim_counts, _concat_cols, _pad,
 fn_repeat, fn_initcap and fn_translate and to ops/strings.py's _find_from,
 exactly, on seeded strings."""
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -1086,3 +1088,264 @@ def test_literal_functions_over_a_table_run_on_the_card(card, tmp_path):
     rows = host_rows(got)
     assert rows[:3] == [["ABC"] * 1000, ["a-b"] * 1000, ["007"] * 1000]
     assert all(0.0 <= r < 1.0 for r in rows[3]) and len(set(rows[3])) > 900
+
+
+# ---------------------------------------------------------------------------
+# Windows (K10): window_bounds and window_frame
+# ---------------------------------------------------------------------------
+
+# (fn, frame, offset): every mode of window_frame, over frames that clip,
+# come out empty, are wider than LOOP_ROWS, unbounded, and RANGE frames on
+# an ASC and a DESC key with NULLs and ties
+WINDOW_CASES = (
+    [(fn, None, 1) for fn in ("row_number", "rank", "dense_rank",
+                              "percent_rank", "cume_dist")]
+    + [("ntile", None, 4), ("ntile", None, 1000)]
+    + [("lag", None, 1), ("lead", None, 3), ("lag", None, 2)]
+    + [(fn, fr, 2) for fn in ("first_value", "last_value", "nth_value")
+       for fr in (None, ("rows", -2, 1), ("rows", 3, 5), ("range", -10, 10),
+                  ("range", None, 0))]
+    + [(fn, fr, 1) for fn in ("count", "sum", "avg", "min", "max")
+       for fr in (None, ("rows", -5, 5), ("rows", -100, 0),
+                  ("rows", None, -1), ("rows", 2, 1), ("range", -5, 5),
+                  ("range", None, 0), ("range", 0, None))])
+
+
+def _window_batch(rng, n, device, order_nulls=True):
+    """A port batch of partition key p, order key o (ties; NULLs, payload
+    0), values vi (int64), vf (float32) and vd (float64), 10 % NULL; the
+    float values whole numbers, so float32 sums are exact in both
+    packages."""
+    from exon_tpu_torch.batch import Batch
+    from exon_tpu_torch.datatypes import Field, Schema
+    from exon_tpu_torch import datatypes as dt
+
+    o_ok = rng.random(n) >= (0.1 if order_nulls else 0.0)
+    cols = {
+        "p": (rng.integers(0, 6, n).astype(np.int64), np.ones(n, bool)),
+        "o": (np.where(o_ok, rng.integers(-40, 40, n), 0).astype(np.int64),
+              o_ok),
+        "vi": (rng.integers(-1000, 1000, n).astype(np.int64),
+               rng.random(n) >= 0.1),
+        "vf": (rng.integers(-500, 500, n).astype(np.float32),
+               rng.random(n) >= 0.1),
+        "vd": (rng.integers(-500, 500, n).astype(np.float64) / 4,
+               rng.random(n) >= 0.1),
+    }
+    types = {"p": dt.int64, "o": dt.int64, "vi": dt.int64, "vf": dt.float32,
+             "vd": dt.float64}
+    schema = Schema(tuple(Field(k, types[k], True) for k in cols))
+    from exon_tpu_torch.batch import FixedColumn
+    batch = Batch(schema, [FixedColumn(np.where(ok, v, 0).astype(v.dtype), ok)
+                           for v, ok in cols.values()], n)
+    return batch.to_device(device), cols
+
+
+def _port_call(fn, frame, offset, value, desc=False, default=None,
+               partition=True, order=True):
+    from exon_tpu_torch.plan.expressions import ColumnRef, WindowCall
+
+    child = None if fn in ("row_number", "rank", "dense_rank", "ntile",
+                           "percent_rank", "cume_dist") else ColumnRef(value)
+    return WindowCall(fn, child, [ColumnRef("p")] if partition else [],
+                      [(ColumnRef("o"), not desc)] if order else [], offset,
+                      default, frame)
+
+
+@pytest.mark.parametrize("n", [1, 7, 2048, 2049, 5000])
+def test_window_bounds_twin_matches_its_definition(n):
+    """Starts and ends of partitions and peer groups against a plain
+    Python walk over the sorted key matrix."""
+    from exon_tpu_torch.kernels import window_bounds as kwb
+
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, 4, (3, n)), axis=1)
+    keys[1:] = rng.integers(0, 3, (2, n))
+    got = [t.numpy() for t in kwb.window_bounds(torch.from_numpy(keys), 1)]
+    for i in range(n):
+        same_part = [j for j in range(n) if keys[0, j] == keys[0, i]]
+        lo, hi = same_part[0], same_part[-1]
+        pf = i
+        while pf > lo and (keys[:, pf - 1] == keys[:, i]).all():
+            pf -= 1
+        pl = i
+        while pl < hi and (keys[:, pl + 1] == keys[:, i]).all():
+            pl += 1
+        assert [g[i] for g in got] == [lo, hi, pf, pl], i
+
+
+@pytest.mark.parametrize("fn,frame,offset", WINDOW_CASES,
+                         ids=[f"{f}-{fr}-{o}" for f, fr, o in WINDOW_CASES])
+def test_window_twins_match_jax(jx, fn, frame, offset):
+    """window_bounds' and window_frame's twins (through the port's
+    _window_column) against exon_tpu/plan/window_exec.py's _window_column
+    on the same seeded columns, for int64, float32 and float64 values: the
+    values exactly where valid, the validity exactly. The keys are int64, so
+    neither F19 nor F20 arises."""
+    import jax.numpy as jnp
+    from exon_tpu.batch import Batch as JBatch, FixedColumn as JFixed
+    from exon_tpu.datatypes import Field as JField, Schema as JSchema
+    from exon_tpu import datatypes as jdt
+    from exon_tpu.plan import window_exec as JW
+    from exon_tpu.plan.expressions import ColumnRef as JRef
+    from exon_tpu.plan.expressions import WindowCall as JCall
+    from exon_tpu_torch.plan import window_exec as TW
+    from exon_tpu_torch.plan.planner import infer_window_field
+
+    rng = np.random.default_rng(zlib.crc32(f"{fn}{frame}{offset}".encode()))
+    n = 300
+    batch, cols = _window_batch(rng, n, "cpu")
+    jtypes = {"p": jdt.int64, "o": jdt.int64, "vi": jdt.int64,
+              "vf": jdt.float32, "vd": jdt.float64}
+    jbatch = JBatch(JSchema(tuple(JField(k, jtypes[k], True) for k in cols)),
+                    [JFixed(jnp.asarray(np.where(ok, v, 0).astype(v.dtype)),
+                            jnp.asarray(ok)) for v, ok in cols.values()],
+                    jnp.asarray(n, jnp.int32))
+    for value, desc in (("vi", False), ("vf", True), ("vd", False)):
+        call = _port_call(fn, frame, offset, value, desc)
+        jcall = JCall(fn, None if call.child is None else JRef(value),
+                      [JRef("p")], [(JRef("o"), not desc)], offset, None,
+                      frame)
+        want, want_ok = (np.asarray(a) for a in JW._window_column(jcall,
+                                                                 jbatch))
+        perm, bounds = TW._sorted_bounds(call, batch)
+        field = infer_window_field(call, "w", batch.schema)
+        got = TW._window_column(call, batch, perm, bounds, field)
+        assert np.array_equal(got.validity.numpy(), want_ok), value
+        ok = want_ok
+        assert np.array_equal(got.values.numpy()[ok],
+                              want[ok].astype(got.values.numpy().dtype)), \
+            value
+
+
+def test_window_shift_default_twin_matches_jax(jx):
+    """lag/lead with a default of the values' type, against
+    _window_shift through _window_column."""
+    import jax.numpy as jnp
+    from exon_tpu.batch import Batch as JBatch, FixedColumn as JFixed
+    from exon_tpu.datatypes import Field as JField, Schema as JSchema
+    from exon_tpu import datatypes as jdt
+    from exon_tpu.plan import window_exec as JW
+    from exon_tpu.plan.expressions import ColumnRef as JRef
+    from exon_tpu.plan.expressions import WindowCall as JCall
+    from exon_tpu_torch.plan import window_exec as TW
+    from exon_tpu_torch.plan.planner import infer_window_field
+
+    rng = np.random.default_rng(5)
+    batch, cols = _window_batch(rng, 200, "cpu")
+    jbatch = JBatch(JSchema(tuple(JField(k, jdt.float32 if k == "vf" else
+                                         jdt.float64 if k == "vd" else
+                                         jdt.int64, True) for k in cols)),
+                    [JFixed(jnp.asarray(v), jnp.asarray(ok))
+                     for v, ok in cols.values()], jnp.asarray(200, jnp.int32))
+    for fn, off, default, value in (("lag", 1, -7, "vi"),
+                                    ("lead", 2, 2.5, "vf"),
+                                    ("lag", 3, 0.125, "vd")):
+        call = _port_call(fn, None, off, value, default=default)
+        jcall = JCall(fn, JRef(value), [JRef("p")], [(JRef("o"), True)],
+                      off, default, None)
+        want, want_ok = (np.asarray(a) for a in JW._window_column(jcall,
+                                                                 jbatch))
+        perm, bounds = TW._sorted_bounds(call, batch)
+        got = TW._window_column(call, batch, perm, bounds,
+                                infer_window_field(call, "w", batch.schema))
+        assert np.array_equal(got.validity.numpy(), want_ok)
+        assert np.array_equal(got.values.numpy()[want_ok],
+                              want[want_ok].astype(got.values.numpy().dtype))
+
+
+def test_window_wrappers_check_their_inputs():
+    from exon_tpu_torch.kernels import window_bounds as kwb
+    from exon_tpu_torch.kernels import window_frame as kwf
+
+    with pytest.raises(TypeError):
+        kwb.window_bounds(torch.zeros((2, 3), dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        kwb.window_bounds(torch.zeros((2, 3), dtype=torch.int64), 3)
+    b = tuple(torch.zeros(3, dtype=torch.int32) for _ in range(4))
+    perm = torch.arange(3)
+    with pytest.raises(TypeError):
+        kwf.window_frame("sum", b, perm)  # needs values
+    with pytest.raises(TypeError):
+        kwf.window_frame("rank", b[:3] + (torch.zeros(3),), perm)
+    with pytest.raises(ValueError):
+        kwf.window_frame("median", b, perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2048, 2049, 300_001])
+def test_window_bounds_kernel_matches_twin(card, n):
+    from exon_tpu_torch.kernels import window_bounds as kwb
+
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, 40, (4, n)), axis=1)
+    keys[2:] = rng.integers(0, 3, (2, n))
+    keys = torch.from_numpy(keys).to(card)
+    for n_part in (0, 1, 2, 4):
+        got = kwb.window_bounds(keys, n_part)
+        want = kwb.window_bounds_plain(keys, n_part)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), n_part
+    empty = kwb.window_bounds(torch.zeros((0, n), dtype=torch.int64,
+                                          device=card), 0)
+    assert all(torch.equal(t, w) for t, w in zip(
+        empty, kwb.window_bounds_plain(keys[:0], 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,frame,offset", WINDOW_CASES,
+                         ids=[f"{f}-{fr}-{o}" for f, fr, o in WINDOW_CASES])
+def test_window_frame_kernel_matches_twin(card, fn, frame, offset):
+    """Every mode on the card against the twin on the card, bit for bit
+    (values and validity), over int64, float32 and float64 values and an
+    ASC and a DESC key."""
+    from exon_tpu_torch.kernels import window_frame as kwf
+    from exon_tpu_torch.plan import window_exec as TW
+
+    rng = np.random.default_rng(7)
+    batch, _cols = _window_batch(rng, 20_000, card)
+    for value, desc in (("vi", False), ("vf", True), ("vd", False)):
+        call = _port_call(fn, frame, offset, value, desc)
+        perm, bounds = TW._sorted_bounds(call, batch)
+        values = valid = fr = None
+        if call.child is not None:
+            values, valid = TW._values(call, batch)
+        if frame is not None:
+            fr = TW._frame(call, batch, perm)
+        got = kwf.window_frame(fn, bounds, perm, values, valid, fr, offset)
+        want = kwf.window_frame_plain(fn, bounds, perm, values, valid, fr,
+                                      offset)
+        assert torch.equal(got[1], want[1]), value
+        assert torch.equal(got[0].view(torch.int64),
+                           want[0].view(torch.int64)), value
+
+
+@pytest.mark.cuda
+def test_windows_and_set_operations_on_the_card_match_the_cpu(card,
+                                                              tmp_path):
+    """A small Query L, INTERSECT ALL, EXCEPT and ROLLUP through
+    ExonSession.sql on the card equal the CPU run."""
+    import exon_tpu_torch as T
+    from benchlib.gff_fixture import make_gff
+
+    gff = make_gff(5000, 3, path=str(tmp_path / "t.gff"))
+    queries = [
+        "SELECT seqname, start, start - lag(start) OVER (PARTITION BY "
+        "seqname ORDER BY start) AS gap, COUNT(*) OVER (PARTITION BY seqname "
+        "ORDER BY start RANGE BETWEEN 35000 PRECEDING AND 35000 FOLLOWING) "
+        "AS n, MAX(score) OVER (PARTITION BY seqname ORDER BY start ROWS "
+        "BETWEEN 5 PRECEDING AND 5 FOLLOWING) AS mx, rank() OVER (PARTITION "
+        "BY seqname ORDER BY score DESC) AS r FROM gff_scan('{g}')",
+        "SELECT seqname, type FROM gff_scan('{g}') WHERE start < 90000000 "
+        "INTERSECT ALL SELECT seqname, type FROM gff_scan('{g}') WHERE "
+        "start > 20000000",
+        "SELECT seqname, strand FROM gff_scan('{g}') EXCEPT SELECT seqname, "
+        "strand FROM gff_scan('{g}') WHERE start < 50000000",
+        "SELECT seqname, strand, COUNT(*) AS n FROM gff_scan('{g}') GROUP BY "
+        "ROLLUP(seqname, strand)",
+    ]
+    for sql in queries:
+        got = T.ExonSession(device="cuda").sql(sql.format(g=gff))
+        want = T.ExonSession(device="cpu").sql(sql.format(g=gff))
+        assert host_rows(got.collect_host()) == host_rows(
+            want.collect_host()), sql

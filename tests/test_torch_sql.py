@@ -9,8 +9,9 @@ values, types, nulls and row order. Tolerance: exact, except float64
 aggregates, relative 1e-12 (summation order). (c) The JAX faults the port
 does not copy (ROADMAP Queue 3, F8-F10), each with both answers. (d) Each
 statement the port does not carry raises NotImplementedError naming its
-ROADMAP item; the two that did until their item landed (CREATE FUNCTION
-and upper(), item 8) now give the JAX package's answer.
+ROADMAP item; those that did until their item landed (CREATE FUNCTION
+and upper(), item 8; UNION, a window, FULL JOIN and ROLLUP, item 7) now give
+the JAX package's answer.
 """
 
 import numpy as np
@@ -468,16 +469,15 @@ OUT_OF_SLICE = [
     ("CREATE TABLE ca (k INT, v INT)", "item 14"),
     ("INSERT INTO genes VALUES (1, 2)", "item 14"),
     ("VALUES (1, 2), (3, 4)", "item 14"),
-    # item 8 has landed: these two now give the JAX package's answer
+    # items 8 and 7 have landed: these give the JAX package's answer
     ("CREATE FUNCTION f(a BIGINT) RETURNS BIGINT LANGUAGE SQL RETURN a + 1",
      None),
-    ("SELECT seqname FROM genes UNION SELECT seqname FROM genes", "item 7"),
+    ("SELECT seqname FROM genes UNION SELECT seqname FROM genes", None),
     ("SELECT start, row_number() OVER (ORDER BY start) AS r FROM genes",
-     "item 7"),
+     None),
     ("SELECT a.seqname FROM genes a FULL JOIN genes b ON a.start = b.start",
-     "item 7"),
-    ("SELECT seqname, COUNT(*) FROM genes GROUP BY ROLLUP(seqname)",
-     "item 7"),
+     None),
+    ("SELECT seqname, COUNT(*) FROM genes GROUP BY ROLLUP(seqname)", None),
     ("SELECT upper(id) FROM prot", None),
     ("SELECT COUNT(*) FROM gtf_scan('/nope.gtf')", "item 2"),
     ("SELECT COUNT(*) FROM gff_indexed_scan('/nope.gff', 'chr1:1-10')",
