@@ -48,11 +48,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    qual DESC), window_frame in every mode (L's four calls, the rest of the
    rank family, lead with a default, sum, avg and the value picks over L's
    ROWS frame, min over its RANGE frame through the sparse table).
+   The list kernels (K11b) and the map lookup run at the shapes of queries
+   N, O and P: map_bytes' widen mode (to int8 DNA codes and to int64 Phred
+   scores) and narrow mode (the scores back to text) on the first FASTQ
+   chunk of O's scan, beside table[values]; map_lookup on the attribute
+   maps of N's first 131,072-row batch; list_bins' peak mode on P's 30,000
+   spectra and its bins mode on the spectra that pass P's filter, beside
+   one index_add_ (bins at relative 1e-12, the twin adding in atomic
+   order).
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
-   on chromosome and 100 kb bin, overlap filter, coordinate sort), its TopK
-   ``limit(1000)``, Query D (mate pairing: R1 ⟕ R2 on the read name,
+   on chromosome and 100 kb bin, overlap filter, coordinate sort), Query D (mate pairing: R1 ⟕ R2 on the read name,
    coordinate sort), and Query E (a FASTQ adapter screen, 4 M reads of
    150 bp) and its count, and three SQL queries through ExonSession.sql:
    SQL_count (Query count's filter as SQL), SQL_range (an accession-range
@@ -77,7 +84,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (windows: the gap to the previous call, a RANGE count of calls within
    35 bp, a ROWS max of qual over 11 calls and a per-contig rank by qual
    DESC) and M (a ROLLUP of per-(chrom, ref) counts with qual >= 30: three
-   aggregate branches joined by a union). Each is checked against numpy
+   aggregate branches joined by a union), and three over list, struct and
+   map columns: N (the GENCODE biotype census: genes at levels 1-2 counted
+   by attributes['gene_type'][1] over a GENCODE-v44-shaped GFF3 of chr1,
+   340,000 features, the ten largest kept by ORDER BY ... LIMIT, which the
+   planner makes a TopK sort; the plan is checked for it), O (E's lane as model input: integer_encode_dna,
+   quality_scores_to_list and its round trip to text, kept on the card and
+   compared there) and P (a TMT reporter screen: the 30,000 mzML spectra of
+   benchlib.fixtures.make_mzml holding a peak within 0.5 of 126.127726,
+   binned by bin_vectors into 1,900 bins). Each is checked against numpy
    computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -86,7 +101,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (for I and I_panel the seek and decode of the region chunks, with the
    rows the scan yields, which must equal numpy's count of the fixture's
    rows in the regions, and the records the chunks held before the exact
-   row filter). SQL_count,
+   row filter; M's three scans are not timed again). SQL_count,
    SQL_range and I then run beside their DataFrame twins (twin, SQL, SQL,
    twin; the same result), with the time SQL takes to parse, bind and
    plan alone.
@@ -94,8 +109,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    device batches already in memory, with the kernels (median of 5
    host-clock runs ending in a sync), beside the bound of their input and
    output bytes; then one run
-   of A, E, I, I_panel, J, J_agg, K and L under torch.profiler, with the
-   device time of its CUDA kernels and copies and the largest of them.
+   of A, E, I, I_panel, J, J_agg, K, L, N, O and P under torch.profiler,
+   with the device time of its CUDA kernels and copies and the largest of
+   them.
 
 The smoke prints its total time and the card's name and power limit once
 more (nvidia-smi); the line before the last is a JSON object
@@ -131,6 +147,14 @@ PANEL_END = 10_000_000         # I_panel: <seqname>:1-10000000 for each contig
 FLOAT_RTOL = 1e-12             # float64 sums: atomic order changes rounding
 VAR_RTOL = 1e-9                # var/stddev: Σx² − (Σx)²/n against two passes
 AVG_RTOL = 1e-5                # AVG of the float32 qual column
+BINS_RTOL = 1e-12              # bin_vectors' float64 sums: the twin's
+                               # index_add_ adds in atomic order on the card
+GENCODE_FEATURES = 340_000     # chr1's ~10 % of GENCODE v44's 3.4 M (N)
+GENCODE_SEED = 44
+MZML_SPECTRA = 30_000          # Query P: ~8.6 M peaks, ~185 MB of mzML
+TMT_126 = 126.127726           # the TMT-126 reporter ion's m/z (Query P)
+PEAK_TOL = 0.5                 # a low-resolution (ion trap) window
+N_BINS, BIN_MIN, BIN_WIDTH = 1900, 100.0, 1.0  # 1 m/z bins over 100-2000
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM integer rate: 132 SMs x 64 INT32 units x 1.98 GHz boost (NVIDIA
@@ -167,6 +191,8 @@ KERNELS = {
     "window_bounds": ("exon_tpu/plan/window_exec.py:123",
                       "window_bounds.cu"),
     "window_frame": ("exon_tpu/plan/window_exec.py:263", "window_frame.cu"),
+    "map_lookup": ("exon_tpu/plan/expressions.py:716", "map_lookup.cu"),
+    "list_bins": ("exon_tpu/udfs.py:389", "list_bins.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -175,7 +201,6 @@ PATH_KERNELS = {
     "count": DECODE + ("compact_mask", "like_match"),
     "B": ("hash_aggregate",),
     "C": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
-    "C_top": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
     "D": ("compact_mask", "gather_var", "expand_segments", "row_hash",
           "string_eq", "sort_keys"),
     "E": DECODE + ("like_match", "compact_mask", "gather_var"),
@@ -207,6 +232,15 @@ PATH_KERNELS = {
     # ROLLUP: three aggregate branches over the panel, joined by a union
     "M": ("hash_aggregate", "row_hash", "string_eq", "gather_var",
           "compact_mask"),
+    # the map lookups (map_lookup, then the list take: expand_segments and
+    # gather_var), the filter, the string group key and the sort
+    "N": ("map_lookup", "expand_segments", "gather_var", "compact_mask",
+          "hash_aggregate", "row_hash", "string_eq", "sort_keys"),
+    # the encodings and scores on map_bytes' widen and narrow modes
+    "O": DECODE + ("map_bytes",),
+    # contains_peak and bin_vectors on list_bins; the filter's take of the
+    # list columns on expand_segments
+    "P": ("list_bins", "compact_mask", "expand_segments"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -260,6 +294,23 @@ SQL_L = ("SELECT chrom, pos, qual, pos - lag(pos) OVER (PARTITION BY chrom "
          "vcf_indexed_scan('{vcf}', '{panel}')")
 SQL_M = ("SELECT chrom, ref, COUNT(*) AS n FROM vcf_indexed_scan('{vcf}', "
          "'{panel}') WHERE qual >= 30 GROUP BY ROLLUP(chrom, ref)")
+# N: the GENCODE biotype census (the N_TOP largest gene counts by gene_type
+# at levels 1-2, through the planner's TopK sort);
+# O: reads as model input (Exon's integer encodings of E's lane); P: a TMT
+# reporter screen over mzML spectra, binned as model input
+N_TOP = 10
+SQL_N = ("SELECT attributes['gene_type'][1] AS gene_type, COUNT(*) AS n "
+         "FROM gff_scan('{gf}') WHERE type = 'gene' AND "
+         "attributes['level'][1] IN ('1', '2') GROUP BY "
+         "attributes['gene_type'][1] ORDER BY n DESC, gene_type LIMIT "
+         f"{N_TOP}")
+SQL_O = ("SELECT name, integer_encode_dna(sequence) AS codes, "
+         "quality_scores_to_list(quality_scores) AS scores, "
+         "quality_scores_to_string(quality_scores_to_list(quality_scores)) "
+         "AS round_trip FROM fastq_scan('{fq}')")
+SQL_P = ("SELECT id, bin_vectors(mz.mz, intensity.intensity, "
+         f"{BIN_MIN}, {N_BINS}, {BIN_WIDTH}) AS bins FROM mzml_scan('{{mz}}') "
+         f"WHERE contains_peak(mz.mz, {TMT_126}, {PEAK_TOL})")
 # PCIe Gen5 x16 between the H100 SXM and its host, each way (NVIDIA data
 # sheet: 128 GB/s both ways together)
 HOST_LINK_BYTES_PER_S = 64e9
@@ -1256,6 +1307,22 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     cut = S.fn_left(fq_batch, fq, FixedColumn(
         torch.where(pos >= 0, pos.long(), lens), fq.validity))
     _class_runs(torch, "K rtrim 'N'", cut, b"N", False, m, "cut reads")
+    # the K12 numbers (Lib: elementwise torch) at K's shape: coalesce(
+    # nullif(strpos, 0) - 1, length) over the chunk's reads
+    strpos = FixedColumn(pos.long() + 1, fq.validity)
+    length = FixedColumn(lens, fq.validity)
+
+    def numbers():
+        hit = S.fn_nullif(fq_batch, strpos, 0)
+        return S.fn_coalesce(fq_batch, FixedColumn(hit.values - 1,
+                                                   hit.validity), length)
+
+    ms = median_ms(numbers, torch)
+    # two int64 columns and their validity in, one out
+    nbytes = 3 * 9 * m
+    print(f"K12 numbers K coalesce(nullif(strpos, 0) - 1, length) ({m} "
+          f"reads): {ms:.4f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes} "
+          "bytes)")
     total = int(_lens(fq).sum())
     lead = _class_runs(torch, "K reads {A, C}", fq, b"AC", True, m, "reads")
     keep = _class_runs(torch, "K reads {A, C}", fq, b"AC", False, m, "reads")
@@ -1399,6 +1466,144 @@ def check_window_kernels(torch, batch) -> dict:
     return res
 
 
+def _mzml_spectra(n: int) -> tuple:
+    """The spectra of benchlib.fixtures.make_mzml(n), replayed from its
+    generator: (m/z, intensity) float64 arrays per spectrum."""
+    rng = np.random.default_rng(7)
+    mz, inten = [], []
+    for _ in range(n):
+        n_peaks = int(rng.integers(64, 512))
+        mz.append(np.sort(rng.uniform(100, 2000, n_peaks)))
+        inten.append(rng.uniform(0, 1e6, n_peaks))
+    return mz, inten
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / |b| over the elements where b is not 0."""
+    d = (a - b).abs()
+    scale = b.abs()
+    nz = scale > 0
+    return float((d[nz] / scale[nz]).max()) if bool(nz.any()) else \
+        float(d.max()) if d.numel() else 0.0
+
+
+def check_list_kernels(torch, fq_path: str) -> dict:
+    """K11b and the map lookup at the shapes of queries N, O and P:
+    map_bytes' widen mode (the DNA codes and the Phred scores) and narrow
+    mode (the scores back to text) on the first FASTQ chunk of O's scan,
+    beside table[values]; map_lookup on the attribute maps of N's first
+    131,072-row batch ('gene_type'); list_bins' peak mode on the m/z lists
+    of P's spectra and its bins mode on the spectra that pass P's filter,
+    beside one index_add_ of the in-range intensities. Exact, but the bins
+    at relative BINS_RTOL."""
+    from benchlib.fixtures import make_mzml
+    from benchlib.gencode_gff_fixture import make_gencode_gff
+    from exon_tpu_torch.formats.fasta import DNA_CODE
+    from exon_tpu_torch.kernels import list_bins as lb
+    from exon_tpu_torch.kernels import map_bytes as mb
+    from exon_tpu_torch.kernels import map_lookup as ml
+
+    seq = _first_column(lambda s: s.read_fastq(fq_path), "sequence")
+    qual = _first_column(lambda s: s.read_fastq(fq_path), "quality_scores")
+    n_reads, total = seq[0].shape[0] - 1, seq[1].shape[0]
+    dev = seq[1].device
+    dna = torch.from_numpy(DNA_CODE.astype(np.int64)).to(dev)
+    phred = torch.arange(256, dtype=torch.int64, device=dev) - 33
+    shape = f"{n_reads} reads, {total} bases"
+    for label, vals, table, out, width in (
+            ("integer_encode_dna", seq[1], dna, torch.int8, 1),
+            ("quality_scores_to_list", qual[1], phred, torch.int64, 8)):
+        _case(torch, f"map_bytes widen ({label})",
+              lambda v=vals, t=table, o=out: mb.map_bytes_widen(v, t, o),
+              lambda v=vals, t=table, o=out: mb.map_bytes_widen_plain(v, t, o),
+              total * (1 + width) + 256 * 8, shape,
+              library=lambda v=vals, t=table, o=out: t[v.int()].to(o))
+    scores = mb.map_bytes_widen(qual[1], phred, torch.int64)
+    _case(torch, "map_bytes narrow (quality_scores_to_string)",
+          lambda: mb.map_bytes_narrow(scores),
+          lambda: mb.map_bytes_narrow_plain(scores), total * 9, shape)
+    del seq, qual, scores
+
+    gf = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
+    attrs = _first_batch(lambda s: s.read_gff(gf).select(
+        "attributes")).column("attributes")
+    keys = attrs.child.children["keys"]
+    lit = b"gene_type"
+    klen = keys.offsets[1:] - keys.offsets[:-1]
+    n_maps, n_ent = attrs.capacity, keys.capacity
+    args = (attrs.offsets, keys.offsets, keys.values, keys.validity, lit)
+    r_lookup = _case(
+        torch, "map_lookup", lambda: ml.map_lookup(*args),
+        lambda: ml.map_lookup_plain(*args),
+        # the map offsets, every key's offsets and validity, the bytes of
+        # the keys as long as the literal, an int32 out per map
+        4 * (n_maps + 1) + 5 * n_ent + 4 + len(lit) * int(
+            (klen == len(lit)).sum()) + 4 * n_maps,
+        f"{n_maps} attribute maps, {n_ent} entries, key 'gene_type'")
+    del attrs, keys, args
+
+    mzml = make_mzml(MZML_SPECTRA)
+    spectra = _first_batch(lambda s: s.read_mzml(mzml).select(
+        "mz", "intensity"))
+    mz = spectra.column("mz").children["mz"]
+    inten = spectra.column("intensity").children["intensity"]
+    offs, vals = mz.offsets, mz.child.values
+    n_spec, n_peaks = mz.capacity, vals.shape[0]
+    hit = ((vals - TMT_126).abs() <= PEAK_TOL)
+    # the elements the peak mode must read: each row's up to its first hit
+    dev = vals.device
+    row = torch.repeat_interleave(torch.arange(n_spec, device=dev),
+                                  (offs[1:] - offs[:-1]).long())
+    first = torch.full((n_spec,), n_peaks, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, row, torch.where(
+        hit, torch.arange(n_peaks, device=dev), n_peaks), "amin")
+    read = torch.where(first < n_peaks, first + 1 - offs[:-1].long(),
+                       (offs[1:] - offs[:-1]).long())
+    _case(torch, "list_bins peak (contains_peak)",
+          lambda: lb.list_bins_peak(offs, vals, mz.validity, TMT_126,
+                                    PEAK_TOL),
+          lambda: lb.list_bins_peak_plain(offs, vals, mz.validity, TMT_126,
+                                          PEAK_TOL),
+          4 * (n_spec + 1) + 8 * int(read.sum()) + 2 * n_spec,
+          f"{n_spec} spectra, {n_peaks} peaks, {TMT_126} +- {PEAK_TOL}")
+    keep = lb.list_bins_peak(offs, vals, mz.validity, TMT_126, PEAK_TOL)
+    from exon_tpu_torch.ops import layout
+
+    kept = layout.filter_batch(spectra, keep)
+    kmz = kept.column("mz").children["mz"]
+    kin = kept.column("intensity").children["intensity"]
+    bargs = (kmz.offsets, kmz.child.values, kin.child.values, BIN_MIN,
+             BIN_WIDTH, N_BINS)
+    got = lb.list_bins_bins(*bargs)
+    want = lb.list_bins_bins_plain(*bargs)
+    # atol=0: an empty bin of the twin must be 0 in the kernel's too
+    try:
+        torch.testing.assert_close(got, want, rtol=BINS_RTOL, atol=0)
+    except AssertionError as e:
+        fail(f"list_bins bins: kernel and twin differ: {e}")
+    err = _rel_err(got, want)
+    slot, ok = lb._flat_bins(kmz.offsets, kmz.child.values, BIN_MIN,
+                             BIN_WIDTH, N_BINS)
+    slot, w = slot[ok], kin.child.values[ok]
+    n_kept, k_peaks = kmz.capacity, kmz.child.capacity
+    r_bins = {"max_abs_err": float((got - want).abs().max()),
+              "ms": median_ms(lambda: lb.list_bins_bins(*bargs), torch),
+              "plain_ms": median_ms(lambda: lb.list_bins_bins_plain(*bargs),
+                                    torch),
+              "library_ms": median_ms(lambda: torch.zeros(
+                  n_kept * N_BINS, dtype=torch.float64,
+                  device=dev).index_add_(0, slot, w), torch),
+              # both lists, the offsets, the bins out
+              "bytes": 16 * k_peaks + 4 * (n_kept + 1) + 8 * n_kept * N_BINS,
+              "shape": f"{n_kept} spectra with the reporter, {k_peaks} "
+                       f"peaks -> {N_BINS} bins each (relative error {err})"}
+    print(f"  list_bins bins (bin_vectors, {r_bins['shape']}): kernel "
+          f"{r_bins['ms']:.4f} ms, twin {r_bins['plain_ms']:.4f} ms, library "
+          f"{r_bins['library_ms']:.4f} ms, bound "
+          f"{bound_ms(r_bins['bytes']):.4f} ms by bytes")
+    return {"map_lookup": r_lookup, "list_bins": r_bins}
+
+
 def phase_kernels(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import make_bam, template_names
@@ -1468,6 +1673,7 @@ def phase_kernels(torch) -> dict:
 
     results.update(check_window_kernels(
         torch, _panel_batch(make_vcf(VCF_RECORDS, VCF_SEED))))
+    results.update(check_list_kernels(torch, fq_path))
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = _bound(r)
         lib = "" if r["library_ms"] is None else \
@@ -2224,6 +2430,108 @@ def _check_m(host, calls: dict) -> None:
           "match numpy exactly")
 
 
+def _check_n(host, feats: dict) -> None:
+    """Query N against numpy: genes at levels 1-2 counted by gene_type,
+    ordered by count (descending), then by name, the first N_TOP."""
+    from benchlib.gencode_gff_fixture import GENE_TYPES
+
+    genes = (feats["type"] == 0) & (feats["level"] <= 1)
+    counts = np.bincount(feats["gene_type"][genes], minlength=len(GENE_TYPES))
+    want = sorted(((-int(c), GENE_TYPES[k]) for k, c in enumerate(counts)
+                   if c), key=lambda t: (t[0], t[1].encode()))
+    n_types = len(want)
+    if n_types <= N_TOP:
+        fail(f"query N: {n_types} gene types, so LIMIT {N_TOP} cuts nothing")
+    want = want[:N_TOP]
+    got = list(zip((-host.column("n").values).tolist(),
+                   [x.decode() for x in _names_of(host.column("gene_type"))]))
+    if got != want:
+        fail(f"query N: {got[:5]} ..., expected {want[:5]} ...")
+    print(f"query N: the top {host.length} of {n_types} gene types over "
+          f"{int(genes.sum())} genes at levels 1-2 match the generator's "
+          "arrays")
+
+
+def _check_topk(df, fetch: int, q: str) -> None:
+    """The plan of ``df`` sorts with a fetch of ``fetch`` rows: the
+    planner's Limit(Sort) rewrite, which truncates each sort run (TopK)."""
+    from exon_tpu_torch.plan import physical as P
+    from exon_tpu_torch.plan.planner import create_physical_plan, optimize
+
+    stack = [create_physical_plan(optimize(df.logical_plan()), "cuda")]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, P.SortExec) and node.fetch == fetch:
+            return
+        stack.extend(node.children())
+    fail(f"query {q}: its plan has no SortExec with fetch {fetch} (TopK)")
+
+
+def _check_o(batches: list, r: dict, torch) -> None:
+    """Query O on the card: each batch's codes, scores and round trip
+    against the generator's reads of that batch, uploaded; the names on
+    the host."""
+    from benchlib.fastq_fixture import READ_LEN
+    from exon_tpu_torch.batch import Batch
+    from exon_tpu_torch.formats.fasta import DNA_CODE
+
+    lo = 0
+    for b in batches:
+        hi, dev = lo + b.length, b.device
+        code = torch.from_numpy(DNA_CODE).to(dev)
+        seq = torch.from_numpy(r["sequences"][lo:hi].reshape(-1)).to(dev)
+        qual = torch.from_numpy(r["qualities"][lo:hi].reshape(-1)).to(dev)
+        steps = READ_LEN * torch.arange(b.length + 1, dtype=torch.int32,
+                                        device=dev)
+        codes, scores = b.column("codes"), b.column("scores")
+        trip = b.column("round_trip")
+        ok = (torch.equal(codes.offsets, steps)
+              and torch.equal(codes.child.values, code[seq.long()])
+              and torch.equal(scores.offsets, steps)
+              and torch.equal(scores.child.values, qual.long() - 33)
+              and torch.equal(trip.offsets, steps)
+              and torch.equal(trip.values, qual))
+        if not ok:
+            fail(f"query O: reads {lo}-{hi} differ from the generator")
+        names = Batch(None, [b.column("name")], b.length).to_host()
+        if not np.array_equal(_names_of(names.columns[0]),
+                              r["names"][lo:hi]):
+            fail(f"query O: names of reads {lo}-{hi} differ")
+        lo = hi
+    if lo != len(r["names"]):
+        fail(f"query O: {lo} reads, expected {len(r['names'])}")
+    print(f"query O: {lo} reads in {len(batches)} batches; codes, scores and "
+          "their round trip to text match the generator on the card")
+
+
+def _check_p(host, spectra: tuple) -> None:
+    """Query P against numpy over the replayed spectra: the ids with a peak
+    within PEAK_TOL of the reporter, each one's bins summed in peak order."""
+    mz, inten = spectra
+    rows = [i for i, m in enumerate(mz)
+            if bool((np.abs(m - TMT_126) <= PEAK_TOL).any())]
+    ids = [b"scan=%d" % i for i in rows]
+    if _names_of(host.column("id")).tolist() != ids:
+        fail(f"query P: {host.length} spectra, expected {len(rows)}")
+    bins = host.column("bins")
+    got = bins.child.values.reshape(len(rows), N_BINS) if rows else None
+    worst = 0.0
+    for k, i in enumerate(rows):
+        b = np.floor((mz[i] - BIN_MIN) / BIN_WIDTH)
+        ok = (b >= 0) & (b < N_BINS)
+        want = np.zeros(N_BINS)
+        np.add.at(want, b[ok].astype(np.int64), inten[i][ok])
+        nz = want != 0
+        if not np.array_equal(got[k] != 0, nz):
+            fail(f"query P: spectrum {i}'s filled bins differ")
+        worst = max(worst, float(np.max(np.abs(got[k][nz] - want[nz])
+                                        / want[nz], initial=0.0)))
+    if worst > BINS_RTOL:
+        fail(f"query P: bins differ by {worst} (relative)")
+    print(f"query P: {len(rows)} of {len(mz)} spectra hold the reporter; "
+          f"their {N_BINS} bins match numpy (largest relative error {worst})")
+
+
 @contextlib.contextmanager
 def _host_decode():
     """Scans built inside decode on the host (the JAX package's own
@@ -2312,6 +2620,8 @@ def phase_main_path(torch) -> dict:
     from benchlib.fasta_records import fasta_file_size, fasta_records
     from benchlib.fastq_fixture import fastq_reads, make_fastq
     from benchlib.fixtures import make_fasta
+    from benchlib.fixtures import make_mzml
+    from benchlib.gencode_gff_fixture import gencode_features, make_gencode_gff
     from benchlib.gff_fixture import gff_features, make_gff
     from benchlib.vcf_fixture import make_vcf, vcf_records
     from exon_tpu_torch import kernels
@@ -2331,6 +2641,14 @@ def phase_main_path(torch) -> dict:
     vcf = make_vcf(VCF_RECORDS, VCF_SEED)  # built in phase 3
     calls = vcf_records(VCF_RECORDS, VCF_SEED)
     panel = _panel_file(vcf)
+    gencode = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
+    gencode_feats = gencode_features(GENCODE_FEATURES, GENCODE_SEED)
+    mzml = make_mzml(MZML_SPECTRA)
+    spectra = _mzml_spectra(MZML_SPECTRA)
+    print(f"data: {gencode} ({os.path.getsize(gencode)} bytes, "
+          f"{GENCODE_FEATURES} features), {mzml} ({os.path.getsize(mzml)} "
+          f"bytes, {MZML_SPECTRA} spectra, "
+          f"{sum(len(m) for m in spectra[0])} peaks)")
     print(f"data: {fa} ({os.path.getsize(fa)} bytes, {FASTA_RECORDS} records)"
           f", {gf} ({os.path.getsize(gf)} bytes, {GFF_FEATURES} features), "
           f"{bam} ({os.path.getsize(bam)} bytes, {n_bam} records), "
@@ -2369,8 +2687,6 @@ def phase_main_path(torch) -> dict:
         ).collect_host(), GFF_FEATURES),
         "C": (lambda: _query_c(T, session, bam, gf).collect_host(),
               n_bam + GFF_FEATURES),
-        "C_top": (lambda: _query_c(T, session, bam, gf).limit(
-            1000).collect_host(), n_bam + GFF_FEATURES),
         "D": (lambda: _query_d(T, session, bam).collect_host(), 2 * n_bam),
         "E": (lambda: frames["E"]().collect_host(), FASTQ_READS),
         "E_count": (lambda: session.read_fastq(fq).filter(adapter).count(),
@@ -2405,6 +2721,13 @@ def phase_main_path(torch) -> dict:
               .collect_host(), None),
         "M": (lambda: session.sql(SQL_M.format(vcf=vcf, panel=panel))
               .collect_host(), None),
+        "N": (lambda: session.sql(SQL_N.format(gf=gencode)).collect_host(),
+              GENCODE_FEATURES),
+        # O's result stays on the card, batch by batch
+        "O": (lambda: _device_batches(session.sql(SQL_O.format(fq=fq))),
+              FASTQ_READS),
+        "P": (lambda: session.sql(SQL_P.format(mz=mzml)).collect_host(),
+              MZML_SPECTRA),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -2425,16 +2748,6 @@ def phase_main_path(torch) -> dict:
         fail(f"count: {results['count']}, expected {len(sel)}")
     _check_b(results["B"], feats)
     _check_c(results["C"], reads, feats, "C")
-    top, full = results["C_top"], results["C"]
-    if top.length != 1000:
-        fail(f"query C_top: {top.length} rows, expected 1000")
-    for name in top.schema.names:
-        a, b = top.column(name), full.column(name)
-        if not (np.array_equal(_values_of(a), _values_of(b)[:1000])
-                and np.array_equal(a.validity, b.validity[:1000])):
-            fail(f"query C_top: column {name} differs from query C's first "
-                 "1000 rows")
-    print("query C_top: the first 1000 rows of query C")
     _check_d(results["D"], reads)
     _check_e(results["E"], fq_reads, rows_e)
     if results["E_count"] != len(rows_e):
@@ -2458,6 +2771,10 @@ def phase_main_path(torch) -> dict:
     _check_k(results["K"], fq_reads, first_adapter)
     _check_l(results["L"], calls)
     _check_m(results["M"], calls)
+    _check_n(results["N"], gencode_feats)
+    _check_topk(session.sql(SQL_N.format(gf=gencode)), N_TOP, "N")
+    _check_o(results["O"], fq_reads, torch)
+    _check_p(results["P"], spectra)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -2480,21 +2797,31 @@ def phase_main_path(torch) -> dict:
     # the rows they yield and the records the chunks held before the exact
     # row filter
     inflated = {}
-    for q, sql, regions, scans in (
-            ("I", sql_i, [_region(VCF_REGION)], 1),
-            ("I_panel", sql_panel, _panel_regions(), 1),
-            ("L", SQL_L.format(vcf=vcf, panel=panel), _panel_regions(), 1),
-            ("M", SQL_M.format(vcf=vcf, panel=panel), _panel_regions(), 3)):
+    for q, sql, regions in (
+            ("I", sql_i, [_region(VCF_REGION)]),
+            ("I_panel", sql_panel, _panel_regions()),
+            ("L", SQL_L.format(vcf=vcf, panel=panel), _panel_regions())):
         host_scan[q], stats[q][1] = _scan_pass(session.sql(sql), torch)
-        want = scans * _region_rows(calls, regions)
+        want = _region_rows(calls, regions)
         if stats[q][1] != want:
             fail(f"query {q}: its scans yielded {stats[q][1]} rows, the "
                  f"fixture has {want} in its regions")
-        inflated[q] = scans * _chunk_records(vcf, regions)
-    for q, base in (("count", "A"), ("E_count", "E"), ("C_top", "C")):
+        inflated[q] = _chunk_records(vcf, regions)
+    # M reads L's scan three times; its own scans are not timed again (cut
+    # for the smoke's time)
+    stats["M"][1], inflated["M"] = 3 * stats["L"][1], 3 * inflated["L"]
+    for q, base in (("count", "A"), ("E_count", "E")):
         host_scan[q] = host_scan[base]
         if base in device_scan:
             device_scan[q] = device_scan[base]
+    # N's and P's host decodes, O's device decode
+    host_scan["N"] = _scan_seconds(session.read_gff(gencode).select(
+        "type", "attributes"), torch)
+    host_scan["P"] = _scan_seconds(session.read_mzml(mzml).select(
+        "id", "mz", "intensity"), torch)
+    device_scan["O"] = _scan_seconds(session.read_fastq(fq).select(
+        "name", "sequence", "quality_scores"), torch)
+    results["O"] = sum(b.length for b in results["O"])
     for q, (sec, rows_in) in stats.items():
         out = results[q] if isinstance(results[q], int) else results[q].length
         share = "".join(
@@ -2506,9 +2833,9 @@ def phase_main_path(torch) -> dict:
         print(f"query {q}: {out} rows out, {sec:.3f} s wall, "
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{seek}{share}")
-    print("main path: queries A, count, B, C, C_top, D, E, E_count, "
-          "SQL_count, SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, "
-          "L and M match the generators' arrays")
+    print("main path: queries A, count, B, C, D, E, E_count, SQL_count, "
+          "SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, L, M, N, O "
+          "and P match the generators' arrays")
     _sql_vs_dataframe(session, T, fa, vcf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
@@ -2516,6 +2843,11 @@ def phase_main_path(torch) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 5: where the time goes in queries C and D
 # ---------------------------------------------------------------------------
+
+
+def _device_batches(df) -> list:
+    """A query's result as its device batches, not copied to the host."""
+    return list(df._execute(df.logical_plan()).batches())
 
 
 def _find(plan, cls):
@@ -2677,6 +3009,18 @@ def phase_breakdown(torch) -> None:
     # the windows: how much of L's wall is on the card
     sql = SQL_L.format(vcf=vcf, panel=_panel_file(vcf))
     _device_profile(lambda: session.sql(sql).collect_host(), torch, "L")
+    # the list columns: N's map lookups, O's encodings (kept on the card)
+    # and P's spectra
+    from benchlib.fixtures import make_mzml
+    from benchlib.gencode_gff_fixture import make_gencode_gff
+
+    gencode = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
+    _device_profile(lambda: session.sql(SQL_N.format(
+        gf=gencode)).collect_host(), torch, "N")
+    _device_profile(lambda: _device_batches(session.sql(SQL_O.format(
+        fq=fq))), torch, "O")
+    _device_profile(lambda: session.sql(SQL_P.format(
+        mz=make_mzml(MZML_SPECTRA))).collect_host(), torch, "P")
 
 
 def main() -> int:

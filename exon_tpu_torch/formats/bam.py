@@ -7,23 +7,29 @@ narrow projection touches only the bytes it needs, ``_int_to_utf8`` (:383),
 ``_render_cigar`` (:401), ``_decode_seq`` (:427) and ``decode_host``
 (:442). ``reference`` and ``mate_reference`` are dictionary columns over
 the header's reference names (refID −1 gives NULL); ``start`` is 1-based and
-``end`` = start + CIGAR reference span − 1. Projecting ``quality_score`` (a
-list column) or ``tags`` raises NotImplementedError (ROADMAP Queue 1, item
-2), as do parsed tags. A BGZF-compressed input is inflated first.
+``end`` = start + CIGAR reference span − 1. ``quality_score`` is a
+List<Int64> of the raw quality bytes (:355-361), ``tags`` a List<Struct{tag,
+value}>, or with ``parse_tags`` a struct of the first record's tags
+(``first_record_tags`` :47, samtags.py). A BGZF-compressed input is
+inflated first.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
 
-from ..batch import Batch, DictColumn, FixedColumn, Schema, VarColumn
+from ..batch import (Batch, DictColumn, FixedColumn, ListColumn, Schema,
+                     VarColumn)
 from ..errors import ExonError
 from ..io import bgzf_decompress
 from .sam import sam_schema
+from .samtags import (infer_tag_fields, parse_bam_aux, tags_list_column,
+                      tags_struct_column)
 from .textutil import cumsum_exclusive, gather_slices, to_u8
 
 SEQ_CODE = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8)
@@ -39,8 +45,35 @@ class BamOptions:
     parse_tags: bool = False
 
 
-def bam_schema(options=None) -> Schema:
-    return sam_schema(options)
+def bam_schema(options=None, tag_fields=None) -> Schema:
+    return sam_schema(options, tag_fields)
+
+
+def first_record_tags(data, header: "BamHeader") -> list[tuple]:
+    """Aux tags of the first alignment record (schema inference for
+    parse_tags mode, exon-sam schema_builder.rs:70-349)."""
+    offsets = scan_record_offsets(data, header.header_end)
+    if len(offsets) == 0:
+        return []
+    off = int(offsets[0])
+    (block_size,) = struct.unpack_from("<i", data, off)
+    # materialize just the first record (data may be an ndarray view)
+    rec = bytes(memoryview(data)[off:off + 4 + block_size])
+    body = 4
+    l_read_name = rec[body + 8]
+    (n_cigar,) = struct.unpack_from("<H", rec, body + 12)
+    (l_seq,) = struct.unpack_from("<i", rec, body + 16)
+    aux_start = body + 32 + l_read_name + 4 * n_cigar + (l_seq + 1) // 2 \
+        + l_seq
+    return parse_bam_aux(rec, aux_start, len(rec))
+
+
+def tag_fields_of(data, header: "BamHeader", options) -> Optional[list]:
+    """The parse_tags struct's fields, from the first record's tags; None
+    without parse_tags."""
+    if not getattr(options, "parse_tags", False):
+        return None
+    return infer_tag_fields(first_record_tags(data, header))
 
 
 @dataclass
@@ -98,23 +131,18 @@ def _u16(arr: np.ndarray, offs: np.ndarray) -> np.ndarray:
     return arr[offs].astype(np.int64) | arr[offs + 1].astype(np.int64) << 8
 
 
-def _out_of_slice(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"BAM {name} (a list column) is not ported yet (ROADMAP Queue 1, "
-        "item 2)")
-
-
 def decode_records(data, offsets: np.ndarray, header: BamHeader, options,
                    projection: Optional[list[str]] = None
                    ) -> Iterator[Batch]:
     """Vectorized decode of the alignment records at ``offsets``."""
-    schema = bam_schema(options)
+    # the parse_tags struct from the first record decoded here
+    tag_fields = tag_fields_of(data, dataclasses.replace(
+        header, header_end=int(offsets[0])), options) if len(offsets) else None
+    schema = bam_schema(options, tag_fields)
     proj = projection if projection is not None else schema.names
-    for name in ("quality_score", "tags"):
-        if name in proj:
-            raise _out_of_slice(name)
     out_schema = schema.project(proj)
     arr = to_u8(data)
+    tag_data: list = []
     bs = options.batch_size
     for lo in range(0, len(offsets), bs):
         hi = min(lo + bs, len(offsets))
@@ -184,9 +212,31 @@ def decode_records(data, offsets: np.ndarray, header: BamHeader, options,
                 cols.append(_render_cigar(n, rep, op_len, op_code))
             elif name == "sequence":
                 cols.append(_decode_seq(arr, F("seq_start"), F("l_seq")))
+            elif name == "quality_score":
+                qual_start = F("seq_start") + (F("l_seq") + 1) // 2
+                v, o = gather_slices(arr, qual_start, qual_start + F("l_seq"))
+                # 0xFF means missing quality ('*')
+                cols.append(ListColumn(FixedColumn(v.astype(np.int64),
+                                                   np.ones(len(v), bool)),
+                                       o.astype(np.int32), np.ones(n, bool)))
+            elif name == "tags":
+                if not tag_data:  # parse_bam_aux reads bytes
+                    tag_data.append(bytes(memoryview(arr)))
+                aux_start = F("seq_start") + (F("l_seq") + 1) // 2 + \
+                    F("l_seq")
+                rec_end = _body_end(arr, body)
+                per_row = [parse_bam_aux(tag_data[0], int(aux_start[i]),
+                                         int(rec_end[i])) for i in range(n)]
+                cols.append(tags_list_column(per_row) if tag_fields is None
+                            else tags_struct_column(per_row, tag_fields))
             else:
                 raise KeyError(name)
         yield Batch(out_schema, cols, n)
+
+
+def _body_end(arr: np.ndarray, body: np.ndarray) -> np.ndarray:
+    """Each record's end: its body start plus its block_size."""
+    return body + _i32(arr, body - 4)
 
 
 def _cigar_walk(arr: np.ndarray, cigar_start: np.ndarray,
@@ -269,12 +319,16 @@ def _decode_seq(arr: np.ndarray, seq_start: np.ndarray, l_seq: np.ndarray
     return VarColumn(SEQ_CODE[nib], offs.astype(np.int32), np.ones(n, bool))
 
 
+def inflate(data):
+    """The decompressed BAM: a gzip/BGZF stream is inflated."""
+    return bgzf_decompress(data) if bytes(data[:2]) == b"\x1f\x8b" else data
+
+
 def decode_host(data, options: BamOptions,
                 projection: Optional[list[str]] = None) -> Iterator[Batch]:
     """Whole-file decode; a gzip/BGZF stream is inflated first (the
     ``bam_decode`` wrapper of exon_tpu/tables.py:644)."""
-    if bytes(data[:2]) == b"\x1f\x8b":
-        data = bgzf_decompress(data)
+    data = inflate(data)
     header = parse_bam_header(data)
     offsets = scan_record_offsets(data, header.header_end)
     yield from decode_records(data, offsets, header, options, projection)

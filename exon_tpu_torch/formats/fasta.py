@@ -5,8 +5,10 @@ Copy of the numpy host path of exon_tpu/formats/fasta.py (``fasta_schema``
 :226), without the native C++ scan (:168) and the prefix-staging decode
 (:245). Schema ``id, description, sequence``; multi-line sequences; '>'
 headers with name = chars to first space, description = rest (null if
-absent). Only the utf8 sequence type is ported: the integer encodings are
-list columns, which come with a later slice.
+absent). ``sequence_data_type`` takes utf8, large_utf8 or the integer
+encodings (:27-56): ``integer_encode_dna`` (A, C, G, T, N → 1..5) and
+``integer_encode_protein`` (25 letters → 1..25), a List<Int8> column, where
+any other byte raises InvalidSequenceError.
 """
 
 from __future__ import annotations
@@ -17,9 +19,27 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import datatypes as dt
-from ..batch import Batch, Schema, VarColumn
+from ..batch import Batch, FixedColumn, ListColumn, Schema, VarColumn
 from ..errors import InvalidSequenceError
 from .textutil import cumsum_exclusive, gather_slices, to_u8
+
+# Integer encodings — reference: exon-fasta/src/array_builder.rs:144-205
+DNA_CODE = np.zeros(256, dtype=np.int8)
+for i, c in enumerate(b"ACGTN"):
+    DNA_CODE[c] = i + 1
+PROTEIN_CODE = np.zeros(256, dtype=np.int8)
+for i, c in enumerate(b"ABCDEFGHIKLMNOPQRSTUVWYXZ"):
+    PROTEIN_CODE[c] = i + 1
+# each encoding's table and the word its error names
+ENCODINGS = {"integer_encode_dna": (DNA_CODE, "nucleotide"),
+             "integer_encode_protein": (PROTEIN_CODE, "amino acid")}
+
+SEQUENCE_DTYPES = {
+    "utf8": dt.utf8,
+    "large_utf8": dt.large_utf8,
+    "integer_encode_dna": dt.list_(dt.int8),
+    "integer_encode_protein": dt.list_(dt.int8),
+}
 
 
 @dataclass
@@ -33,14 +53,11 @@ class FastaOptions:
 
 
 def fasta_schema(options: FastaOptions) -> Schema:
-    if options.sequence_data_type != "utf8":
-        raise NotImplementedError(
-            f"sequence_data_type={options.sequence_data_type!r} is a list "
-            "column, not ported yet (ROADMAP Queue 1, other decoders)")
     return Schema.of(
         dt.Field("id", dt.utf8, nullable=False),
         dt.Field("description", dt.utf8, nullable=True),
-        dt.Field("sequence", dt.utf8, nullable=False),
+        dt.Field("sequence", SEQUENCE_DTYPES[options.sequence_data_type],
+                 nullable=False),
     )
 
 
@@ -125,6 +142,13 @@ def decode_buffer(data, options: FastaOptions) -> DecodedFasta:
     # text before the first '>' is invalid FASTA
     if rec_starts[0] != 0:
         raise InvalidSequenceError("FASTA data before first header")
+    if options.sequence_data_type in ENCODINGS:
+        table, what = ENCODINGS[options.sequence_data_type]
+        coded = table[seq_flat]
+        if (coded == 0).any():
+            bad = seq_flat[np.flatnonzero(coded == 0)[0]]
+            raise InvalidSequenceError(f"invalid {what} {chr(bad)!r}")
+        seq_flat = coded
     # offsets stay int64 here (a single buffer may exceed 2 GiB); the
     # per-batch slices rebase into int32 range in _slice_var
     return DecodedFasta(n, name_values, name_offsets, desc_values,
@@ -148,7 +172,11 @@ def decoded_to_batches(d: DecodedFasta, options: FastaOptions) -> Iterator[Batch
                 c.validity = d.desc_valid[lo:hi].copy()
                 cols.append(c)
             elif name == "sequence":
-                cols.append(_slice_var(d.seq_values, d.seq_offsets, lo, hi))
+                c = _slice_var(d.seq_values, d.seq_offsets, lo, hi)
+                if options.sequence_data_type in ENCODINGS:
+                    c = ListColumn(FixedColumn(c.values, np.ones(
+                        len(c.values), np.bool_)), c.offsets, c.validity)
+                cols.append(c)
         yield Batch(schema, cols, hi - lo)
 
 

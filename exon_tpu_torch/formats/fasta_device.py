@@ -13,8 +13,11 @@ Semantics are the JAX device path's, which is the JAX package's default
 scan: every '\\r' is dropped from every column, and so is every '>' of a
 name. Unlike it, and like the host decoder, a chunk with sequence bytes
 before its first header, or with no header at all, raises
-``InvalidSequenceError`` (ROADMAP Queue 3, F7). Integer sequence encodings
-are list columns, not ported yet: ``fasta_schema`` raises for them.
+``InvalidSequenceError`` (ROADMAP Queue 3, F7). The integer sequence
+encodings (:99-104, ``DNA_CODE``/``PROTEIN_CODE``) map the gathered
+sequence bytes through map_bytes' widen mode to int8 codes, a List<Int8>
+column over the same offsets; a byte outside the alphabet (code 0) raises
+``InvalidSequenceError``, as in the JAX device path.
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ..batch import Batch, VarColumn
+from ..batch import Batch, FixedColumn, ListColumn, VarColumn
 from ..errors import InvalidSequenceError
 from ..kernels.compact_mask import compact_mask
 from ..kernels.gather_spans import gather_spans
+from ..kernels.map_bytes import map_bytes_widen
 from ..ops.device_text import (CR, NL, chunk_to_device, host_ints,
                                lengths_to_offsets, line_table, span_column)
-from .fasta import FastaOptions, fasta_schema
+from .fasta import ENCODINGS, FastaOptions, fasta_schema
 
 DEFAULT_CHUNK = 128 << 20  # 128 MiB raw bytes per device chunk
 GT = ord(">")
@@ -58,8 +62,23 @@ def split_chunks(data: bytes, max_chunk: int = DEFAULT_CHUNK
     return spans
 
 
+def encode_sequence(col: VarColumn, encoding: str) -> ListColumn:
+    """The sequence bytes as int8 codes through the encoding's table (the
+    widen mode of map_bytes); a byte outside the alphabet raises."""
+    table, what = ENCODINGS[encoding]
+    codes = map_bytes_widen(
+        col.values, torch.from_numpy(table.astype(np.int64)).to(
+            col.values.device), torch.int8)
+    if bool((codes == 0).any()):
+        raise InvalidSequenceError(f"invalid {what} in FASTA sequence")
+    return ListColumn(FixedColumn(codes, torch.ones_like(codes,
+                                                         dtype=torch.bool)),
+                      col.offsets, col.validity)
+
+
 def decode_chunk(chunk: torch.Tensor, ends_in_newline: bool,
-                 projection: list[str], schema) -> Optional[Batch]:
+                 projection: list[str], schema,
+                 encoding: str = "utf8") -> Optional[Batch]:
     """One chunk of whole records (a uint8 tensor) → one batch; None for a
     chunk of blank lines alone."""
     want_hdr = "id" in projection or "description" in projection
@@ -87,6 +106,8 @@ def decode_chunk(chunk: torch.Tensor, ends_in_newline: bool,
         cols["sequence"] = VarColumn(
             gather_spans(chunk, lines.start, stops, seq_offs[:-1], seq_total),
             torch.cat([seq_offs.index_select(0, hdr), seq_offs[-1:]]), valid)
+        if encoding in ENCODINGS:
+            cols["sequence"] = encode_sequence(cols["sequence"], encoding)
     if want_hdr:
         name_total, desc_total = totals[3:]
         start, end, split = (t.index_select(0, hdr) for t in
@@ -119,7 +140,8 @@ def decode_fasta_device(data, options: FastaOptions,
     found = False
     for lo, hi in split_chunks(data, max_chunk):
         chunk = chunk_to_device(data, lo, hi, device)
-        batch = decode_chunk(chunk, data[hi - 1] == NL, proj, schema)
+        batch = decode_chunk(chunk, data[hi - 1] == NL, proj, schema,
+                             options.sequence_data_type)
         if batch is not None:
             found = True
             yield batch

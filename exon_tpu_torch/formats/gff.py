@@ -1,11 +1,11 @@
 """GFF3 / GTF decoders → host batches.
 
-Copy of exon_tpu/formats/gff.py:51-137 for every column except
-``attributes``: 9 tab-separated columns; '#' directive lines skipped;
-'.' = null for source/phase/score. seqname/source/type/strand/phase are
-dictionary-encoded, start/end Int64 (1-based inclusive), score Float32.
-Projecting ``attributes`` (a map column) raises NotImplementedError until
-map columns are ported (ROADMAP Queue 1).
+Copy of exon_tpu/formats/gff.py:51-137: 9 tab-separated columns; '#'
+directive lines skipped; '.' = null for source/phase/score.
+seqname/source/type/strand/phase are dictionary-encoded, start/end Int64
+(1-based inclusive), score Float32, and ``attributes`` a
+Map<Utf8, List<Utf8>> parsed by attrmap.py (GFF3 ``k=v1,v2;`` or GTF
+``k "v";`` by ``style``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 
 from .. import datatypes as dt
 from ..batch import Batch, FixedColumn, Schema
+from .attrmap import parse_attributes
 from .dictenc import dict_encode_slices
 from .textutil import (LineIndex, parse_float_fields, parse_int_fields,
                        split_fields, to_u8)
@@ -53,10 +54,6 @@ def decode_host(data, options, projection: Optional[list[str]] = None
     style = getattr(options, "style", "gff")
     schema = gff_schema()
     proj = projection if projection is not None else schema.names
-    if "attributes" in proj:
-        raise NotImplementedError(
-            "GFF attributes (a map column) are not ported yet "
-            "(ROADMAP Queue 1, item 3: GFF attributes)")
     out_schema = schema.project(proj)
     arr = to_u8(data)
     if len(arr) == 0:
@@ -96,7 +93,7 @@ def _is_dot(arr, s, e):
 
 def _decode_col(name, arr, fs, fe, present, lo, hi, style):
     idx = {"seqname": 0, "source": 1, "type": 2, "start": 3, "end": 4,
-           "score": 5, "strand": 6, "phase": 7}[name]
+           "score": 5, "strand": 6, "phase": 7, "attributes": 8}[name]
     s, e = fs[lo:hi, idx], fe[lo:hi, idx]
     pres = present[lo:hi, idx]
     if name in ("seqname", "source", "type", "strand", "phase"):
@@ -107,6 +104,8 @@ def _decode_col(name, arr, fs, fe, present, lo, hi, style):
     if name in ("start", "end"):
         vals, ok = parse_int_fields(arr, s, e)
         return FixedColumn(vals, ok)
+    if name == "attributes":
+        return parse_attributes(arr, s, e, style)
     dot = _is_dot(arr, s, e)
     vals, ok = parse_float_fields(arr, s, e)
     return FixedColumn(np.where(ok, vals, 0.0).astype(np.float32),

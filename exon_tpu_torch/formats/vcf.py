@@ -6,11 +6,13 @@ Copy of exon_tpu/formats/vcf.py: ``VcfHeader`` (:34), ``VcfOptions``
 ``decode_host`` (:220) with ``_decode_vcf_col`` (:389), on the numpy
 field split of textutil.py (the JAX package's fallback to its native
 scan). Columns: ``chrom`` dictionary-encoded, ``pos`` int64, ``ref`` utf8,
-``qual`` float32 with ``.`` as NULL, and the untyped ``info``/``formats``
-utf8 columns. ``id``, ``alt`` and ``filter`` (list columns, :116-120) and
-the typed ``info``/``formats`` structs of ``parse_info``/``parse_formats``
-raise NotImplementedError when projected, until list and struct columns
-are ported (ROADMAP Queue 1, item 2b).
+``qual`` float32 with ``.`` as NULL, ``id``/``alt``/``filter`` as
+List<Utf8> (``_split_list_field`` :139; '.' or an empty field is a NULL
+list), and ``info``/``formats`` as utf8 text, or with ``parse_info`` /
+``parse_formats`` typed from the header's declarations
+(``_typed_value_column`` :286, ``_typed_info_column`` :336,
+``_typed_formats_column`` :360): a struct of the INFO fields and a list of
+one struct per sample.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import datatypes as dt
-from ..batch import Batch, FixedColumn, Schema, VarColumn
+from ..batch import (Batch, FixedColumn, ListColumn, Schema, StructColumn,
+                     VarColumn, utf8_column)
 from .dictenc import dict_encode_slices
-from .textutil import (LineIndex, gather_slices, parse_float_fields,
-                       parse_int_fields, split_fields, to_u8)
+from .textutil import (LineIndex, cumsum_exclusive, gather_slices,
+                       parse_float_fields, parse_int_fields, split_fields,
+                       to_u8)
 
 
 @dataclass
@@ -188,23 +192,126 @@ def _leading_header_lines(arr: np.ndarray) -> list[bytes]:
     return lines
 
 
-def _not_ported(name: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"VCF {name} ({what}) is not ported yet (ROADMAP Queue 1, item 2b: "
-        "list and struct columns)")
+def _split_list_field(arr, s, e, sep: int) -> ListColumn:
+    """Split slices by sep into List<Utf8>; '.' or empty → null row."""
+    n = len(s)
+    dot = (e - s == 1) & (arr[np.clip(s, 0, max(len(arr) - 1, 0))] == ord("."))
+    empty = e <= s
+    null = dot | empty
+    s2 = np.where(null, 0, s)
+    e2 = np.where(null, 0, e)
+    a, roff = gather_slices(arr, s2, e2)
+    seps = np.flatnonzero(a == sep)
+    sep_row = np.searchsorted(roff[1:], seps, side="right") if len(seps) else np.zeros(0, np.int64)
+    sep_counts = np.bincount(sep_row, minlength=n) if n else np.zeros(0, np.int64)
+    counts = np.where(null, 0, sep_counts + 1)
+    list_offs = cumsum_exclusive(counts)
+    # item boundaries, in order: each non-null row contributes its start and
+    # every sep+1 as item starts; every sep and the row end as item ends
+    live = ~null
+    starts_all = np.sort(np.concatenate([roff[:-1][live], seps + 1]))
+    ends_all = np.sort(np.concatenate([seps, roff[1:][live]]))
+    item_vals, item_offs = gather_slices(a, starts_all, ends_all)
+    child = VarColumn(item_vals, item_offs.astype(np.int32),
+                      np.ones(len(item_offs) - 1, bool))
+    return ListColumn(child, list_offs.astype(np.int32), ~null)
 
 
-def check_projection(proj: list[str], options, header: VcfHeader) -> None:
-    """Raise for a projected column whose type the port cannot hold yet."""
-    for name in ("id", "alt", "filter"):
-        if name in proj:
-            raise _not_ported(name, "a list column")
-    if "info" in proj and getattr(options, "parse_info", False) \
-            and header.infos:
-        raise _not_ported("info", "a typed struct column")
-    if "formats" in proj and getattr(options, "parse_formats", False) \
-            and header.formats:
-        raise _not_ported("formats", "a typed list of structs")
+def _typed_value_column(vals: list, number: str, typ: str):
+    """Typed column from raw text values (None = absent)."""
+    if typ == "Flag":
+        present = np.array([v is not None for v in vals], bool)
+        return FixedColumn(np.array([v is True or v == "" or bool(v)
+                                     if v is not None else False
+                                     for v in vals], bool), present)
+    is_list = number != "1"
+
+    def parse_one(v: str):
+        if v is None or v == ".":
+            return None
+        if typ == "Integer":
+            return int(v)
+        if typ == "Float":
+            return float(np.float32(float(v)))
+        return v
+
+    if not is_list:
+        parsed = [parse_one(v) for v in vals]
+        valid = np.array([p is not None for p in parsed], bool)
+        if typ == "Integer":
+            return FixedColumn(np.array([p or 0 for p in parsed], np.int32),
+                               valid)
+        if typ == "Float":
+            return FixedColumn(
+                np.array([0.0 if p is None else p for p in parsed],
+                         np.float32), valid)
+        return utf8_column(parsed)
+    lists = [[parse_one(x) for x in v.split(",")] if v not in (None, ".")
+             else None for v in vals]
+    counts = np.array([len(x) if x else 0 for x in lists], np.int64)
+    offs = cumsum_exclusive(counts).astype(np.int32)
+    flat = [x for lst in lists if lst for x in lst]
+    valid = np.array([x is not None for x in lists], bool)
+    if typ == "Integer":
+        child = FixedColumn(np.array([0 if x is None else x for x in flat],
+                                     np.int32),
+                            np.array([x is not None for x in flat], bool))
+    elif typ == "Float":
+        child = FixedColumn(
+            np.array([0.0 if x is None else x for x in flat], np.float32),
+            np.array([x is not None for x in flat], bool))
+    else:
+        child = utf8_column(flat)
+    return ListColumn(child, offs, valid)
+
+
+def _typed_info_column(arr, s, e, pres, header: VcfHeader):
+    n = len(s)
+    rows = []
+    for i in range(n):
+        d = {}
+        if pres[i]:
+            txt = bytes(arr[s[i]:e[i]])
+            if txt and txt != b".":
+                for part in txt.split(b";"):
+                    if b"=" in part:
+                        k, _, v = part.partition(b"=")
+                        d[k.decode()] = v.decode()
+                    elif part:
+                        d[part.decode()] = True
+        rows.append(d)
+    children = {}
+    for k, (number, typ) in header.infos.items():
+        children[k] = _typed_value_column([r.get(k) for r in rows],
+                                          number, typ)
+    return StructColumn(children, pres.copy())
+
+
+def _typed_formats_column(arr, fs, fe, present, lo, hi, header: VcfHeader):
+    n = hi - lo
+    n_samples = max(len(header.samples), 1)
+    # per row: FORMAT keys + per-sample values; one struct entry per sample
+    flat: list[dict] = []
+    for i in range(lo, hi):
+        keys = []
+        if present[i, 8]:
+            keys = bytes(arr[fs[i, 8]:fe[i, 8]]).decode().split(":")
+        for j in range(n_samples):
+            col_idx = 9 + j
+            d = {}
+            if col_idx < fs.shape[1] and present[i, col_idx]:
+                parts = bytes(arr[fs[i, col_idx]:fe[i, col_idx]]
+                              ).decode().split(":")
+                for k, v in zip(keys, parts):
+                    d[k] = v
+            flat.append(d)
+    children = {}
+    for k, (number, typ) in header.formats.items():
+        children[k] = _typed_value_column([d.get(k) for d in flat],
+                                          number, typ)
+    child = StructColumn(children, np.ones(len(flat), bool))
+    offs = (np.arange(n + 1) * n_samples).astype(np.int32)
+    return ListColumn(child, offs, np.ones(n, bool))
 
 
 def decode_host(data: bytes, options: VcfOptions,
@@ -221,9 +328,12 @@ def decode_host(data: bytes, options: VcfOptions,
     header = with_header or VcfHeader.parse(_leading_header_lines(arr))
     schema = vcf_schema(options, header)
     proj = projection if projection is not None else schema.names
-    check_projection(proj, options, header)
     out_schema = schema.project(proj)
-    if header.samples or "formats" in proj:
+    typed_formats = getattr(options, "parse_formats", False) and \
+        header.formats
+    if typed_formats:
+        n_fields = 9 + max(len(header.samples), 1)
+    elif header.samples or "formats" in proj:
         n_fields = 9
     else:
         # split only as many fields as the projection (and region mask)
@@ -255,14 +365,18 @@ def decode_host(data: bytes, options: VcfOptions,
     bs = options.batch_size
     for lo in range(0, n, bs):
         hi = min(lo + bs, n)
-        cols = [_decode_vcf_col(name, arr, fs, fe, present, lo, hi, li)
-                for name in proj]
+        cols = [_decode_vcf_col(name, arr, fs, fe, present, lo, hi, li,
+                                header, options) for name in proj]
         yield Batch(out_schema, cols, hi - lo)
 
 
-def _decode_vcf_col(name, arr, fs, fe, present, lo, hi, li):
+def _decode_vcf_col(name, arr, fs, fe, present, lo, hi, li,
+                    header: VcfHeader, options=None):
     idx = _FIELD_IDX[name]
     if name == "formats":
+        if getattr(options, "parse_formats", False) and header.formats:
+            return _typed_formats_column(arr, fs, fe, present, lo, hi,
+                                         header)
         s = fs[lo:hi, 8]
         e = li.ends[lo:hi]
         pres = present[lo:hi, 8]
@@ -284,6 +398,12 @@ def _decode_vcf_col(name, arr, fs, fe, present, lo, hi, li):
         return FixedColumn(np.where(ok, vals, 0.0).astype(np.float32),
                            ok & ~dot & pres)
     if name == "info":
+        if getattr(options, "parse_info", False) and header.infos:
+            return _typed_info_column(arr, s, e, pres & ~dot, header)
         v, o = gather_slices(arr, np.where(dot, 0, s), np.where(dot, 0, e))
         return VarColumn(v, o.astype(np.int32), pres & ~dot)
+    if name in ("id", "filter"):
+        return _split_list_field(arr, s, e, ord(";"))
+    if name == "alt":
+        return _split_list_field(arr, s, e, ord(","))
     raise KeyError(name)

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 from . import (compact_mask, count_bytes, expand_segments, format_int,
                gather_spans, gather_var, hash_aggregate, like_match,
-               line_index, map_bytes, parse_number, polya_tail, row_hash,
-               sort_keys, span_concat, string_cmp, string_eq, sw_score,
-               text_records, window_bounds, window_frame)
+               line_index, list_bins, map_bytes, map_lookup, parse_number,
+               polya_tail, row_hash, sort_keys, span_concat, string_cmp,
+               string_eq, sw_score, text_records, window_bounds,
+               window_frame)
 
 KERNEL_MODULES = {
     "compact_mask": compact_mask,
@@ -38,6 +39,8 @@ KERNEL_MODULES = {
     "span_concat": span_concat,
     "window_bounds": window_bounds,
     "window_frame": window_frame,
+    "map_lookup": map_lookup,
+    "list_bins": list_bins,
 }
 
 

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
+_F64 = ctypes.c_double
 # argtypes of every C entry point; pointers and the stream are c_void_p so
 # ctypes passes them at full width
 SIGNATURES = {
@@ -62,6 +63,11 @@ SIGNATURES = {
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _P, _P, _P],
     "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
+    "exon_map_bytes_widen": [_P, _I64, _P, _I32, _P, _P],
+    "exon_map_bytes_narrow": [_P, _I64, _P, _P],
+    "exon_list_bins_peak": [_P, _P, _P, _I64, _F64, _F64, _P, _P],
+    "exon_list_bins_bins": [_P, _P, _P, _I64, _F64, _F64, _I32, _P, _P],
+    "exon_map_lookup": [_P, _P, _P, _P, _I64, _P, _I32, _P, _P],
     "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
     "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
     "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _P],

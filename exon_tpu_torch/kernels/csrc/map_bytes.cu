@@ -21,6 +21,20 @@
 // bytes in descending order. In word-start mode (mode 2) the table holds
 // 512 entries, and each lane also reads the byte before its own (a
 // neighbour's byte, from L1).
+//
+// Widen and narrow (exon_map_bytes_widen, exon_map_bytes_narrow) are K11b's
+// byte-to-list maps, with the offsets unchanged, so they run elementwise
+// over the flat buffer with no row bounds. Widen replaces exon_tpu/udfs.py
+// integer_encode_dna (:106, DNA_CODE[values]), integer_encoding (:340, a
+// 256-entry int64 table), quality_score_string_to_list (:115, b - 33) and
+// the FASTA encodings of exon_tpu/formats/fasta_device.py:99-104: each
+// uint8 byte goes through a 256-entry int64 table in shared memory (2 KB)
+// and is stored as int8 (out_width 1) or int64 (out_width 8). Narrow
+// replaces quality_score_list_to_string (:122): an int64 score x becomes
+// the byte (int32(x) + 33) & 0xFF, the wrap of the JAX casts. Bound: HBM
+// bytes, 1 read and 1 or 8 written per element (widen), 8 read and 1
+// written (narrow). Design: a grid-stride loop, one element a thread per
+// step, neighbouring threads on neighbouring elements.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,7 +81,61 @@ __global__ void map_bytes_kernel(const uint8_t* __restrict__ values,
   }
 }
 
+__global__ void widen_kernel(const uint8_t* __restrict__ values, int64_t total,
+                             const int64_t* __restrict__ table,
+                             int32_t out_width, void* __restrict__ out) {
+  __shared__ int64_t map[256];
+  for (int i = threadIdx.x; i < 256; i += kThreads) map[i] = table[i];
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int8_t* out8 = static_cast<int8_t*>(out);
+  int64_t* out64 = static_cast<int64_t*>(out);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < total; i += stride) {
+    const int64_t v = map[values[i]];
+    if (out_width == 1) {
+      out8[i] = static_cast<int8_t>(v);
+    } else {
+      out64[i] = v;
+    }
+  }
+}
+
+__global__ void narrow_kernel(const int64_t* __restrict__ values,
+                              int64_t total, uint8_t* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < total; i += stride) {
+    // int64 -> int32 keeps the low word, as the JAX astype does
+    const uint32_t low = static_cast<uint32_t>(values[i]);
+    out[i] = static_cast<uint8_t>((low + 33u) & 0xFFu);
+  }
+}
+
+int64_t flat_blocks(int64_t total) {
+  int64_t blocks = (total + kThreads - 1) / kThreads;
+  return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
 }  // namespace
+
+extern "C" int exon_map_bytes_widen(const void* values, int64_t total,
+                                    const void* table, int32_t out_width,
+                                    void* out, void* stream) {
+  widen_kernel<<<static_cast<unsigned>(flat_blocks(total)), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(values), total,
+      static_cast<const int64_t*>(table), out_width, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int exon_map_bytes_narrow(const void* values, int64_t total,
+                                     void* out, void* stream) {
+  narrow_kernel<<<static_cast<unsigned>(flat_blocks(total)), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(values), total, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int exon_map_bytes(const void* values, const void* offsets,
                               int64_t n, const void* table, int32_t mode,

@@ -17,6 +17,17 @@ of the same size. ``mode`` is the kernel's:
   ``table[byte]`` elsewhere (table [512]).
 
 Bytes outside every row are 0.
+
+Two more modes are K11b's byte-to-list maps (exon_tpu/udfs.py
+``integer_encode_dna`` :106, ``integer_encoding`` :340,
+``quality_score_string_to_list`` :115, ``_list_to_string`` :122, and the
+FASTA encodings of exon_tpu/formats/fasta_device.py:99-104). The offsets are
+unchanged, so they take the flat values alone:
+
+- ``map_bytes_widen(values, table, out_dtype)``: uint8 values through an
+  int64 table [256], stored as int8 or int64;
+- ``map_bytes_narrow(values)``: int64 values to the uint8 bytes
+  ``(int32(x) + 33) & 0xFF``, wrapping as the JAX casts do.
 """
 
 from __future__ import annotations
@@ -91,5 +102,65 @@ def map_bytes(offsets: torch.Tensor, values: torch.Tensor,
     _build.check(_build.library().exon_map_bytes(
         values.data_ptr(), offsets.data_ptr(), n, table.data_ptr(),
         MODES[mode], out.data_ptr(), _build.stream_of(values)), "map_bytes")
+    launches += 1
+    return out
+
+
+_WIDTHS = {torch.int8: 1, torch.int64: 8}
+
+
+def map_bytes_widen_plain(values: torch.Tensor, table: torch.Tensor,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain PyTorch twin: an index_select through the table."""
+    return table.index_select(0, values.long()).to(out_dtype)
+
+
+def map_bytes_widen(values: torch.Tensor, table: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    global launches
+    if values.dtype != torch.uint8 or values.dim() != 1:
+        raise TypeError(f"map_bytes_widen needs 1-d uint8 values, got "
+                        f"{values.dtype} {tuple(values.shape)}")
+    if table.dtype != torch.int64 or table.shape != (256,):
+        raise TypeError("map_bytes_widen: the table must be int64 [256]")
+    if out_dtype not in _WIDTHS:
+        raise TypeError(f"map_bytes_widen: out_dtype must be int8 or int64, "
+                        f"got {out_dtype}")
+    if values.device != table.device:
+        raise ValueError("map_bytes_widen: tensors on different devices")
+    if not _build.on_cuda(values, "map_bytes_widen"):
+        return map_bytes_widen_plain(values, table, out_dtype)
+    values, table = values.contiguous(), table.contiguous()
+    out = torch.empty(values.shape[0], dtype=out_dtype, device=values.device)
+    if values.shape[0] == 0:
+        return out
+    _build.check(_build.library().exon_map_bytes_widen(
+        values.data_ptr(), values.shape[0], table.data_ptr(),
+        _WIDTHS[out_dtype], out.data_ptr(), _build.stream_of(values)),
+        "map_bytes_widen")
+    launches += 1
+    return out
+
+
+def map_bytes_narrow_plain(values: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch twin: the JAX casts, int64 to int32 to uint8."""
+    return ((values.to(torch.int32) + 33) & 0xFF).to(torch.uint8)
+
+
+def map_bytes_narrow(values: torch.Tensor) -> torch.Tensor:
+    global launches
+    if values.dtype != torch.int64 or values.dim() != 1:
+        raise TypeError(f"map_bytes_narrow needs 1-d int64 values, got "
+                        f"{values.dtype} {tuple(values.shape)}")
+    if not _build.on_cuda(values, "map_bytes_narrow"):
+        return map_bytes_narrow_plain(values)
+    values = values.contiguous()
+    out = torch.empty(values.shape[0], dtype=torch.uint8,
+                      device=values.device)
+    if values.shape[0] == 0:
+        return out
+    _build.check(_build.library().exon_map_bytes_narrow(
+        values.data_ptr(), values.shape[0], out.data_ptr(),
+        _build.stream_of(values)), "map_bytes_narrow")
     launches += 1
     return out

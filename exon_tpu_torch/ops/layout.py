@@ -6,7 +6,10 @@ the work of ``take_offsets`` :111, ``relayout_values`` :127 and
 ``byte_row_ids`` :27), ``take_fixed``/``take_dict`` (:91, :101) are
 ``index_select``, and ``take_batch``/``filter_batch`` (:204, :222) compose
 them. Batches are exact, so a take returns exactly ``count`` rows.
-``dict_to_var`` (:275) is a gather_var over the vocabulary.
+``dict_to_var`` (:275) is a gather_var over the vocabulary. A list column
+(:175-187) is taken by its rows' new offsets, each element's source index
+from the expand_segments kernel (K1c) and a take of the child by the same
+function; a struct column (:171) by a take of each child.
 """
 
 from __future__ import annotations
@@ -14,9 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..batch import Batch, Column, DictColumn, FixedColumn, VarColumn
+from ..batch import (Batch, Column, DictColumn, FixedColumn, ListColumn,
+                     StructColumn, VarColumn)
 from ..kernels.compact_mask import compact_mask
+from ..kernels.expand_segments import expand_segments
 from ..kernels.gather_var import gather_var
+
+_INT32_LIMIT = 1 << 31
 
 
 def mask_to_indices(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,6 +50,28 @@ def take_var(col: VarColumn, indices: torch.Tensor) -> VarColumn:
                                                                 indices.long()))
 
 
+def take_list(col: ListColumn, indices: torch.Tensor) -> ListColumn:
+    """Rows ``indices`` of a list column: the new offsets from the taken
+    rows' lengths (one host read of their total), each element's source
+    index from expand_segments, and the child taken at those indices."""
+    idx = indices.long()
+    off = col.offsets.long()
+    starts = off[:-1].index_select(0, idx)
+    lens = off[1:].index_select(0, idx) - starts
+    new_off = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
+                          device=col.offsets.device)
+    torch.cumsum(lens, 0, out=new_off[1:])
+    total = int(new_off[-1])
+    if total >= _INT32_LIMIT:
+        raise ValueError(f"take_list: {total} output elements exceed int32 "
+                         "offsets")
+    _rows, src = expand_segments(starts.to(torch.int32),
+                                 lens.to(torch.int32), new_off[:-1], total,
+                                 col.child.capacity)
+    return ListColumn(take_column(col.child, src), new_off.to(torch.int32),
+                      col.validity.index_select(0, idx))
+
+
 def take_column(col: Column, indices: torch.Tensor) -> Column:
     if isinstance(col, FixedColumn):
         return take_fixed(col, indices)
@@ -50,7 +79,25 @@ def take_column(col: Column, indices: torch.Tensor) -> Column:
         return take_dict(col, indices)
     if isinstance(col, VarColumn):
         return take_var(col, indices)
+    if isinstance(col, ListColumn):
+        return take_list(col, indices)
+    if isinstance(col, StructColumn):
+        return StructColumn({k: take_column(v, indices)
+                             for k, v in col.children.items()},
+                            col.validity.index_select(0, indices.long()))
     raise TypeError(f"take_column: {type(col)}")
+
+
+def null_where(col: Column, null_mask: torch.Tensor) -> Column:
+    """The column with the rows of ``null_mask`` NULL; a struct's children
+    too, since its export reads their validity (ROADMAP Queue 3, F23)."""
+    import dataclasses
+
+    if isinstance(col, StructColumn):
+        return StructColumn({k: null_where(v, null_mask)
+                             for k, v in col.children.items()},
+                            col.validity & ~null_mask)
+    return dataclasses.replace(col, validity=col.validity & ~null_mask)
 
 
 def take_batch(batch: Batch, indices: torch.Tensor) -> Batch:

@@ -17,17 +17,23 @@ literal run the string_cmp kernel, ``=``/``!=`` of two var-width columns
 the string_eq kernel (``_string_col_eq`` :763), CAST of strings to numbers
 the parse_number kernel and CAST of integers to strings the format_int
 kernel. An ordered compare of two string columns raises PlanError, as in
-the JAX package (:676-679). Expressions the port does not carry (map/struct
-access and the list-column UDFs) raise NotImplementedError naming their
-ROADMAP item; a name neither package knows raises PlanError, and so does a
-window call met outside a Window node (WindowExec computes them).
+the JAX package (:676-679). ``a.b``, ``a['k']`` and ``a[1]`` (:461-489)
+take a struct's field, a map's value (``_map_lookup`` :716: the map_lookup
+kernel finds each row's first entry with the key, the list take of
+ops/layout.py gathers its value) or a list's 1-based element
+(``_list_element`` :745, an index gather of the child); a missing key or an
+element out of range is NULL. A name neither package knows raises
+PlanError, and so does a window call met outside a Window node (WindowExec
+computes them).
 
 Two JAX faults are not copied (ROADMAP Queue 3): a NULL row never passes a
 string compare (F8: the JAX var compares treat it as '', and its ``!=`` of
 two columns passes NULL rows), and an ordered compare of a dictionary
 column with a literal outside its vocabulary compares the strings (F9: the
 JAX rank lookup is approximate). Two string columns compare in every byte,
-not a 32-byte prefix and the length (F6).
+not a 32-byte prefix and the length (F6). IS NULL reads a list's own
+validity, where the JAX ``_validity_of`` (:581) calls every list valid
+(F25).
 
 Evaluation returns a Column, a torch tensor of per-row values (all valid),
 or a Python scalar (a literal).
@@ -42,9 +48,11 @@ import numpy as np
 import torch
 
 from .. import datatypes as dt
-from ..batch import Batch, DictColumn, FixedColumn, VarColumn
+from ..batch import (Batch, DictColumn, FixedColumn, ListColumn,
+                     StructColumn, VarColumn)
 from ..errors import PlanError
 from ..kernels.format_int import format_int
+from ..kernels.map_lookup import map_lookup
 from ..kernels.parse_number import parse_number
 from ..kernels.string_cmp import string_cmp
 from ..kernels.string_eq import string_eq
@@ -483,10 +491,34 @@ def eval_expr(expr: Expr, batch: Batch):
     if isinstance(expr, FunctionCall):
         fn, _dtype = get_function(expr.name)
         return fn(batch, *[eval_expr(a, batch) for a in expr.args])
-    if isinstance(expr, (FieldAccess, Subscript)):
-        raise NotImplementedError(
-            "struct, map and list access is not ported yet (ROADMAP Queue 1, "
-            "items 2-3: list and map columns)")
+    if isinstance(expr, FieldAccess):
+        v = eval_expr(expr.child, batch)
+        if isinstance(v, StructColumn):
+            child = v.children.get(expr.field)
+            if child is None:
+                raise PlanError(f"no struct field {expr.field!r}; have "
+                                f"{sorted(v.children)}")
+            return child
+        if isinstance(v, ListColumn) and _is_map_col(v):
+            return _map_lookup(v, expr.field)
+        raise PlanError(f"field access on non-struct value: {expr!r}")
+    if isinstance(expr, Subscript):
+        v = eval_expr(expr.child, batch)
+        if not isinstance(expr.index, Literal):
+            raise PlanError("subscript index must be a literal")
+        iv = expr.index.value
+        if isinstance(v, StructColumn) and isinstance(iv, str):
+            child = v.children.get(iv)
+            if child is None:
+                raise PlanError(f"no struct field {iv!r}")
+            return child
+        if isinstance(v, ListColumn):
+            if _is_map_col(v) and isinstance(iv, str):
+                return _map_lookup(v, iv)
+            if isinstance(iv, (int, np.integer)) and not isinstance(iv, bool):
+                return _list_element(v, int(iv))
+        raise PlanError(
+            f"subscript {iv!r} unsupported on {type(v).__name__}")
     if isinstance(expr, WindowCall):
         raise PlanError(
             f"window function {expr.fn} outside a Window node: the planner "
@@ -681,8 +713,56 @@ def _cast_dict_to_number(v: DictColumn, dtype: dt.DataType) -> FixedColumn:
     return FixedColumn(torch.where(ok, parsed.values[codes], zero), ok)
 
 
+def _is_map_col(v: ListColumn) -> bool:
+    return isinstance(v.child, StructColumn) and \
+        set(v.child.children) in ({"key", "value"}, {"keys", "values"})
+
+
+def _map_lookup(v: ListColumn, key: str):
+    """Each row's value for a string key, NULL where the key is absent or
+    the map NULL (exon_tpu/plan/expressions.py:716): the map_lookup kernel
+    gives each row's first entry with the key, the list take of the value
+    column gathers it."""
+    kname = "key" if "key" in v.child.children else "keys"
+    kcol = v.child.children[kname]
+    if isinstance(kcol, DictColumn):
+        kcol = layout_ops.dict_to_var(kcol)
+    if not isinstance(kcol, VarColumn):
+        raise PlanError("map keys must be strings")
+    vcol = v.child.children["value" if kname == "key" else "values"]
+    if vcol.capacity == 0:  # no entry at all
+        return _all_null(vcol, v.capacity)
+    first = map_lookup(v.offsets, kcol.offsets, kcol.values, kcol.validity,
+                       key.encode())
+    found = (first >= 0) & v.validity
+    out = layout_ops.take_column(vcol, first.clamp(min=0))
+    return layout_ops.null_where(out, ~found)
+
+
+def _all_null(like, n: int):
+    """n NULL rows of the layout and type of the column ``like``."""
+    from ..batch import empty_like
+
+    return Batch(None, [empty_like(like, n)], n).to_device(
+        like.validity.device).columns[0]
+
+
+def _list_element(v: ListColumn, i: int):
+    """1-based list element (DataFusion array indexing); out of range or a
+    non-positive index gives NULL (exon_tpu/plan/expressions.py:745)."""
+    if v.child.capacity == 0:  # no element to gather
+        return _all_null(v.child, v.capacity)
+    offs = v.offsets
+    lens = offs[1:] - offs[:-1]
+    ok = v.validity & (lens >= i) if i >= 1 else torch.zeros_like(v.validity)
+    idx = (offs[:-1] + (i - 1)).clamp(0, v.child.capacity - 1)
+    out = layout_ops.take_column(v.child, idx.to(torch.int32))
+    return layout_ops.null_where(out, ~ok)
+
+
 def _validity_of(v, batch: Batch) -> torch.Tensor:
-    if isinstance(v, (FixedColumn, VarColumn, DictColumn)):
+    if isinstance(v, (FixedColumn, VarColumn, DictColumn, ListColumn,
+                      StructColumn)):
         return v.validity
     if isinstance(v, torch.Tensor):
         return torch.ones(v.shape[0], dtype=torch.bool, device=v.device)

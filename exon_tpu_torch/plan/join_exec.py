@@ -2,7 +2,8 @@
 
 Counterpart of exon_tpu/plan/join_exec.py: ``join_schema`` (:36),
 ``JoinExec`` (:57), ``_jit_build_sort`` (:98), ``_jit_probe_plan`` (:198),
-``_jit_emit`` (:239) and ``_null_where`` (:304), for inner and left joins.
+``_jit_emit`` (:239) and ``_null_where`` (:304, ``ops/layout.py``
+``null_where`` here), for inner and left joins.
 
   build:  collect the build (right) side once with ``concat_batches``; key
           it; ``torch.sort(stable=True)`` orders it by (NULL key last, key)
@@ -31,8 +32,7 @@ from typing import Iterator, Optional
 
 import torch
 
-from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
-                     empty_batch)
+from ..batch import Batch, DictColumn, Schema, VarColumn, empty_batch
 from ..errors import PlanError
 from ..kernels.expand_segments import expand_segments
 from ..kernels.string_eq import string_eq
@@ -185,7 +185,8 @@ class JoinExec(PhysicalPlan):
         sel = sel[: int(count)]
         right = layout_ops.take_batch(build.batch, build_idx[sel.long()])
         right_cols = right.columns if null_right is None else \
-            [_null_where(c, null_right[sel.long()]) for c in right.columns]
+            [layout_ops.null_where(c, null_right[sel.long()])
+             for c in right.columns]
         left = layout_ops.take_batch(pb, probe_idx[sel.long()])
         return Batch(self.out_schema, left.columns + right_cols,
                      sel.shape[0])
@@ -213,10 +214,3 @@ class JoinExec(PhysicalPlan):
         right = empty_batch(rschema, pb.length).to_device(pb.device)
         return Batch(self.out_schema, pb.columns + right.columns, pb.length)
 
-
-def _null_where(col, null_mask: torch.Tensor):
-    if isinstance(col, FixedColumn):
-        return FixedColumn(col.values, col.validity & ~null_mask)
-    if isinstance(col, DictColumn):
-        return DictColumn(col.codes, col.validity & ~null_mask, col.vocab)
-    return VarColumn(col.values, col.offsets, col.validity & ~null_mask)

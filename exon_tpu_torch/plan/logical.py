@@ -94,6 +94,9 @@ class Aggregate(LogicalPlan):
                 fields.append(Field(name, dt.float64, True))
             elif call.fn == "string_agg":
                 fields.append(Field(name, dt.utf8, True))
+            elif call.fn == "array_agg":
+                f = infer_expr_field(call.child, in_schema)
+                fields.append(Field(name, dt.list_(f.dtype), True))
             elif call.child is not None:
                 f = infer_expr_field(call.child, in_schema)
                 fields.append(Field(name, f.dtype, True))

@@ -26,7 +26,8 @@ string or dictionary column; ``_HOLISTIC_FNS`` :449, the dispatch :218-226,
 need every value: the group and argument expressions are evaluated on the
 device, each batch is copied to the host once, and the groups (exact, in
 first-seen order) and their values are computed with numpy, without
-pyarrow. ``array_agg`` waits for list columns (ROADMAP Queue 1, item 2b).
+pyarrow. ``array_agg`` gives each group's non-NULL values in row order as a
+list (an empty list where all are NULL; NULL for no rows at all).
 """
 
 from __future__ import annotations
@@ -39,10 +40,11 @@ import numpy as np
 import torch
 
 from .. import datatypes as dt
-from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
-                     concat_host, empty_batch, fixed_column, host_pylists,
+from ..batch import (Batch, DictColumn, FixedColumn, ListColumn, Schema,
+                     StructColumn, VarColumn, column_pyvalues, concat_host,
+                     empty_batch, fixed_column, host_pylists, pyvalues_column,
                      take_host, utf8_column)
-from ..errors import ExecutionError
+from ..errors import ExecutionError, PlanError
 from ..kernels import hash_aggregate as hk
 from ..kernels.expand_segments import expand_segments
 from ..kernels.row_hash import row_hash
@@ -145,7 +147,8 @@ class ProjectExec(PhysicalPlan):
 def _to_column(v, batch: Batch):
     """An evaluated expression as a column (exon_tpu/plan/physical.py:168):
     a Python scalar fills every row, a string repeats its bytes."""
-    if isinstance(v, (FixedColumn, VarColumn, DictColumn)):
+    if isinstance(v, (FixedColumn, VarColumn, DictColumn, ListColumn,
+                      StructColumn)):
         return v
     if isinstance(v, str):
         b, cap = v.encode(), batch.capacity
@@ -273,10 +276,6 @@ class AggregateExec(PhysicalPlan):
 
     def batches(self) -> Iterator[Batch]:
         for c in self.agg_calls:
-            if c.fn == "array_agg":
-                raise NotImplementedError(
-                    "array_agg is not ported yet (ROADMAP Queue 1, item 2b: "
-                    "list columns)")
             if c.distinct or (c.fn not in _OPS and c.fn not in _HOLISTIC_FNS):
                 raise NotImplementedError(
                     f"aggregate {c.display_name()} is not ported yet "
@@ -597,11 +596,21 @@ def _holistic_column(call: AggregateCall, col, gid: np.ndarray, ng: int,
     exon_tpu/plan/physical.py:495-535): ``median`` in float64 (rounded half
     to even for integers), ``string_agg`` joined in row order with its
     values printed as Python prints them, MIN/MAX of strings by their bytes
-    (code-point order for UTF-8), ``count`` of non-NULL values, and the
-    other aggregates over the group's non-NULL values, NULL where there are
-    none."""
+    (code-point order for UTF-8), ``count`` of non-NULL values,
+    ``array_agg`` the group's non-NULL values in row order (NULL only for
+    no rows at all), and the other aggregates over the group's non-NULL
+    values, NULL where there are none."""
     fn = call.fn
     n = gid.shape[0]
+    if fn == "array_agg":
+        groups: list = [[] for _ in range(ng)]
+        for k, x in zip(gid.tolist(), column_pyvalues(col, n)):
+            if x is not None:
+                groups[k].append(x)
+        rows = np.bincount(gid, minlength=ng) > 0
+        return pyvalues_column([g if r else None
+                                for g, r in zip(groups, rows.tolist())],
+                               dtype)
     if fn == "count":
         rows = gid if col is None else gid[np.asarray(col.validity)[:n]]
         return FixedColumn(np.bincount(rows, minlength=ng).astype(np.int64),
@@ -794,6 +803,19 @@ def _cat_columns(parts: list):
                                       for p, base in zip(parts, bases)]
         return VarColumn(torch.cat([p.values for p in parts]),
                          torch.cat(offs).to(torch.int32), valid)
+    if isinstance(first, ListColumn):
+        bases = np.cumsum([0] + [p.child.capacity for p in parts]).tolist()
+        if bases[-1] >= 1 << 31:
+            raise ExecutionError(f"concatenated list column holds "
+                                 f"{bases[-1]} elements; int32 offsets "
+                                 "address fewer than 2^31")
+        offs = [first.offsets[:1]] + [p.offsets[1:] + base
+                                      for p, base in zip(parts, bases)]
+        return ListColumn(_cat_columns([p.child for p in parts]),
+                          torch.cat(offs).to(torch.int32), valid)
+    if isinstance(first, StructColumn):
+        return StructColumn({k: _cat_columns([p.children[k] for p in parts])
+                             for k in first.children}, valid)
     vocab: dict = {}
     codes = []
     for p in parts:
@@ -908,6 +930,9 @@ def sort_key_specs(keys: list, batch: Batch,
             var_lens.append((v.offsets[1:] - v.offsets[:-1]).max())
         elif isinstance(v, FixedColumn):
             specs.append(FixedKey(v.values, v.validity, asc, nulls_first))
+        elif isinstance(v, (ListColumn, StructColumn)):
+            raise PlanError(f"ORDER BY {e.display_name()}: a list or struct "
+                            "sort key is not supported")
         else:
             col = _to_column(v, batch)
             specs.append(FixedKey(col.values, col.validity, asc,
@@ -1096,22 +1121,7 @@ class ValuesExec(PhysicalPlan):
         return self.out_schema
 
     def batches(self) -> Iterator[Batch]:
-        from ..batch import utf8_column
-
-        n = len(self.rows)
-        cols = []
-        for j, f in enumerate(self.out_schema.all_fields):
-            vals = [r[j] for r in self.rows]
-            if f.dtype.is_var_width or f.dtype.kind == dt.TypeKind.DICTIONARY:
-                cols.append(utf8_column([None if v is None else str(v)
-                                         for v in vals]))
-            elif f.dtype.is_fixed_width:
-                valid = np.asarray([v is not None for v in vals], np.bool_)
-                arr = np.asarray([0 if v is None else v for v in vals],
-                                 dtype=dt.numpy_dtype(f.dtype))
-                cols.append(FixedColumn(arr, valid))
-            else:
-                raise NotImplementedError(
-                    f"{f.dtype} literals are not ported yet (ROADMAP Queue "
-                    "1, item 2: list columns)")
-        yield Batch(self.out_schema, cols, n).to_device(self.device)
+        cols = [pyvalues_column([r[j] for r in self.rows], f.dtype)
+                for j, f in enumerate(self.out_schema.all_fields)]
+        yield Batch(self.out_schema, cols, len(self.rows)).to_device(
+            self.device)

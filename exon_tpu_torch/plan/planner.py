@@ -31,8 +31,9 @@ from . import logical as L
 from . import physical as P
 from .expressions import (AggregateCall, Alias, BinaryOp, Case, Cast,
                           ColumnRef, Expr, FieldAccess, FunctionCall, InList,
-                          IsNull, Like, Literal, Not, WindowCall, conjoin,
-                          expr_columns, get_function, split_conjunction)
+                          IsNull, Like, Literal, Not, Subscript, WindowCall,
+                          conjoin, expr_columns, get_function,
+                          split_conjunction)
 
 _NUMERIC_ORDER = ["int8", "int16", "int32", "int64", "float32", "float64"]
 
@@ -62,11 +63,24 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
         return Field(expr.display_name(), expr.dtype, True)
     if isinstance(expr, Case):
         return _case_field(expr, schema)
-    if isinstance(expr, FieldAccess) and isinstance(expr.child, ColumnRef) \
-            and not schema.has_field(expr.child.name) \
-            and schema.has_field(expr.field):
-        # a table-qualified ref (a.seqname) before resolution
-        return schema.field(expr.field)
+    if isinstance(expr, FieldAccess):
+        if isinstance(expr.child, ColumnRef) and \
+                not schema.has_field(expr.child.name) and \
+                schema.has_field(expr.field):
+            # a table-qualified ref (a.seqname) before resolution
+            return schema.field(expr.field)
+        return _access_field(infer_expr_field(expr.child, schema), expr.field,
+                             expr.field)
+    if isinstance(expr, Subscript):
+        child = infer_expr_field(expr.child, schema)
+        iv = expr.index.value if isinstance(expr.index, Literal) else None
+        if child.dtype.kind == dt.TypeKind.LIST:
+            return Field(expr.display_name(), child.dtype.value_type, True)
+        if isinstance(iv, str):
+            name = expr.display_name() if child.dtype.kind == \
+                dt.TypeKind.MAP else iv
+            return _access_field(child, iv, name)
+        raise PlanError(f"cannot type subscript on {child.dtype}")
     if isinstance(expr, BinaryOp):
         if expr.op in ("=", "!=", "<", "<=", ">", ">=", "and", "or"):
             return Field(expr.display_name(), dt.bool_, True)
@@ -88,6 +102,8 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
         if expr.fn == "string_agg":
             return Field(expr.display_name(), dt.utf8, True)
         inner = infer_expr_field(expr.child, schema)
+        if expr.fn == "array_agg":
+            return Field(expr.display_name(), dt.list_(inner.dtype), True)
         return Field(expr.display_name(), inner.dtype, True)
     if isinstance(expr, FunctionCall):
         _fn, dtype = get_function(expr.name)
@@ -99,6 +115,22 @@ def infer_expr_field(expr: Expr, schema: Schema) -> Field:
         return infer_window_field(expr, expr.display_name(), schema)
     raise NotImplementedError(
         f"cannot type {expr!r}: not ported yet (ROADMAP Queue 1)")
+
+
+def _access_field(child: Field, key: str, name: str) -> Field:
+    """The type of a struct's field or of a map's value
+    (exon_tpu/plan/planner.py:78-120)."""
+    if child.dtype.kind == dt.TypeKind.STRUCT:
+        for f in child.dtype.children:
+            if f.name == key:
+                return Field(name, f.dtype, True)
+        raise PlanError(f"no field named {key!r} in struct {child.name!r}")
+    if child.dtype.kind == dt.TypeKind.MAP:
+        kv = child.dtype.value_type
+        val = next(f.dtype for f in kv.children
+                   if f.name in ("value", "values"))
+        return Field(name, val, True)
+    raise PlanError(f"field access on non-struct column {child.name!r}")
 
 
 def infer_window_field(call: WindowCall, name: str, schema: Schema) -> Field:
@@ -167,43 +199,49 @@ def _push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def _resolve_field_access(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Strip the table qualifier of a parse-time dotted ref
-    (exon_tpu/plan/planner.py:231); the port has no struct or map columns
-    (ROADMAP Queue 1, items 2-3), so every dot over a column name is a
-    qualifier."""
+    """Turn a parse-time dotted ref into a struct or map access where its
+    head is a struct or map column of the node's input, and into a plain
+    ColumnRef (the dot was a table qualifier) otherwise
+    (exon_tpu/plan/planner.py:231)."""
     import dataclasses as _dc
 
-    def resolve(e: Expr) -> Expr:
+    def resolve(e: Expr, schema: Schema) -> Expr:
         if isinstance(e, FieldAccess):
-            child = resolve(e.child)
+            child = resolve(e.child, schema)
             if isinstance(child, ColumnRef):
+                if schema.has_field(child.name) and schema.field(
+                        child.name).dtype.kind.value in ("struct", "map"):
+                    return FieldAccess(child, e.field)
                 return ColumnRef(e.field)
             return FieldAccess(child, e.field)
         if not e.children():
             return e
-        return _dc.replace(e, **{f.name: walk(getattr(e, f.name))
+        return _dc.replace(e, **{f.name: walk(getattr(e, f.name), schema)
                                  for f in _dc.fields(e)})
 
-    def walk(v):
+    def walk(v, schema):
         # CASE keeps (when, then) pairs in a list
         if isinstance(v, Expr):
-            return resolve(v)
+            return resolve(v, schema)
         if isinstance(v, (list, tuple)):
-            return type(v)(walk(x) for x in v)
+            return type(v)(walk(x, schema) for x in v)
         return v
 
     kids = [_resolve_field_access(c) for c in plan.children()]
+    if not kids:
+        return plan
+    sch = kids[0].schema()
     if isinstance(plan, L.Filter):
-        return L.Filter(resolve(plan.predicate), kids[0])
+        return L.Filter(resolve(plan.predicate, sch), kids[0])
     if isinstance(plan, L.Project):
-        return L.Project([resolve(e) for e in plan.exprs], kids[0])
+        return L.Project([resolve(e, sch) for e in plan.exprs], kids[0])
     if isinstance(plan, L.Aggregate):
-        return L.Aggregate([resolve(e) for e in plan.group_exprs],
-                           [resolve(e) for e in plan.agg_exprs],
+        return L.Aggregate([resolve(e, sch) for e in plan.group_exprs],
+                           [resolve(e, sch) for e in plan.agg_exprs],
                            plan.agg_names, kids[0])
     if isinstance(plan, L.Sort):
-        return L.Sort([(resolve(e), asc) for e, asc in plan.keys], kids[0],
-                      plan.fetch)
+        return L.Sort([(resolve(e, sch), asc) for e, asc in plan.keys],
+                      kids[0], plan.fetch)
     return _with_children(plan, kids)
 
 

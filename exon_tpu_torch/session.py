@@ -1,7 +1,7 @@
 """ExonSession: the port's entry point.
 
 Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
-``read_vcf``, ``read_gff`` and ``read_bam`` (VCF through its own provider
+``read_vcf``, ``read_gff``, ``read_bam`` and ``read_mzml`` (VCF through its own provider
 with region pushdown, as ``_make_provider`` :121 gives it), the table registry (``register_table``,
 ``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
 which runs the port's copy of the SQL frontend. Creating a session
@@ -82,6 +82,12 @@ class ExonSession:
 
     def read_bam(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("BAM", url, options, **kw)
+
+    def read_mzml(self, url: str, options=None, **kw) -> DataFrame:
+        return self._read("MZML", url, options, **kw)
+
+    def read_mzml(self, url: str, options=None, **kw) -> DataFrame:
+        return self._read("MZML", url, options, **kw)
 
     # -- SQL ----------------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Table providers over the port's decoders.
 
 Counterpart of ``FileTable.scan`` (exon_tpu/tables.py:181-288) for FASTA,
-FASTQ, GFF and BAM (without the .bai region pruning of
+FASTQ, GFF, mzML and BAM (without the .bai region pruning of
 exon_tpu/providers.py ``BamTable``), and of ``VcfTable``
 (exon_tpu/providers.py:43-131), the VCF table with tabix region pushdown.
 As in the JAX package (tables.py:212-217), a format with a device decoder
@@ -23,7 +23,7 @@ from typing import Callable, Iterator, Optional, Sequence
 
 from .batch import Batch, Schema
 from .errors import InvalidRegionError
-from .formats import bam, fasta, fasta_device, fastq, gff, vcf
+from .formats import bam, fasta, fasta_device, fastq, gff, mzml, vcf
 from .indexes import parse_tabix
 from .io import (coalesce_chunks, read_bgzf_chunk, read_file,
                  resolve_table_files)
@@ -53,6 +53,9 @@ FORMATS = {
     "BAM": FormatSpec("BAM", bam.bam_schema, bam.decode_host, bam.BamOptions),
     # exon_tpu/tables.py:567-575; scanned by VcfTable
     "VCF": FormatSpec("VCF", vcf.vcf_schema, vcf.decode_host, vcf.VcfOptions),
+    # exon_tpu/tables.py:618-625
+    "MZML": FormatSpec("MZML", mzml.mzml_schema, mzml.decode_host,
+                       mzml.MzmlOptions),
 }
 
 
@@ -118,11 +121,30 @@ class FileTable:
         return ScanExec(schema, source, device, to_device=not use_device)
 
 
+@dataclasses.dataclass
+class BamTable(FileTable):
+    """A BAM FileTable whose parse_tags schema holds the first record's
+    tags (exon_tpu/providers.py ``BamTable.schema``, :159-172); the .bai
+    region pruning is not ported (ROADMAP Queue 1, item 2c)."""
+
+    def schema(self) -> Schema:
+        if not getattr(self.options, "parse_tags", False):
+            return bam.bam_schema(self.options)
+        files = resolve_table_files(self.url, self.options.file_extension)
+        data = bam.inflate(read_file(files[0]))
+        header = bam.parse_bam_header(data)
+        return bam.bam_schema(self.options,
+                              bam.tag_fields_of(data, header, self.options))
+
+
 def make_provider(url: str, spec: FormatSpec, options):
     """The table provider of a format: VCF has its own, with region
-    pushdown (exon_tpu/providers.py:341-348); the others are FileTables."""
+    pushdown (exon_tpu/providers.py:341-348), and BAM a schema that reads
+    the file in parse_tags mode; the others are FileTables."""
     if spec.name == "VCF":
         return VcfTable(url, options)
+    if spec.name == "BAM":
+        return BamTable(url, spec, options)
     return FileTable(url, spec, options)
 
 

@@ -68,9 +68,44 @@ def test_gff_decode_matches_jax(tmp_path, projection):
 
 
 def test_gff_attributes_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="attributes"):
-        list(tgff.decode_host(b"chr1\tx\tgene\t1\t2\t.\t+\t.\tID=a\n",
-                              tgff.GffOptions(), None))
+    """Since item 2b + 3, attributes is a Map<Utf8, List<Utf8>> parsed as
+    the JAX decoder parses it: several values, empty entries, an empty
+    value, spaces, a key with no '=', batch boundaries."""
+    data = (b"chr1\tx\tgene\t1\t2\t.\t+\t.\tID=a;Name=b,c\n"
+            b"chr1\tx\tmRNA\t1\t2\t.\t+\t.\tID=a;;note=x y; empty=\n"
+            b"chr2\tx\texon\t3\t9\t.\t-\t0\tID=e;.\n"
+            b"chr2\tx\tCDS\t3\t9\t.\t-\t0\tParent=a,b,,c;tag=basic\n")
+    for batch in (1, 3, 100):
+        got = list(tgff.decode_host(data, tgff.GffOptions(batch_size=batch),
+                                    None))
+        want = list(jgff.decode_host(data, jgff.GffOptions(batch_size=batch),
+                                     None))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.to_arrow().equals(w.to_arrow())
+
+
+def test_f28_attributes_without_separator():
+    """F28: a batch whose attribute fields hold no '=' (a '.' alone), or no
+    byte at all, makes the JAX parser index an empty array (IndexError);
+    the port gives the map {'.': ['']}, what the JAX parser gives for the
+    same row in a batch with a separator elsewhere, and NULL maps for empty
+    fields."""
+    row = b"chr2\tx\texon\t3\t9\t.\t-\t0\t.\n"
+    (got,) = tgff.decode_host(row, tgff.GffOptions(batch_size=1), None)
+    assert got.to_arrow().column("attributes").to_pylist() == [[(".", [""])]]
+    with pytest.raises(IndexError):
+        list(jgff.decode_host(row, jgff.GffOptions(batch_size=1), None))
+    (both,) = jgff.decode_host(b"chr2\tx\texon\t3\t9\t.\t-\t0\tID=a\n"
+                               + row, jgff.GffOptions(batch_size=5), None)
+    assert both.to_arrow().column("attributes").to_pylist()[1] == \
+        [(".", [""])]
+    # a batch of empty attribute fields: no entry at all (NULL maps)
+    empty = b"chr2\tx\texon\t3\t9\t.\t-\t0\t\n" * 2
+    (got,) = tgff.decode_host(empty, tgff.GffOptions(), None)
+    assert got.to_arrow().column("attributes").to_pylist() == [None, None]
+    with pytest.raises(IndexError):
+        list(jgff.decode_host(empty, jgff.GffOptions(), None))
 
 
 def test_arrow_round_trip_keeps_values_and_nulls():

@@ -11,7 +11,10 @@ function kernels (span_concat, and the class runs of polya_tail, the
 position mode of like_match and the word-start mode of map_bytes) are held
 to exon_tpu/ops/sqlfuncs.py's _slice_var, _trim_counts, _concat_cols, _pad,
 fn_repeat, fn_initcap and fn_translate and to ops/strings.py's _find_from,
-exactly, on seeded strings."""
+exactly, on seeded strings. On a card, the list kernels (map_bytes' widen
+and narrow modes, map_lookup, list_bins in both modes, bins at relative
+1e-12) meet their twins and the list take its CPU result; their twins meet
+the JAX functions in test_torch_lists.py and test_torch_mzml.py."""
 
 import zlib
 
@@ -29,7 +32,9 @@ from exon_tpu_torch.kernels import gather_var as kg
 from exon_tpu_torch.kernels import hash_aggregate as hk
 from exon_tpu_torch.kernels import like_match as kl
 from exon_tpu_torch.kernels import line_index as kli
+from exon_tpu_torch.kernels import list_bins as klb
 from exon_tpu_torch.kernels import map_bytes as kmb
+from exon_tpu_torch.kernels import map_lookup as kml
 from exon_tpu_torch.kernels import parse_number as kp
 from exon_tpu_torch.kernels import polya_tail as kpt
 from exon_tpu_torch.kernels import row_hash as kr
@@ -39,8 +44,10 @@ from exon_tpu_torch.kernels import string_cmp as kcmp
 from exon_tpu_torch.kernels import string_eq as ks
 from exon_tpu_torch.kernels import sw_score as ksw
 from exon_tpu_torch.kernels import text_records as ktr
+from exon_tpu_torch import batch as tb
 from exon_tpu_torch.batch import host_pylists as host_rows
 from exon_tpu_torch.errors import ExecutionError as T_ExecutionError
+from exon_tpu_torch.ops import layout
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 from exon_tpu_torch.ops.strings import tokenize_like
 
@@ -1349,3 +1356,112 @@ def test_windows_and_set_operations_on_the_card_match_the_cpu(card,
         want = T.ExonSession(device="cpu").sql(sql.format(g=gff))
         assert host_rows(got.collect_host()) == host_rows(
             want.collect_host()), sql
+
+
+# ---------------------------------------------------------------------------
+# K11b and the map lookup (list, struct and map columns)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.int8, torch.int64])
+def test_map_bytes_widen_kernel_matches_twin(card, out):
+    rng = np.random.default_rng(1)
+    vals = torch.from_numpy(rng.integers(0, 256, 300_001, dtype=np.uint8))
+    table = torch.from_numpy(rng.integers(-2**40, 2**40, 256))
+    for v in (vals, vals[:1], vals[:0]):
+        v, t = v.to(card), table.to(card)
+        assert torch.equal(kmb.map_bytes_widen(v, t, out),
+                           kmb.map_bytes_widen_plain(v, t, out))
+
+
+@pytest.mark.cuda
+def test_map_bytes_narrow_kernel_matches_twin(card):
+    rng = np.random.default_rng(2)
+    vals = np.concatenate([rng.integers(-5, 100, 200_000),
+                           [2**31 - 1, -2**31, 2**40 + 7, -1, 222]])
+    v = torch.from_numpy(vals).to(card)
+    assert torch.equal(kmb.map_bytes_narrow(v), kmb.map_bytes_narrow_plain(v))
+
+
+def _maps(rng, n, device):
+    """n maps of 0-12 entries over keys of 0-6 bytes, some NULL keys."""
+    per_map = rng.integers(0, 13, n)
+    moff = np.zeros(n + 1, np.int32)
+    np.cumsum(per_map, out=moff[1:])
+    e = int(moff[-1])
+    klen = rng.integers(0, 7, e)
+    koff = np.zeros(e + 1, np.int32)
+    np.cumsum(klen, out=koff[1:])
+    kval = np.frombuffer(b"ab", np.uint8)[rng.integers(0, 2, int(koff[-1]))]
+    kvalid = rng.random(e) > 0.05
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (moff, koff, kval, kvalid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", [b"", b"a", b"ab", b"abab", b"bbbbbb"])
+def test_map_lookup_kernel_matches_twin(card, key):
+    args = _maps(np.random.default_rng(3), 40_000, card)
+    got = kml.map_lookup(*args, key)
+    assert torch.equal(got, kml.map_lookup_plain(*args, key))
+    assert bool((got >= 0).any())
+
+
+def _spectra(rng, n, device, edge=False):
+    lens = rng.integers(0, 300, n)
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    mz = rng.uniform(50, 2100, int(offs[-1]))
+    if edge and len(mz) > 4:
+        mz[:4] = [np.nan, 1e300, -1e300, 100.0]
+    inten = rng.uniform(0, 1e6, len(mz))
+    valid = rng.random(n) > 0.1
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (offs, mz, inten, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [False, True])
+def test_list_bins_kernel_matches_twin(card, edge):
+    offs, mz, inten, valid = _spectra(np.random.default_rng(4), 20_000, card,
+                                      edge)
+    for peak, tol in ((500.0, 0.01), (126.1277, 0.5), (100.0, 0.0)):
+        assert torch.equal(klb.list_bins_peak(offs, mz, valid, peak, tol),
+                           klb.list_bins_peak_plain(offs, mz, valid, peak,
+                                                    tol))
+    got = klb.list_bins_bins(offs, mz, inten, 100.0, 1.0, 1900)
+    want = klb.list_bins_bins_plain(offs, mz, inten, 100.0, 1.0, 1900)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+
+
+def _flat_arrays(col) -> list:
+    """Every array of a column, children first to last, on the host."""
+    if isinstance(col, tb.StructColumn):
+        return [a for k in sorted(col.children)
+                for a in _flat_arrays(col.children[k])] + [col.validity]
+    if isinstance(col, tb.ListColumn):
+        return _flat_arrays(col.child) + [col.offsets, col.validity]
+    if isinstance(col, tb.VarColumn):
+        return [col.values, col.offsets, col.validity]
+    return [col.values, col.validity]
+
+
+@pytest.mark.cuda
+def test_list_take_on_card_matches_cpu(card, tmp_path):
+    """take_column of a map column (a list of structs of a string and a list
+    of strings) on the card (expand_segments, gather_var), against the same
+    take on the CPU."""
+    from benchlib.gencode_gff_fixture import make_gencode_gff
+    from exon_tpu_torch.formats.gff import GffOptions, decode_host
+
+    data = open(make_gencode_gff(3000, seed=5, path=str(tmp_path / "g.gff3")),
+                "rb").read()
+    (b,) = decode_host(data, GffOptions(batch_size=5000), ["attributes"])
+    idx = torch.from_numpy(np.random.default_rng(5).integers(
+        0, b.length, 4000).astype(np.int32))
+    want = layout.take_batch(b.to_device("cpu"), idx)
+    got = layout.take_batch(b.to_device(card), idx.to(card))
+    for x, y in zip(_flat_arrays(got.columns[0]),
+                    _flat_arrays(want.columns[0])):
+        assert torch.equal(x.cpu(), y)

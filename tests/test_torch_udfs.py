@@ -19,8 +19,9 @@ every bit. All exact.
 (c) The JAX faults the port does not copy: F11 (alignment past 2048
 bytes), F12 (a column with no bytes), F13, and an empty query.
 (d) Every JAX function the port does not carry raises NotImplementedError
-naming its ROADMAP item (the SQL functions, which did until item 8 landed,
-now give the JAX package's answer); an unknown name raises PlanError.
+naming its ROADMAP item (the SQL functions and the list UDFs, which did
+until items 8 and 2b + 3 landed, now give the JAX package's answer); an
+unknown name raises PlanError.
 """
 
 import numpy as np
@@ -490,7 +491,9 @@ def test_empty_query_raises(sessions):
 # (no indexed table below it) and raises PlanError, as in the JAX package
 _PLANNED_AWAY = "should not be called"
 NOT_PORTED = (
-    [(f"{n}(sequence)", "item 2") for n in tudfs.LIST_UDFS]
+    # item 2b + 3 (the list UDFs, K11b) has landed: these give the JAX
+    # package's answer (item None), as does a list literal
+    [(f"{n}(sequence)", None) for n in tudfs.LIST_UDFS]
     + [(f"{n}('chr1:1-10', id, 1)",
         _PLANNED_AWAY if n in tudfs.PUSHED_REGION_FILTERS else "item 2c")
        for n in tudfs.REGION_FILTER_UDFS]
@@ -502,7 +505,7 @@ NOT_PORTED = (
        ("position('A' IN sequence)", None),
        ("overlay(id PLACING 'x' FROM 1)", None),
        ("id || 'x'", None),
-       ("[1, 2]", "item 2")])
+       ("[1, 2]", None)])
 
 
 @pytest.mark.parametrize("expr,item", NOT_PORTED,

@@ -147,18 +147,91 @@ def test_read_vcf_matches_jax(sessions, files):
 
 @pytest.mark.parametrize("column", ["id", "alt", "filter"])
 def test_list_columns_raise(sessions, files, column):
-    ts, _js = sessions
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        ts.sql(f"SELECT {column} FROM vcf_scan('{files['plain_bare']}')"
-               ).collect_host()
+    """Since item 2b + 3, id, alt and filter are List<Utf8> columns: the
+    JAX package's answer, through a filter and a sort."""
+    _both(sessions, f"SELECT pos, {column} FROM vcf_scan("
+          f"'{files['plain_bare']}') WHERE qual >= 30 ORDER BY pos DESC")
 
 
 def test_typed_info_raises(sessions, files):
-    ts, _js = sessions
+    """Since item 2b + 3, parse_info gives a struct of the header's INFO
+    fields: the JAX package's answer (its session config sets the flag)."""
+    ts, js = sessions
     df = ts.read_vcf(files["plain_bare"], parse_info=True)
     assert df.schema().field("info").dtype.kind.value == "struct"
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        df.select("info").collect_host()
+    js.config.vcf_parse_info = True
+    try:
+        want = js.read_vcf(files["plain_bare"]).select("pos", "info") \
+            .collect_arrow()
+    finally:
+        js.config.vcf_parse_info = False
+    assert_tables_match(df.select("pos", "info").collect_arrow(), want)
+
+
+# a VCF with '.' items in every list field, multi-valued ALT/FILTER/ID,
+# INFO of each declared kind (Integer 1, Float A, Flag, String .) and two
+# samples with FORMAT GT:DP:AD, some values '.'
+_TYPED_VCF = b"""##fileformat=VCFv4.2
+##contig=<ID=chr1,length=1000000>
+##INFO=<ID=DP,Number=1,Type=Integer,Description="depth">
+##INFO=<ID=AF,Number=A,Type=Float,Description="freq">
+##INFO=<ID=DB,Number=0,Type=Flag,Description="dbsnp">
+##INFO=<ID=ANN,Number=.,Type=String,Description="annotation">
+##FILTER=<ID=q10,Description="low">
+##FORMAT=<ID=GT,Number=1,Type=String,Description="genotype">
+##FORMAT=<ID=DP,Number=1,Type=Integer,Description="depth">
+##FORMAT=<ID=AD,Number=R,Type=Integer,Description="allele depths">
+#CHROM	POS	ID	REF	ALT	QUAL	FILTER	INFO	FORMAT	S1	S2
+chr1	100	rs1;rs2	A	C,G	50	PASS	DP=10;AF=0.25,0.5;DB;ANN=x,y	GT:DP:AD	0/1:7:3,4	1/1:.:.
+chr1	200	.	C	.	.	.	.	GT:DP:AD	./.:.:.	0/0:3:3,0
+chr1	300	rs3	G	T	12.5	q10;PASS	AF=.;ANN=z	GT	0/1	.
+chr1	400	rs4	T	A,C,TT	99	q10	DP=.;AF=0.1,.,0.3	GT:AD	1/2:1,.,3	0/1:5,5
+"""
+
+
+@pytest.mark.parametrize("flags", [(False, False), (True, False),
+                                   (False, True), (True, True)],
+                         ids=["untyped", "info", "formats", "both"])
+def test_vcf_list_and_typed_fields_match_jax(tmp_path, sessions, flags):
+    """id/alt/filter with '.' items and several values, and info/formats
+    untyped and typed (parse_info, parse_formats), through the decoder and
+    a session: equal Arrow tables."""
+    from exon_tpu.formats import vcf as jvcf
+    from exon_tpu_torch.formats import vcf as tvcf
+
+    parse_info, parse_formats = flags
+    got = list(tvcf.decode_host(_TYPED_VCF, tvcf.VcfOptions(
+        batch_size=3, parse_info=parse_info, parse_formats=parse_formats)))
+    want = list(jvcf.decode_host(_TYPED_VCF, jvcf.VcfOptions(
+        batch_size=3, parse_info=parse_info, parse_formats=parse_formats)))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.to_arrow().equals(w.to_arrow())
+    path = tmp_path / "t.vcf"
+    path.write_bytes(_TYPED_VCF)
+    ts, js = sessions
+    js.config.vcf_parse_info, js.config.vcf_parse_formats = flags
+    try:
+        want = js.read_vcf(str(path)).collect_arrow()
+    finally:
+        js.config.vcf_parse_info = js.config.vcf_parse_formats = False
+    got = ts.read_vcf(str(path), parse_info=parse_info,
+                      parse_formats=parse_formats).collect_arrow()
+    assert_tables_match(got, want)
+    assert got.column("alt").to_pylist() == [["C", "G"], None, ["T"],
+                                             ["A", "C", "TT"]]
+
+
+def test_f25_list_is_null(tmp_path, sessions):
+    """F25: IS NULL over a list column reads the list's validity in the
+    port ('.' ALT is NULL); the JAX ``_validity_of`` calls every list
+    valid, so no row is NULL there."""
+    path = tmp_path / "t.vcf"
+    path.write_bytes(_TYPED_VCF)
+    ts, js = sessions
+    sql = f"SELECT pos FROM vcf_scan('{path}') WHERE alt IS NULL"
+    assert ts.sql(sql).collect_arrow().column("pos").to_pylist() == [200]
+    assert js.sql(sql).collect_arrow().num_rows == 0
 
 
 def test_create_external_table_stored_as_vcf(sessions, files):
