@@ -55,7 +55,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    maps of N's first 131,072-row batch; list_bins' peak mode on P's 30,000
    spectra and its bins mode on the spectra that pass P's filter, beside
    one index_add_ (bins at relative 1e-12, the twin adding in atomic
-   order).
+   order). bucket_pack (K13) runs at Query Q's shape once Q has run: the
+   groups of Q's 8 shard tables after its scan, all their columns, in the
+   exchange's one call for the card, to 8 destinations (every output equal
+   to the twin's), beside a stable
+   torch.sort of the destinations and index_select of the columns.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -92,7 +96,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    quality_scores_to_list and its round trip to text, kept on the card and
    compared there) and P (a TMT reporter screen: the 30,000 mzML spectra of
    benchlib.fixtures.make_mzml holding a peak within 0.5 of 126.127726,
-   binned by bin_vectors into 1,900 bins). Each is checked against numpy
+   binned by bin_vectors into 1,900 bins), and three on 8 shards of the
+   card (a session with new_exon_config(distributed=True, n_shards=8)):
+   Q (BASELINE config 5's shape on one card: exon density per 100 kb
+   window over B's GFF, count, min, max, sum and mean of the exon lengths
+   per seqname and start / 100000; its plan must hold a
+   DistributedAggregateExec over 8 shards, with no fallback and group rows
+   exchanged), Q_top (A's 100 longest proteins through DistributedTopKExec)
+   and Q_count (A's proteins past 300 residues, counted and summed through
+   the ungrouped distributed path). Each is checked against numpy
    computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -108,10 +120,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
 5. Where the time goes in queries C and D: the join and the sort alone on
    device batches already in memory, with the kernels (median of 5
    host-clock runs ending in a sync), beside the bound of their input and
-   output bytes; then one run
-   of A, E, I, I_panel, J, J_agg, K, L, N, O and P under torch.profiler,
-   with the device time of its CUDA kernels and copies and the largest of
-   them.
+   output bytes; Q's aggregate alone on its device batches in memory on
+   one device (AggregateExec), 2 shards and 8 shards (median of 5); then
+   one run of A, E, J, J_agg, K, L, N, O and Q under torch.profiler, with
+   the device time of its CUDA kernels and copies and the largest of them
+   (the profiled runs of I, I_panel and P are cut for the smoke's time).
 
 The smoke prints its total time and the card's name and power limit once
 more (nvidia-smi); the line before the last is a JSON object
@@ -193,6 +206,7 @@ KERNELS = {
     "window_frame": ("exon_tpu/plan/window_exec.py:263", "window_frame.cu"),
     "map_lookup": ("exon_tpu/plan/expressions.py:716", "map_lookup.cu"),
     "list_bins": ("exon_tpu/udfs.py:389", "list_bins.cu"),
+    "bucket_pack": ("exon_tpu/parallel/shuffle.py:53", "bucket_pack.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -241,6 +255,13 @@ PATH_KERNELS = {
     # contains_peak and bin_vectors on list_bins; the filter's take of the
     # list columns on expand_segments
     "P": ("list_bins", "compact_mask", "expand_segments"),
+    # the shards' tables (hash_aggregate, their slots on compact_mask) and
+    # the exchange of their groups (bucket_pack), then the owners' merge
+    "Q": ("hash_aggregate", "compact_mask", "bucket_pack"),
+    # each shard's top 100 and the final sort (sort_keys, the ids taken on
+    # gather_var), on the device decode
+    "Q_top": DECODE + ("sort_keys", "gather_var"),
+    "Q_count": DECODE,
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -311,6 +332,22 @@ SQL_O = ("SELECT name, integer_encode_dna(sequence) AS codes, "
 SQL_P = ("SELECT id, bin_vectors(mz.mz, intensity.intensity, "
          f"{BIN_MIN}, {N_BINS}, {BIN_WIDTH}) AS bins FROM mzml_scan('{{mz}}') "
          f"WHERE contains_peak(mz.mz, {TMT_126}, {PEAK_TOL})")
+# Q: BASELINE config 5's shape on one card, exon density per 100 kb window
+# (bedtools makewindows -w 100000 + intersect -c, per chromosome) over B's
+# GFF, on Q_SHARDS shards of the card; Q_top and Q_count: A's 100 longest
+# proteins, and the count and total length of its proteins past 300
+# residues, on the same shards
+Q_SHARDS = 8
+Q_WIN = 100_000
+Q_TOP = 100
+SQL_Q = ("SELECT seqname, start / 100000 AS win, COUNT(*) AS n, MIN(start) "
+         "AS lo, MAX(\"end\") AS hi, SUM(\"end\" - start + 1) AS bp, "
+         "AVG(\"end\" - start + 1) AS mean_bp FROM gff_scan('{gf}') WHERE "
+         "type = 'exon' GROUP BY seqname, start / 100000")
+SQL_Q_TOP = ("SELECT id, length(sequence) AS n FROM fasta_scan('{fa}') "
+             f"ORDER BY n DESC, id LIMIT {Q_TOP}")
+SQL_Q_COUNT = ("SELECT COUNT(*) AS n, SUM(length(sequence)) AS total FROM "
+               "fasta_scan('{fa}') WHERE length(sequence) > 300")
 # PCIe Gen5 x16 between the H100 SXM and its host, each way (NVIDIA data
 # sheet: 128 GB/s both ways together)
 HOST_LINK_BYTES_PER_S = 64e9
@@ -2614,6 +2651,171 @@ def _query_d(T, session, bam):
         "reference", "start", "name")
 
 
+# the aggregate exchange of Query Q's run: fallbacks, group rows, bytes
+Q_EXCHANGE: list = []
+
+
+def _run_q(dsession, gf):
+    from exon_tpu_torch.parallel import distributed as D
+
+    D.reset_stats()
+    out = dsession.sql(SQL_Q.format(gf=gf)).collect_host()
+    Q_EXCHANGE[:] = [D.fallbacks, D.exchanged_rows, D.exchanged_bytes]
+    return out
+
+
+def _check_q(host, feats) -> None:
+    """Query Q against numpy: per (seqname, start / 100,000) over the
+    exons, in first-seen order, the count, min(start), max(end) and the
+    sum and mean of end - start + 1."""
+    from benchlib.gff_fixture import FEATURE_TYPES, SEQNAMES
+
+    m = feats["type"] == FEATURE_TYPES.index("exon")
+    seq, start, end = feats["seqname"][m], feats["start"][m], feats["end"][m]
+    key = seq.astype(np.int64) * (1 << 32) + start // Q_WIN
+    _u, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    inv = inv.reshape(-1)
+    g = first.shape[0]
+    n = np.bincount(inv, minlength=g)
+    lo = np.full(g, np.iinfo(np.int64).max)
+    np.minimum.at(lo, inv, start)
+    hi = np.full(g, np.iinfo(np.int64).min)
+    np.maximum.at(hi, inv, end)
+    bp = np.zeros(g, np.int64)
+    np.add.at(bp, inv, end - start + 1)
+    order = np.argsort(first, kind="stable")
+    if host.length != g:
+        fail(f"query Q: {host.length} windows, expected {g}")
+    names = [x.decode() if isinstance(x, bytes) else str(x)
+             for x in _values_of(host.columns[0]).tolist()]
+    if names != [SEQNAMES[x] for x in seq[first[order]].tolist()]:
+        fail("query Q: seqnames or their first-seen order differ")
+    win = host.column("win")
+    if win.values.dtype != np.int64:
+        fail(f"query Q: start / {Q_WIN} is {win.values.dtype}, not int64")
+    for name, w in (("win", (start // Q_WIN)[first[order]]),
+                    ("n", n[order]), ("lo", lo[order]), ("hi", hi[order]),
+                    ("bp", bp[order])):
+        col = host.column(name)
+        if not col.validity.all() or not np.array_equal(col.values, w):
+            fail(f"query Q: column {name} differs")
+    mean = host.column("mean_bp").values
+    if not np.allclose(mean, bp[order] / n[order], rtol=FLOAT_RTOL, atol=0):
+        fail("query Q: mean_bp differs")
+    print(f"query Q: {g} windows over {int(m.sum())} exons, keys, order and "
+          "every aggregate equal to numpy")
+
+
+def _check_q_plans(dsession, gf, fa):
+    """Q's plan holds a DistributedAggregateExec over Q_SHARDS shards, its
+    run fell back to no single-device plan and its exchange moved group
+    rows; Q_top's holds a DistributedTopKExec with fetch Q_TOP and
+    Q_count's the ungrouped distributed aggregate. Returns Q's operator."""
+    from exon_tpu_torch.parallel.distributed import (DistributedAggregateExec,
+                                                     DistributedTopKExec)
+
+    df = dsession.sql(SQL_Q.format(gf=gf))
+    q_plan = _find(df._execute(df.logical_plan()), DistributedAggregateExec)
+    if q_plan.mesh.n_shards != Q_SHARDS:
+        fail(f"query Q: {q_plan.mesh.n_shards} shards, not {Q_SHARDS}")
+    fallbacks, rows, nbytes = Q_EXCHANGE
+    if fallbacks or rows <= 0:
+        fail(f"query Q: {fallbacks} fallbacks, {rows} group rows exchanged")
+    print(f"query Q: DistributedAggregateExec over {Q_SHARDS} shards of "
+          f"{q_plan.mesh.devices[0]}; the exchange moved {rows} group rows, "
+          f"{nbytes} bytes; {fallbacks} fallbacks")
+    df = dsession.sql(SQL_Q_TOP.format(fa=fa))
+    top = _find(df._execute(df.logical_plan()), DistributedTopKExec)
+    if top.fetch != Q_TOP or top.mesh.n_shards != Q_SHARDS:
+        fail(f"query Q_top: fetch {top.fetch} over {top.mesh.n_shards} "
+             "shards")
+    df = dsession.sql(SQL_Q_COUNT.format(fa=fa))
+    if _find(df._execute(df.logical_plan()),
+             DistributedAggregateExec).group_exprs:
+        fail("query Q_count: not the ungrouped distributed aggregate")
+    return q_plan
+
+
+def _check_q_top(host, offs) -> None:
+    lens = np.diff(offs)
+    ids = _fasta_ids(lens.shape[0])
+    top = np.lexsort((ids, -lens))[:Q_TOP]
+    if host.length != Q_TOP or \
+            not np.array_equal(_names_of(host.column("id")), ids[top]) or \
+            not np.array_equal(host.column("n").values, lens[top]):
+        fail("query Q_top: the longest proteins differ from numpy's")
+    print(f"query Q_top: the {Q_TOP} longest proteins ({lens[top[0]]} to "
+          f"{lens[top[-1]]} residues) equal to numpy")
+
+
+def _check_q_count(host, offs) -> None:
+    lens = np.diff(offs)
+    sel = lens > 300
+    got = (int(host.column("n").values[0]), int(host.column("total").values[0]))
+    if got != (int(sel.sum()), int(lens[sel].sum())):
+        fail(f"query Q_count: {got}, numpy {int(sel.sum())}, "
+             f"{int(lens[sel].sum())}")
+
+
+def check_bucket_pack(torch, q_plan, q_batches) -> dict:
+    """bucket_pack against its twin (every output equal) at Q's shape: the
+    groups of Q's shard tables after its scan, all their columns, in the one
+    call a card the exchange makes (the card's shard tables concatenated in
+    shard order), routed to the Q_SHARDS shards with the bucket capacity
+    the exchange picks; beside it the library yardstick, a stable
+    torch.sort of the destinations and index_select of the columns."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+    from exon_tpu_torch.ops.aggregate import _pow2_at_least
+
+    tables, kinds, _vocab = q_plan.fold(iter(q_batches))
+    t0 = next(t for t in tables if t is not None)
+    inputs = q_plan.exchange_inputs(tables, (t0.table.keys.shape[0],
+                                             t0.specs, kinds))
+    n = q_plan.mesh.n_shards
+    caps = []
+    for route, cols in inputs:
+        cap = _pow2_at_least(max(64, 2 * route.shape[0] // n))
+        counts = kb.bucket_pack_plain(route, None, [], n, cap)[1]
+        caps.append(max(cap, int(counts.max())))
+
+    def run(fn):
+        return [fn(route, None, cols, n, cap)
+                for (route, cols), cap in zip(inputs, caps)]
+
+    for got, want in zip(run(kb.bucket_pack), run(kb.bucket_pack_plain)):
+        for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+            if not torch.equal(a, b):
+                fail("kernel bucket_pack differs from its twin")
+    dests = [kb.partition_ids(route, n) for route, _c in inputs]
+
+    def library():
+        for d, (_route, cols) in zip(dests, inputs):
+            order = torch.sort(d, stable=True).indices
+            for c in cols:
+                c.index_select(0, order)
+
+    rows = sum(route.shape[0] for route, _c in inputs)
+    row_bytes = sum(c.element_size() * (c.numel() // max(c.shape[0], 1))
+                    for c in inputs[0][1])
+    # read: each row's key and columns; written: the buckets, zeros
+    # included, the counts and each row's destination and rank
+    nbytes = rows * (8 + row_bytes + 8) + sum(
+        n * cap * row_bytes + 4 * n for cap in caps)
+    r = {"max_abs_err": 0.0, "ms": median_ms(lambda: run(kb.bucket_pack),
+                                             torch),
+         "plain_ms": median_ms(lambda: run(kb.bucket_pack_plain), torch),
+         "library_ms": median_ms(library, torch), "bytes": nbytes,
+         "shape": f"Q's {n} shard tables in {len(inputs)} call(s): {rows} "
+                  f"group rows of {row_bytes} bytes to {n} shards, bucket "
+                  f"caps {caps}"}
+    r["bound_ms"], r["bound_by"] = _bound(r)
+    print(f"kernel bucket_pack: matches twin ({r['shape']}); median of "
+          f"{REPS}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+          f"library sort + index_select {r['library_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes)")
+    return r
+
+
 def phase_main_path(torch) -> dict:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import bam_reads, make_bam
@@ -2625,6 +2827,7 @@ def phase_main_path(torch) -> dict:
     from benchlib.gff_fixture import gff_features, make_gff
     from benchlib.vcf_fixture import make_vcf, vcf_records
     from exon_tpu_torch import kernels
+    from exon_tpu_torch.config import new_exon_config
 
     t0 = time.perf_counter()
     fa = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
@@ -2661,6 +2864,8 @@ def phase_main_path(torch) -> dict:
     rows_e = np.flatnonzero(first_adapter >= 0)
 
     session = T.ExonSession(device="cuda")
+    dsession = T.ExonSession(device="cuda", config=new_exon_config(
+        distributed=True, n_shards=Q_SHARDS))
     pred = (T.FunctionCall("length", [T.col("sequence")]) > 300) & \
         T.col("sequence").like("%KK%")
     adapter = T.col("sequence").like(ADAPTER)
@@ -2728,6 +2933,12 @@ def phase_main_path(torch) -> dict:
               FASTQ_READS),
         "P": (lambda: session.sql(SQL_P.format(mz=mzml)).collect_host(),
               MZML_SPECTRA),
+        # on Q_SHARDS shards of the card
+        "Q": (lambda: _run_q(dsession, gf), GFF_FEATURES),
+        "Q_top": (lambda: dsession.sql(SQL_Q_TOP.format(fa=fa))
+                  .collect_host(), FASTA_RECORDS),
+        "Q_count": (lambda: dsession.sql(SQL_Q_COUNT.format(fa=fa))
+                    .collect_host(), FASTA_RECORDS),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -2775,6 +2986,10 @@ def phase_main_path(torch) -> dict:
     _check_topk(session.sql(SQL_N.format(gf=gencode)), N_TOP, "N")
     _check_o(results["O"], fq_reads, torch)
     _check_p(results["P"], spectra)
+    _check_q(results["Q"], feats)
+    q_plan = _check_q_plans(dsession, gf, fa)
+    _check_q_top(results["Q_top"], offs)
+    _check_q_count(results["Q_count"], offs)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -2821,6 +3036,14 @@ def phase_main_path(torch) -> dict:
         "id", "mz", "intensity"), torch)
     device_scan["O"] = _scan_seconds(session.read_fastq(fq).select(
         "name", "sequence", "quality_scores"), torch)
+    # Q's scan alone (the host decode and the copy to the card), its device
+    # batches kept for the bucket_pack case and phase 5; Q_top and Q_count
+    # decode A's FASTA on the card
+    t = time.perf_counter()
+    q_batches = list(q_plan.input.batches())
+    torch.cuda.synchronize()
+    host_scan["Q"] = time.perf_counter() - t
+    device_scan["Q_top"] = device_scan["Q_count"] = device_scan["A"]
     results["O"] = sum(b.length for b in results["O"])
     for q, (sec, rows_in) in stats.items():
         out = results[q] if isinstance(results[q], int) else results[q].length
@@ -2834,10 +3057,11 @@ def phase_main_path(torch) -> dict:
               f"{rows_in / sec:,.0f} input rows/s (decode included)"
               f"{seek}{share}")
     print("main path: queries A, count, B, C, D, E, E_count, SQL_count, "
-          "SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, L, M, N, O "
-          "and P match the generators' arrays")
+          "SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, L, M, N, O, "
+          "P, Q, Q_top and Q_count match the generators' arrays")
     _sql_vs_dataframe(session, T, fa, vcf, torch)
-    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}, \
+        (q_plan, q_batches, gf)
 
 
 # ---------------------------------------------------------------------------
@@ -2895,14 +3119,15 @@ def _host_ms(fn, torch, reps: int = 5) -> float:
     return 1e3 * float(np.median(times))
 
 
-def _join_and_sort_ms(df, torch, label: str) -> None:
-    """The query's join and its sort on device batches already in memory
-    (no scan), with the kernels."""
-    from exon_tpu_torch.plan import join_exec, physical
+def _in_memory(plan, batches=None):
+    """A leaf that yields ``batches`` (by default ``plan``'s, run once)
+    with ``plan``'s schema."""
+    from exon_tpu_torch.plan.physical import PhysicalPlan
 
-    class InMemory(physical.PhysicalPlan):
-        def __init__(self, plan):
-            self.out_schema, self.held = plan.schema(), list(plan.batches())
+    class InMemory(PhysicalPlan):
+        def __init__(self):
+            self.out_schema = plan.schema()
+            self.held = list(plan.batches() if batches is None else batches)
 
         def schema(self):
             return self.out_schema
@@ -2910,10 +3135,49 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
         def batches(self):
             return iter(self.held)
 
+    return InMemory()
+
+
+def _q_cost(torch, q_plan, q_batches, gf) -> None:
+    """Q's aggregate alone on its device batches already in memory, on one
+    device (AggregateExec), 2 shards and Q_SHARDS shards of the card: the
+    cost of distribution on one card (median of 5 host-clock runs ending in
+    a sync; every way gives the same groups)."""
+    import exon_tpu_torch as T
+    from exon_tpu_torch.config import new_exon_config
+    from exon_tpu_torch.parallel.distributed import DistributedAggregateExec
+    from exon_tpu_torch.plan.physical import AggregateExec
+
+    rows = sum(b.length for b in q_batches)
+    first = None
+    for label, shards in (("AggregateExec", 1), ("2 shards", 2),
+                          (f"{Q_SHARDS} shards", Q_SHARDS)):
+        s = T.ExonSession(device="cuda", config=new_exon_config(
+            distributed=shards > 1, n_shards=shards))
+        df = s.sql(SQL_Q.format(gf=gf))
+        plan = df._execute(df.logical_plan())
+        agg = _find(plan, DistributedAggregateExec if shards > 1
+                    else AggregateExec)
+        agg.input = _in_memory(agg.input, q_batches)
+        out = plan.collect_host()
+        if first is None:
+            first = out
+        elif not _same_batch(out, first):
+            fail(f"query Q alone: {label} differs from AggregateExec")
+        ms = _host_ms(lambda: list(plan.batches()), torch)
+        print(f"query Q aggregate alone, {label}: {rows} rows in memory, "
+              f"{out.length} groups; median of 5: {ms:.2f} ms")
+
+
+def _join_and_sort_ms(df, torch, label: str) -> None:
+    """The query's join and its sort on device batches already in memory
+    (no scan), with the kernels."""
+    from exon_tpu_torch.plan import join_exec, physical
+
     plan = df._execute(df.logical_plan())
     sort, join = _find(plan, physical.SortExec), _find(plan, join_exec.JoinExec)
-    join.left, join.right = InMemory(join.left), InMemory(join.right)
-    sort.input = InMemory(sort.input)
+    join.left, join.right = _in_memory(join.left), _in_memory(join.right)
+    sort.input = _in_memory(sort.input)
     for part, run, inputs in (
             ("join", lambda: list(join.batches()),
              join.left.held + join.right.held),
@@ -2963,7 +3227,7 @@ def _device_profile(run, torch, label: str) -> None:
               f"{e.key[:80]}")
 
 
-def phase_breakdown(torch) -> None:
+def phase_breakdown(torch, q) -> None:
     import exon_tpu_torch as T
     from benchlib.bam_fixture import make_bam
     from benchlib.fastq_fixture import make_fastq
@@ -2977,6 +3241,9 @@ def phase_breakdown(torch) -> None:
                "D": lambda: _query_d(T, session, bam)}
     for label, query in queries.items():
         _join_and_sort_ms(query(), torch, label)
+    q_plan, q_batches, _gf = q
+    _q_cost(torch, q_plan, q_batches, gf)
+    del q_batches, q
     # C's and D's profiled runs (~50 s and ~30 s) are cut for the smoke's
     # time: the card was under 0.5 % busy in them (PERF.md section 5). The
     # profiler's first use sets up its tracing (~10 s), which would land in
@@ -2997,9 +3264,9 @@ def phase_breakdown(torch) -> None:
         T.col("sequence").like(ADAPTER)).select(
         "name", "sequence", "quality_scores").collect_host(), torch, "E")
     vcf = make_vcf(VCF_RECORDS, VCF_SEED)
-    for label, region in (("I", VCF_REGION), ("I_panel", _panel_file(vcf))):
-        sql = SQL_I.format(vcf=vcf, region=region)
-        _device_profile(lambda: session.sql(sql).collect_host(), torch, label)
+    # I's and I_panel's profiled runs (~6 s; the card 0.18-0.25 % busy in
+    # them, PERF.md section 5) are cut for the smoke's time, as is P's
+    # (its mzML parse, ~7 s; 0.41 % busy)
     # the SQL-function queries: how much of J's, J_agg's (the host grouping)
     # and K's wall is on the card
     for label, sql in (("J", SQL_J.format(fa=fa)),
@@ -3009,18 +3276,20 @@ def phase_breakdown(torch) -> None:
     # the windows: how much of L's wall is on the card
     sql = SQL_L.format(vcf=vcf, panel=_panel_file(vcf))
     _device_profile(lambda: session.sql(sql).collect_host(), torch, "L")
-    # the list columns: N's map lookups, O's encodings (kept on the card)
-    # and P's spectra
-    from benchlib.fixtures import make_mzml
+    # the list columns: N's map lookups and O's encodings (kept on the card)
     from benchlib.gencode_gff_fixture import make_gencode_gff
+    from exon_tpu_torch.config import new_exon_config
 
     gencode = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
     _device_profile(lambda: session.sql(SQL_N.format(
         gf=gencode)).collect_host(), torch, "N")
     _device_profile(lambda: _device_batches(session.sql(SQL_O.format(
         fq=fq))), torch, "O")
-    _device_profile(lambda: session.sql(SQL_P.format(
-        mz=make_mzml(MZML_SPECTRA))).collect_host(), torch, "P")
+    # Q on Q_SHARDS shards of the card: how much of its wall is on the card
+    dsession = T.ExonSession(device="cuda", config=new_exon_config(
+        distributed=True, n_shards=Q_SHARDS))
+    _device_profile(lambda: dsession.sql(SQL_Q.format(gf=gf)).collect_host(),
+                    torch, "Q")
 
 
 def main() -> int:
@@ -3036,8 +3305,11 @@ def main() -> int:
     name, card = phase_device(torch)
     phase_build()
     results = phase_kernels(torch)
-    counts = phase_main_path(torch)
-    phase_breakdown(torch)
+    counts, q = phase_main_path(torch)
+    # phase 3's bucket_pack case needs Q's shard tables: it runs after Q
+    results["bucket_pack"] = check_bucket_pack(torch, q[0], q[1])
+    phase_breakdown(torch, q)
+    del q
     kernels = []
     for k, (replaces, src) in KERNELS.items():
         r = results[k]

@@ -17,8 +17,12 @@ parsing and formatting, the grouped hash aggregate (with sums of squares
 and each row's slot), join pair expansion, row hashing, string equality,
 sort keys, Smith-Waterman scores, byte-class counts, byte maps (mirrored,
 or by word starts), byte-class runs at either end of a row, first-match
-positions and the assembly of rows from byte spans
-(``exon_tpu_torch.kernels``).
+positions, the assembly of rows from byte spans and the bucket packing of
+the hash-partition shuffle (``exon_tpu_torch.kernels``). With a session
+config of ``new_exon_config(distributed=True, n_shards=N)``
+(``exon_tpu_torch.config``), aggregates and TopK sorts over a scan run
+over N shards, and over several processes through ``torch.distributed``
+(``exon_tpu_torch.parallel``).
 It imports torch and numpy only; pyarrow is needed only by
 ``collect_arrow``.
 """

@@ -103,4 +103,5 @@ class DataFrame:
     # -- execution ----------------------------------------------------------
 
     def _execute(self, plan: L.LogicalPlan):
-        return create_physical_plan(optimize(plan), self._session.device)
+        return create_physical_plan(optimize(plan), self._session.device,
+                                    self._session.config)

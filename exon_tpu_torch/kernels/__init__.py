@@ -10,11 +10,11 @@ and ``reset_launch_counts()`` sets them to zero.
 
 from __future__ import annotations
 
-from . import (compact_mask, count_bytes, expand_segments, format_int,
-               gather_spans, gather_var, hash_aggregate, like_match,
-               line_index, list_bins, map_bytes, map_lookup, parse_number,
-               polya_tail, row_hash, sort_keys, span_concat, string_cmp,
-               string_eq, sw_score, text_records, window_bounds,
+from . import (bucket_pack, compact_mask, count_bytes, expand_segments,
+               format_int, gather_spans, gather_var, hash_aggregate,
+               like_match, line_index, list_bins, map_bytes, map_lookup,
+               parse_number, polya_tail, row_hash, sort_keys, span_concat,
+               string_cmp, string_eq, sw_score, text_records, window_bounds,
                window_frame)
 
 KERNEL_MODULES = {
@@ -41,6 +41,7 @@ KERNEL_MODULES = {
     "window_frame": window_frame,
     "map_lookup": map_lookup,
     "list_bins": list_bins,
+    "bucket_pack": bucket_pack,
 }
 
 

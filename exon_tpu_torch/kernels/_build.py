@@ -72,6 +72,9 @@ SIGNATURES = {
     "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
     "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _P],
     "exon_window_frame": [_P, _P],
+    "exon_bucket_hist": [_I64, _P, _P, _P, _I32, _P, _P, _P],
+    "exon_bucket_scatter": [_I64, _P, _I32, _P, _I64, _I32, _P, _P, _P, _P,
+                            _P],
 }
 
 _lib = None

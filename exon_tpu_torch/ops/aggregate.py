@@ -84,6 +84,26 @@ class GroupedHashAggregate:
             return self._assign_groups(slots)
         return None
 
+    def add_partials(self, parts: torch.Tensor, part_valid: torch.Tensor,
+                     first: torch.Tensor, acc: list, cnt: list) -> None:
+        """Merge partial groups (``rows()`` of other tables) into this one:
+        counts and sums add, min/max reduce, ``first`` keeps the least."""
+        n = parts.shape[1]
+        self.reserve(n)
+        hk.insert(self.table, parts, part_valid, None, first, 0, acc, cnt)
+        self._groups_bound += n
+
+    def rows(self) -> tuple:
+        """The table's groups as partial rows, in slot order: key parts
+        int64 [n_parts, g], their validity uint8, first int64 [g], and the
+        accumulators and counts int64 [n_aggs, g] (float64 bits where the
+        aggregate is float)."""
+        self._read_meta()
+        t = self.table
+        slots = self._occupied()
+        return (t.keys[:, slots], t.key_valid[:, slots], t.first[slots],
+                t.acc[:, slots], t.cnt[:, slots])
+
     def _assign_groups(self, slot: torch.Tensor):
         live = slot >= 0
         at = slot.clamp(min=0)

@@ -381,39 +381,44 @@ class AggregateExec(PhysicalPlan):
             total = sum(hb.length for hb in self.input.source())
             return self._finalize_ungrouped(
                 [(total, total)] * len(self.agg_calls))
-        device_parts: list = []
-        for b in self.input.batches():
-            mask = self._mask(b)
-            parts = []
-            for call in self.agg_calls:
-                vals, valid = self._values_for_call(call, b, mask)
-                c = agg_ops.ungrouped_reduce(None, valid, "count")
-                if call.fn == "count":
-                    parts.append((c, c))
-                elif call.fn in ("sum", "avg"):
-                    parts.append(
-                        (agg_ops.ungrouped_reduce(vals, valid, "sum"), c))
-                elif call.fn in VAR_FNS:
-                    # (Σx, Σx², count) in float64 (:467-471)
-                    parts.append(
-                        (agg_ops.ungrouped_reduce(vals, valid, "sum"),
-                         agg_ops.ungrouped_reduce(vals * vals, valid, "sum"),
-                         c))
-                else:
-                    parts.append((agg_ops.ungrouped_reduce(vals, valid, call.fn),
-                                  c))
-            device_parts.append(parts)
-        # one host read per batch partial, after the stream has been queued
-        partials = [None] * len(self.agg_calls)
+        device_parts = [self._ungrouped_partials(b, self._mask(b))
+                        for b in self.input.batches()]
+        return self._finalize_ungrouped(self._merge_partials(device_parts))
+
+    def _ungrouped_partials(self, b: Batch, mask) -> list:
+        """Per call, the batch's partial as 0-d device tensors."""
+        parts = []
+        for call in self.agg_calls:
+            vals, valid = self._values_for_call(call, b, mask)
+            c = agg_ops.ungrouped_reduce(None, valid, "count")
+            if call.fn == "count":
+                parts.append((c, c))
+            elif call.fn in ("sum", "avg"):
+                parts.append((agg_ops.ungrouped_reduce(vals, valid, "sum"), c))
+            elif call.fn in VAR_FNS:
+                # (Σx, Σx², count) in float64 (:467-471)
+                parts.append(
+                    (agg_ops.ungrouped_reduce(vals, valid, "sum"),
+                     agg_ops.ungrouped_reduce(vals * vals, valid, "sum"), c))
+            else:
+                parts.append((agg_ops.ungrouped_reduce(vals, valid, call.fn),
+                              c))
+        return parts
+
+    def _merge_partials(self, device_parts: list, partials=None) -> list:
+        """The batches' partials merged on the host into ``partials`` (one
+        host read per batch partial, after the stream has been queued);
+        a call with no batch gets its empty partial."""
+        partials = list(partials or [None] * len(self.agg_calls))
         for parts in device_parts:
             for j, (call, p) in enumerate(zip(self.agg_calls, parts)):
-                p = tuple(x.item() for x in p)
+                p = tuple(x.item() if isinstance(x, torch.Tensor) else x
+                          for x in p)
                 partials[j] = p if partials[j] is None \
                     else _merge_ungrouped(call.fn, partials[j], p)
-        return self._finalize_ungrouped(
-            [p if p is not None else
-             ((0.0, 0.0, 0) if call.fn in VAR_FNS else (0, 0))
-             for p, call in zip(partials, self.agg_calls)])
+        return [p if p is not None else
+                ((0.0, 0.0, 0) if call.fn in VAR_FNS else (0, 0))
+                for p, call in zip(partials, self.agg_calls)]
 
     def _finalize_ungrouped(self, partials: list) -> Batch:
         cols = []
@@ -475,14 +480,7 @@ class AggregateExec(PhysicalPlan):
         for b in self.input.batches():
             mask = self._mask(b)
             parts, pvalid, kinds, key_cols = self._key_parts(b, vocab_of)
-            vals, valids, batch_specs = [], [], []
-            for call in self.agg_calls:
-                v, ok = self._values_for_call(call, b, mask)
-                is_float = v is not None and v.dtype.is_floating_point
-                for op in _OPS[call.fn]:
-                    vals.append(v)
-                    valids.append(ok)
-                    batch_specs.append((op, is_float))
+            vals, valids, batch_specs = self._agg_inputs(b, mask)
             if table is None:
                 specs = batch_specs
                 table = agg_ops.GroupedHashAggregate(
@@ -505,6 +503,19 @@ class AggregateExec(PhysicalPlan):
             return empty_batch(self.out_schema)
         return self._finalize_grouped(table.finalize(), kinds, vocab_of,
                                       reps)
+
+    def _agg_inputs(self, b: Batch, mask) -> tuple:
+        """(values, valid flags, (op, is_float) specs) of the hash table's
+        aggregates over one batch: one per op of each call (``_OPS``)."""
+        vals, valids, specs = [], [], []
+        for call in self.agg_calls:
+            v, ok = self._values_for_call(call, b, mask)
+            is_float = v is not None and v.dtype.is_floating_point
+            for op in _OPS[call.fn]:
+                vals.append(v)
+                valids.append(ok)
+                specs.append((op, is_float))
+        return vals, valids, specs
 
     def _finalize_grouped(self, res: agg_ops.GroupedResult, kinds,
                           vocab_of: dict, reps: dict) -> Batch:

@@ -16,8 +16,12 @@ into a TopK sort. Window calls are typed by ``infer_window_field`` (:147).
 Projection pushdown runs through Sort, Window and Join (:460-501), and
 drops a Project's unread columns and narrows a Union's inputs, which the
 JAX planner does not. CopyTo and Explain raise NotImplementedError naming
-their ROADMAP item; the distributed branches are not ported (ROADMAP
-Queue 2, K13).
+their ROADMAP item. With the session config's ``distributed`` on, an
+Aggregate, a Sort with a fetch and a Limit over a Sort lower to the
+distributed operators of parallel/distributed.py (:568-612); the other
+distributed branches (the broadcast and partitioned joins, PARTITION BY
+windows, a sort across processes) raise NotImplementedError (ROADMAP
+Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -404,17 +408,33 @@ def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
 # ---------------------------------------------------------------------------
 
 
-def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
+def create_physical_plan(plan: L.LogicalPlan, device,
+                         config=None) -> P.PhysicalPlan:
+    """The physical plan of ``plan`` on ``device``. With ``distributed`` on
+    in the session ``config``, aggregates and TopK sorts over a scan chain
+    run over the mesh of shards (exon_tpu/plan/planner.py:568-612), and the
+    plans the JAX package would also put on the mesh but the port does not
+    carry yet (joins, PARTITION BY windows, a sort across processes) raise
+    NotImplementedError rather than run on one shard."""
+    dist = config is not None and getattr(config, "distributed", False)
+    if dist:
+        from ..parallel import distributed as D
+
+    def lower(child):
+        return create_physical_plan(child, device, config)
+
     if isinstance(plan, L.Scan):
         return plan.provider.scan(plan.projection, list(plan.filters),
                                   device=device)
     if isinstance(plan, L.Filter):
-        return P.FilterExec(plan.predicate,
-                            create_physical_plan(plan.input, device))
+        return P.FilterExec(plan.predicate, lower(plan.input))
     if isinstance(plan, L.Project):
-        child = create_physical_plan(plan.input, device)
-        return P.ProjectExec(plan.exprs, plan.schema(), child)
+        return P.ProjectExec(plan.exprs, plan.schema(), lower(plan.input))
     if isinstance(plan, L.Aggregate):
+        if dist:
+            found = D.plan_distributed_aggregate(plan, device, config)
+            if found is not None:
+                return found
         # fuse a directly-underlying Filter into the aggregate: the mask
         # feeds the reductions, skipping row materialization
         pre_filter = None
@@ -422,42 +442,53 @@ def create_physical_plan(plan: L.LogicalPlan, device) -> P.PhysicalPlan:
         if isinstance(inner, L.Filter):
             pre_filter = inner.predicate
             inner = inner.input
-        child = create_physical_plan(inner, device)
         return P.AggregateExec(plan.group_exprs, plan.agg_exprs, plan.schema(),
-                               child, pre_filter=pre_filter)
+                               lower(inner), pre_filter=pre_filter)
     if isinstance(plan, L.Sort):
-        return P.SortExec(plan.keys, create_physical_plan(plan.input, device),
-                          plan.fetch)
+        if dist:
+            if plan.fetch is not None:
+                found = D.plan_distributed_topk(plan, plan.fetch, device,
+                                                config)
+                if found is not None:
+                    return found
+            D.refuse_distributed_sort(plan, device, config)
+        return P.SortExec(plan.keys, lower(plan.input), plan.fetch)
     if isinstance(plan, L.Limit):
+        top = plan.fetch is not None and isinstance(plan.input, L.Sort) and \
+            plan.input.fetch is None
+        if top and dist:
+            found = D.plan_distributed_topk(plan.input, plan.skip + plan.fetch,
+                                            device, config)
+            if found is not None:
+                return P.LimitExec(plan.skip, plan.fetch, found)
+            D.refuse_distributed_sort(plan.input, device, config)
         # Limit(Sort) → SortExec with fetch (TopK): each sort run truncates
         # to skip + fetch rows (exon_tpu/plan/planner.py:612-620)
-        if plan.fetch is not None and isinstance(plan.input, L.Sort) and \
-                plan.input.fetch is None:
-            child = P.SortExec(plan.input.keys,
-                               create_physical_plan(plan.input.input, device),
+        if top:
+            child = P.SortExec(plan.input.keys, lower(plan.input.input),
                                fetch=plan.skip + plan.fetch)
             return P.LimitExec(plan.skip, plan.fetch, child)
-        return P.LimitExec(plan.skip, plan.fetch,
-                           create_physical_plan(plan.input, device))
+        return P.LimitExec(plan.skip, plan.fetch, lower(plan.input))
     if isinstance(plan, L.Join):
         from .join_exec import JoinExec
 
-        return JoinExec(create_physical_plan(plan.left, device),
-                        create_physical_plan(plan.right, device),
+        if dist:
+            D.refuse_distributed_join(plan, device, config)
+        return JoinExec(lower(plan.left), lower(plan.right),
                         plan.on, plan.how, plan.filter, plan.schema())
     if isinstance(plan, L.Values):
         return P.ValuesExec(plan.out_schema, plan.rows, device)
     if isinstance(plan, L.Window):
         from .window_exec import WindowExec
 
+        if dist:
+            D.refuse_distributed_window(plan, device, config)
         return WindowExec(plan.calls, plan.names, plan.schema(),
-                          create_physical_plan(plan.input, device), device)
+                          lower(plan.input), device)
     if isinstance(plan, L.Union):
-        return P.UnionExec([create_physical_plan(c, device)
-                            for c in plan.inputs])
+        return P.UnionExec([lower(c) for c in plan.inputs])
     if isinstance(plan, L.Repeat):
-        return P.RepeatExec(plan.count_expr,
-                            create_physical_plan(plan.input, device))
+        return P.RepeatExec(plan.count_expr, lower(plan.input))
     if isinstance(plan, L.CopyTo):
         raise NotImplementedError(
             "COPY is not ported yet (ROADMAP Queue 1, item 10: sinks)")

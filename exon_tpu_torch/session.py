@@ -9,40 +9,62 @@ registers the UDFs of the port's udfs.py and the SQL functions of its
 ops/sqlfuncs.py. The session names the
 torch device every operator runs on: ``"cuda"`` by default, which raises
 when there is no card; CPU execution (the kernels' plain twins) must be
-asked for with ``device="cpu"``. The other formats, object stores and the
-session config are not ported yet (ROADMAP Queue 1).
+asked for with ``device="cpu"``. Its ``config`` (config.py,
+``new_exon_config``) turns distributed execution on; a session in a
+multi-process run (the ``EXON_TPU_*`` variables of parallel/mesh.py) starts
+the process group and, without a config of its own, distributes
+(exon_tpu/session.py:60-71). The other formats and object stores are not
+ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from .config import SessionConfig, new_exon_config
 from .dataframe import DataFrame
 from .errors import PlanError
 from .plan import logical as L
 from .tables import get_format, make_provider
 
-DEVICE_BATCH_SIZE = 1 << 17  # exon_tpu/config.py:20
-
 
 class ExonSession:
-    def __init__(self, device="cuda", device_batch_size: int = DEVICE_BATCH_SIZE):
+    def __init__(self, device="cuda", device_batch_size: Optional[int] = None,
+                 config: Optional[SessionConfig] = None):
+        from .parallel.mesh import init_distributed
+
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ExonSession(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
         self.device = device
-        self.device_batch_size = device_batch_size
+        multi = init_distributed(device=device)
+        self.config = config or new_exon_config()
+        if multi and config is None:
+            self.config.distributed = True
+        if device_batch_size is not None:
+            self.config = dataclasses.replace(
+                self.config, device_batch_size=device_batch_size)
         self.tables: dict[str, object] = {}
         # register the UDFs and the SQL functions (exon_tpu/session.py:73-74)
         from . import udfs  # noqa: F401
         from .ops import sqlfuncs  # noqa: F401
 
+    @property
+    def device_batch_size(self) -> int:
+        return self.config.device_batch_size
+
     @staticmethod
     def new_exon(device="cuda") -> "ExonSession":
         return ExonSession(device)
+
+    @staticmethod
+    def with_config_exon(config: SessionConfig,
+                         device="cuda") -> "ExonSession":
+        return ExonSession(device, config=config)
 
     # -- registration -------------------------------------------------------
 
@@ -82,9 +104,6 @@ class ExonSession:
 
     def read_bam(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("BAM", url, options, **kw)
-
-    def read_mzml(self, url: str, options=None, **kw) -> DataFrame:
-        return self._read("MZML", url, options, **kw)
 
     def read_mzml(self, url: str, options=None, **kw) -> DataFrame:
         return self._read("MZML", url, options, **kw)

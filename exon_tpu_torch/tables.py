@@ -27,6 +27,7 @@ from .formats import bam, fasta, fasta_device, fastq, gff, mzml, vcf
 from .indexes import parse_tabix
 from .io import (coalesce_chunks, read_bgzf_chunk, read_file,
                  resolve_table_files)
+from .parallel.mesh import iter_scan_files
 from .plan import regions as R
 from .plan.expressions import BinaryOp, Expr, col
 from .plan.physical import FilterExec, PhysicalPlan, ProjectExec, ScanExec
@@ -88,6 +89,9 @@ class FileTable:
     url: str
     fmt: FormatSpec
     options: object
+    # the scan decodes iter_scan_files(files): a process's own files in a
+    # multi-process run (exon_tpu/providers.py:47)
+    shards_files = True
 
     def schema(self) -> Schema:
         return self.fmt.schema(self.options)
@@ -110,7 +114,7 @@ class FileTable:
                       and not os.environ.get("EXON_TPU_HOST_DECODE"))
 
         def source() -> Iterator[Batch]:
-            for path in files:
+            for path in iter_scan_files(files):
                 if use_device:
                     yield from fmt.device_decode(read_file(path), options,
                                                  projection, device)
@@ -168,6 +172,7 @@ class VcfTable:
 
     url: str
     options: object
+    shards_files = True  # exon_tpu/providers.py:113
 
     def schema(self) -> Schema:
         if getattr(self.options, "parse_info", False) or \
@@ -207,7 +212,7 @@ class VcfTable:
             scan_proj += [c for c in ("chrom", "pos") if c not in scan_proj]
 
         def source() -> Iterator[Batch]:
-            for path in files:
+            for path in iter_scan_files(files):
                 if regions and indexed[path]:
                     yield from _indexed_batches(path, regions, options,
                                                 scan_proj)

@@ -1465,3 +1465,78 @@ def test_list_take_on_card_matches_cpu(card, tmp_path):
     for x, y in zip(_flat_arrays(got.columns[0]),
                     _flat_arrays(want.columns[0])):
         assert torch.equal(x.cpu(), y)
+
+
+def _bucket_inputs(rng, n, hashed):
+    i64 = np.iinfo(np.int64)
+    keys = rng.integers(i64.min, i64.max, n, dtype=np.int64)
+    keys[: min(n, 4)] = [0, -1, i64.min, i64.max][: min(n, 4)]
+    route = keys if hashed else rng.integers(-1, 9, n).astype(np.int32)
+    cols = [rng.random(n) < 0.5, rng.integers(0, 256, n).astype(np.uint8),
+            rng.integers(-2**31, 2**31, n).astype(np.int32), keys,
+            rng.standard_normal(n), rng.integers(0, 256, (n, 64)).astype(
+                np.uint8), rng.integers(-9, 9, (n, 3)).astype(np.int64)]
+    return route, rng.random(n) < 0.8, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_parts,cap,hashed,masked", [
+    (0, 8, 16, True, True),
+    (1, 1, 1, True, False),
+    (1000, 8, 64, True, True),          # overflowing buckets
+    (100_000, 8, 20_000, True, True),   # lossless
+    (100_000, 1000, 256, True, False),
+    (70_001, 8, 9_000, False, True),    # given destinations, some outside
+])
+def test_bucket_pack_kernel_matches_twin(card, n, n_parts, cap, hashed,
+                                         masked):
+    """bucket_pack against its twin, every output equal: the buckets of
+    each column width, the true counts, the destinations and the ranks."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    route, mask, cols = _bucket_inputs(np.random.default_rng(n), n, hashed)
+    host = [torch.from_numpy(c) for c in cols]
+    m = torch.from_numpy(mask) if masked else None
+    want = kb.bucket_pack_plain(torch.from_numpy(route), m, host, n_parts,
+                                cap, hashed)
+    before = kb.launches
+    got = kb.bucket_pack(torch.from_numpy(route).to(card),
+                         None if m is None else m.to(card),
+                         [c.to(card) for c in host], n_parts, cap, hashed)
+    torch.cuda.synchronize()
+    assert kb.launches == before + (1 if n else 0)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_distributed_aggregate_on_card_matches_cpu(card, tmp_path):
+    """A grouped aggregate over 8 shards of the card (hash_aggregate,
+    bucket_pack and the exchange) against the same plan on the CPU."""
+    import exon_tpu_torch as T
+    from benchlib.gff_fixture import make_gff
+    from exon_tpu_torch.config import new_exon_config
+    from exon_tpu_torch.parallel import distributed as D
+
+    gf = make_gff(20_000, 3, path=str(tmp_path / "g.gff3"))
+    q = (f"SELECT seqname, start / 100000 AS w, COUNT(*) AS n, MIN(start) AS "
+         f"lo, SUM(\"end\" - start + 1) AS bp, AVG(\"end\" - start + 1) AS a "
+         f"FROM gff_scan('{gf}') WHERE type = 'exon' GROUP BY seqname, "
+         f"start / 100000")
+    out = []
+    for dev in ("cpu", card):
+        s = T.ExonSession(dev, device_batch_size=2048, config=new_exon_config(
+            distributed=True, n_shards=8))
+        kernels.reset_launch_counts()
+        out.append(s.sql(q).collect_host())
+    # one pack for the card's 8 shards, a second if a bucket overflowed
+    assert kernels.launch_counts()["bucket_pack"] in (1, 2)
+    assert D.fallbacks == 0
+    for a, b in zip(out[0].columns, out[1].columns):
+        if isinstance(a, tb.DictColumn):
+            assert [a.vocab[i] for i in a.codes] == \
+                [b.vocab[i] for i in b.codes]
+        else:
+            np.testing.assert_allclose(a.values, b.values, rtol=1e-12)
