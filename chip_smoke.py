@@ -59,7 +59,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    groups of Q's 8 shard tables after its scan, all their columns, in the
    exchange's one call for the card, to 8 destinations (every output equal
    to the twin's), beside a stable
-   torch.sort of the destinations and index_select of the columns.
+   torch.sort of the destinations and index_select of the columns; and,
+   printed apart, at D_part's pair exchange once D_part has run: the left
+   side's (folded key, row id) pairs, int64 and int32, to 8 destinations in
+   the exchange's two calls (count, then pack at the largest count), and
+   the whole route with the exchange.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -87,7 +91,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    rtrim, as a trimmed-length histogram), and two over I_panel's scan: L
    (windows: the gap to the previous call, a RANGE count of calls within
    35 bp, a ROWS max of qual over 11 calls and a per-contig rank by qual
-   DESC) and M (a ROLLUP of per-(chrom, ref) counts with qual >= 30: three
+   DESC) and, over I's one-region scan (cut from the panel for the smoke's
+   time), M (a ROLLUP of per-(chrom, ref) counts with qual >= 30: three
    aggregate branches joined by a union), and three over list, struct and
    map columns: N (the GENCODE biotype census: genes at levels 1-2 counted
    by attributes['gene_type'][1] over a GENCODE-v44-shaped GFF3 of chr1,
@@ -104,7 +109,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    DistributedAggregateExec over 8 shards, with no fallback and group rows
    exchanged), Q_top (A's 100 longest proteins through DistributedTopKExec)
    and Q_count (A's proteins past 300 residues, counted and summed through
-   the ungrouped distributed path). Each is checked against numpy
+   the ungrouped distributed path), and on the same shards C_dist (Query C:
+   its plan must hold a DistributedJoinExec, the build side broadcast),
+   D_part (Query D under SET exon.partitioned_join = true, set back to
+   false after: a DistributedPartitionedJoinExec, with the (key, row)
+   pairs it exchanged) and L_dist (Query L: a DistributedWindowExec, with
+   the rows it routed), each equal to C, D and L row for row. Each is
+   checked against numpy
    computations from the generators' own arrays. The launch counts are set to 0 before each
    query and read after it; each query must have launched every kernel of
    its path. Then the device-decoded FASTA and FASTQ files are held to the
@@ -120,11 +131,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
 5. Where the time goes in queries C and D: the join and the sort alone on
    device batches already in memory, with the kernels (median of 5
    host-clock runs ending in a sync), beside the bound of their input and
-   output bytes; Q's aggregate alone on its device batches in memory on
-   one device (AggregateExec), 2 shards and 8 shards (median of 5); then
-   one run of A, E, J, J_agg, K, L, N, O and Q under torch.profiler, with
-   the device time of its CUDA kernels and copies and the largest of them
-   (the profiled runs of I, I_panel and P are cut for the smoke's time).
+   output bytes; C's and D's joins alone on those batches in memory, on 8
+   shards (C_dist's broadcast join, D_part's partitioned join) beside
+   JoinExec on one device (median of 5); Q's aggregate alone on its device
+   batches in memory on one device (AggregateExec), 2 shards and 8 shards
+   (median of 5); L's windows alone on their input batches in memory, on
+   8 shards (L_dist's DistributedWindowExec) beside WindowExec on one
+   device (median of 5); then one run of A, E, J, J_agg, K, L, N and O under
+   torch.profiler, with the device time of its CUDA kernels and copies and
+   the largest of them (the profiled runs of I, I_panel, P and Q are cut
+   for the smoke's time).
 
 The smoke prints its total time and the card's name and power limit once
 more (nvidia-smi); the line before the last is a JSON object
@@ -262,6 +278,14 @@ PATH_KERNELS = {
     # gather_var), on the device decode
     "Q_top": DECODE + ("sort_keys", "gather_var"),
     "Q_count": DECODE,
+    # on the 8 shards: C's broadcast join (each shard probes the one build
+    # side of the card), D's partitioned join (the string key's hash, the
+    # pair exchange, the match, the verification, the takes) and L's
+    # windows (the rows routed to their partition's shard)
+    "C_dist": ("compact_mask", "gather_var", "expand_segments", "sort_keys"),
+    "D_part": ("row_hash", "bucket_pack", "expand_segments", "string_eq",
+               "compact_mask", "gather_var", "sort_keys"),
+    "L_dist": ("bucket_pack", "sort_keys", "window_bounds", "window_frame"),
 }
 ADAPTER = "%AGATCGGAAGAGC%"    # TruSeq adapter prefix, anywhere in a read
 SQL_COUNT = ("SELECT COUNT(*) FROM fasta_scan('{fa}') WHERE length(sequence) "
@@ -304,8 +328,8 @@ SQL_K = ("SELECT length(t) AS len, COUNT(*) AS n, SUM(length(sequence) - "
          "length(t) ORDER BY len")
 # L: neighbour gaps, a SNP-cluster count (GATK VariantFiltration
 # --cluster-window-size 35), a local quality envelope and a per-contig
-# quality rank over I_panel's scan; M: per-contig and genome-wide call
-# counts by REF (bcftools stats) as a ROLLUP over the same scan
+# quality rank over I_panel's scan; M: per-contig and total call counts by
+# REF (bcftools stats) as a ROLLUP over I's one-region scan
 SQL_L = ("SELECT chrom, pos, qual, pos - lag(pos) OVER (PARTITION BY chrom "
          "ORDER BY pos) AS gap, COUNT(*) OVER (PARTITION BY chrom ORDER BY "
          "pos RANGE BETWEEN 35 PRECEDING AND 35 FOLLOWING) AS cluster_n, "
@@ -314,7 +338,7 @@ SQL_L = ("SELECT chrom, pos, qual, pos - lag(pos) OVER (PARTITION BY chrom "
          "PARTITION BY chrom ORDER BY qual DESC) AS qual_rank FROM "
          "vcf_indexed_scan('{vcf}', '{panel}')")
 SQL_M = ("SELECT chrom, ref, COUNT(*) AS n FROM vcf_indexed_scan('{vcf}', "
-         "'{panel}') WHERE qual >= 30 GROUP BY ROLLUP(chrom, ref)")
+         "'{region}') WHERE qual >= 30 GROUP BY ROLLUP(chrom, ref)")
 # N: the GENCODE biotype census (the N_TOP largest gene counts by gene_type
 # at levels 1-2, through the planner's TopK sort);
 # O: reads as model input (Exon's integer encodings of E's lane); P: a TMT
@@ -2431,13 +2455,13 @@ def _check_l(host, calls: dict) -> None:
           "first)")
 
 
-def _check_m(host, calls: dict) -> None:
-    """Query M against numpy: the (chrom, REF) counts of the panel's rows
+def _check_m(host, calls: dict, regions: list) -> None:
+    """Query M against numpy: the (chrom, REF) counts of the regions' rows
     with qual >= 30 in first-seen order, then each contig's subtotal (REF
     NULL), then the total (both NULL); exact."""
     from benchlib.gff_fixture import SEQNAMES
 
-    rows = _qual30_rows(calls, _panel_regions())
+    rows = _qual30_rows(calls, regions)
     first, order, g = _chrom_ref_groups(calls, rows)
     n_groups = len(order)
     chroms = calls["chrom"][rows]
@@ -2757,6 +2781,134 @@ def _check_q_count(host, offs) -> None:
              f"{int(lens[sel].sum())}")
 
 
+# the (key, row) pairs D_part's exchange routed and the rows L_dist's
+# windows routed, each from its own run
+DIST_EXCHANGE: dict = {}
+
+
+def _run_dist(df, label: str):
+    from exon_tpu_torch.parallel import distributed as D
+
+    D.reset_stats()
+    out = df.collect_host()
+    DIST_EXCHANGE[label] = (D.exchanged_pairs, D.window_rows)
+    return out
+
+
+def _run_d_part(T, dsession, bam):
+    """Query D on the shards under SET exon.partitioned_join = true, set
+    back to false after."""
+    dsession.sql("SET exon.partitioned_join = true")
+    try:
+        return _run_dist(_query_d(T, dsession, bam), "D_part")
+    finally:
+        dsession.sql("SET exon.partitioned_join = false")
+
+
+def _same_rows(a, b) -> bool:
+    """Two host batches hold the same rows in the same order: the same
+    validity, and the same values where valid."""
+    if a.length != b.length or a.schema.names != b.schema.names:
+        return False
+    for x, y in zip(a.columns, b.columns):
+        v = np.asarray(x.validity)
+        if not (np.array_equal(v, y.validity) and
+                np.array_equal(_values_of(x)[v], _values_of(y)[v])):
+            return False
+    return True
+
+
+def _check_dist_plans(T, dsession, bam, gf, vcf, panel, results):
+    """C_dist, D_part and L_dist equal C, D and L row for row; their plans
+    hold a DistributedJoinExec, a DistributedPartitionedJoinExec and a
+    DistributedWindowExec over Q_SHARDS shards; D_part's exchange moved
+    (key, row) pairs and L_dist routed every row. Returns D_part's join."""
+    from exon_tpu_torch.parallel import distributed as D
+
+    for label, base in (("C_dist", "C"), ("D_part", "D"), ("L_dist", "L")):
+        if not _same_rows(results[label], results[base]):
+            fail(f"query {label}: differs from query {base}")
+    df = _query_c(T, dsession, bam, gf)
+    c = _find(df._execute(df.logical_plan()), D.DistributedJoinExec)
+    dsession.sql("SET exon.partitioned_join = true")
+    try:
+        df = _query_d(T, dsession, bam)
+        d = _find(df._execute(df.logical_plan()),
+                  D.DistributedPartitionedJoinExec)
+    finally:
+        dsession.sql("SET exon.partitioned_join = false")
+    df = dsession.sql(SQL_L.format(vcf=vcf, panel=panel))
+    w = _find(df._execute(df.logical_plan()), D.DistributedWindowExec)
+    for label, op in (("C_dist", c), ("D_part", d), ("L_dist", w)):
+        if op.mesh.n_shards != Q_SHARDS:
+            fail(f"query {label}: {op.mesh.n_shards} shards, not {Q_SHARDS}")
+    pairs, rows = DIST_EXCHANGE["D_part"][0], DIST_EXCHANGE["L_dist"][1]
+    if pairs <= 0 or rows != results["L"].length:
+        fail(f"query D_part moved {pairs} pairs, L_dist routed {rows} rows")
+    print(f"queries C_dist, D_part and L_dist: DistributedJoinExec, "
+          f"DistributedPartitionedJoinExec and DistributedWindowExec over "
+          f"{Q_SHARDS} shards of {c.mesh.devices[0]}, equal to C, D and L "
+          f"row for row; D_part's exchange routed {pairs} (key, row) pairs, "
+          f"L_dist's {rows} rows to their partitions' shards")
+    return d
+
+
+def check_bucket_pack_pairs(torch, d_plan) -> None:
+    """bucket_pack at D_part's pair exchange, printed apart: the left
+    side's (folded key, row) pairs, int64 and int32, to the Q_SHARDS
+    shards in the exchange's two calls (a counting call of capacity 0, then
+    the pack at the largest count), every output equal to the twin's;
+    beside it a stable torch.sort of the destinations and index_select of
+    the two columns."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+    from exon_tpu_torch.parallel.distributed import _bucket, _collect_side
+    from exon_tpu_torch.parallel.shuffle import exchange
+    from exon_tpu_torch.plan.physical import fold_key
+
+    side = _collect_side(d_plan.left, [le for le, _r in d_plan.on],
+                         d_plan.mesh, {})
+    key, mask = fold_key(side.parts), side.valid
+    rows = torch.arange(key.shape[0], dtype=torch.int32, device=key.device)
+    n = d_plan.mesh.n_shards
+
+    def run(fn):
+        counts = fn(key, mask, [], n, 0)[1]
+        return fn(key, mask, [key, rows], n, int(counts.max()))
+
+    got, want = run(kb.bucket_pack), run(kb.bucket_pack_plain)
+    for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        if not torch.equal(a, b):
+            fail("kernel bucket_pack differs from its twin at D_part's "
+                 "pairs")
+    cap, live = int(got[1].max()), int(mask.sum())
+
+    def library():
+        d = torch.where(mask, kb.partition_ids(key, n), n)
+        order = torch.sort(d, stable=True).indices
+        key.index_select(0, order)
+        rows.index_select(0, order)
+
+    m = key.shape[0]
+    # both calls read each key and mask byte and write each destination and
+    # rank; the pack reads the two columns and writes the buckets, zeros
+    # included, and the counts
+    nbytes = 2 * m * (8 + 1 + 4 + 4) + m * 12 + n * cap * 12 + 8 * n
+    ms = median_ms(lambda: run(kb.bucket_pack), torch)
+    plain = median_ms(lambda: run(kb.bucket_pack_plain), torch)
+    lib = median_ms(library, torch)
+    # the whole route as D_part runs it (hash_partition_shuffle's work):
+    # the two calls, the host read of the counts, the exchange's slices
+    route = median_ms(lambda: exchange(d_plan.mesh, *[[x] for x in _bucket(
+        d_plan.mesh, key, mask, [key, rows])]), torch)
+    print(f"kernel bucket_pack at D_part's pair exchange (printed apart): "
+          f"matches twin ({m} left rows, {live} (int64, int32) pairs to {n} "
+          f"shards, bucket cap {cap}, two calls); median of {REPS}: kernel "
+          f"{ms:.4f} ms, twin {plain:.4f} ms, library sort + index_select "
+          f"{lib:.4f} ms; bound {bound_ms(nbytes):.4f} ms by bytes "
+          f"({nbytes} bytes); the route with the exchange to the {n} "
+          f"shards {route:.4f} ms")
+
+
 def check_bucket_pack(torch, q_plan, q_batches) -> dict:
     """bucket_pack against its twin (every output equal) at Q's shape: the
     groups of Q's shard tables after its scan, all their columns, in the one
@@ -2921,10 +3073,10 @@ def phase_main_path(torch) -> dict:
                   FASTA_RECORDS),
         "K": (lambda: session.sql(SQL_K.format(fq=fq)).collect_host(),
               FASTQ_READS),
-        # L and M read I_panel's scan (M three times, once a branch)
+        # L reads I_panel's scan, M I's (three times, once a branch)
         "L": (lambda: session.sql(SQL_L.format(vcf=vcf, panel=panel))
               .collect_host(), None),
-        "M": (lambda: session.sql(SQL_M.format(vcf=vcf, panel=panel))
+        "M": (lambda: session.sql(SQL_M.format(vcf=vcf, region=VCF_REGION))
               .collect_host(), None),
         "N": (lambda: session.sql(SQL_N.format(gf=gencode)).collect_host(),
               GENCODE_FEATURES),
@@ -2939,6 +3091,11 @@ def phase_main_path(torch) -> dict:
                   .collect_host(), FASTA_RECORDS),
         "Q_count": (lambda: dsession.sql(SQL_Q_COUNT.format(fa=fa))
                     .collect_host(), FASTA_RECORDS),
+        "C_dist": (lambda: _run_dist(_query_c(T, dsession, bam, gf),
+                                     "C_dist"), n_bam + GFF_FEATURES),
+        "D_part": (lambda: _run_d_part(T, dsession, bam), 2 * n_bam),
+        "L_dist": (lambda: _run_dist(dsession.sql(SQL_L.format(
+            vcf=vcf, panel=panel)), "L_dist"), None),
     }
     results, stats, counts = {}, {}, {}
     for q, (run, rows_in) in queries.items():
@@ -2981,7 +3138,7 @@ def phase_main_path(torch) -> dict:
     _check_j_agg(results["J_agg"], offs)
     _check_k(results["K"], fq_reads, first_adapter)
     _check_l(results["L"], calls)
-    _check_m(results["M"], calls)
+    _check_m(results["M"], calls, [_region(VCF_REGION)])
     _check_n(results["N"], gencode_feats)
     _check_topk(session.sql(SQL_N.format(gf=gencode)), N_TOP, "N")
     _check_o(results["O"], fq_reads, torch)
@@ -2990,6 +3147,7 @@ def phase_main_path(torch) -> dict:
     q_plan = _check_q_plans(dsession, gf, fa)
     _check_q_top(results["Q_top"], offs)
     _check_q_count(results["Q_count"], offs)
+    d_plan = _check_dist_plans(T, dsession, bam, gf, vcf, panel, results)
     _decode_matches_host("FASTA", lambda: session.read_fasta(fa), torch)
     _decode_matches_host("FASTQ", lambda: session.read_fastq(fq), torch)
     # each query's scans alone: the device decode where the format has one,
@@ -3022,9 +3180,10 @@ def phase_main_path(torch) -> dict:
             fail(f"query {q}: its scans yielded {stats[q][1]} rows, the "
                  f"fixture has {want} in its regions")
         inflated[q] = _chunk_records(vcf, regions)
-    # M reads L's scan three times; its own scans are not timed again (cut
-    # for the smoke's time)
-    stats["M"][1], inflated["M"] = 3 * stats["L"][1], 3 * inflated["L"]
+    # M reads I's scan three times, L_dist L's once; their own scans are
+    # not timed again (cut for the smoke's time)
+    stats["M"][1], inflated["M"] = 3 * stats["I"][1], 3 * inflated["I"]
+    stats["L_dist"][1], inflated["L_dist"] = stats["L"][1], inflated["L"]
     for q, base in (("count", "A"), ("E_count", "E")):
         host_scan[q] = host_scan[base]
         if base in device_scan:
@@ -3058,10 +3217,11 @@ def phase_main_path(torch) -> dict:
               f"{seek}{share}")
     print("main path: queries A, count, B, C, D, E, E_count, SQL_count, "
           "SQL_range, SQL_gff, F, G, H, I, I_panel, J, J_agg, K, L, M, N, O, "
-          "P, Q, Q_top and Q_count match the generators' arrays")
+          "P, Q, Q_top and Q_count match the generators' arrays; C_dist, "
+          "D_part and L_dist equal C, D and L row for row")
     _sql_vs_dataframe(session, T, fa, vcf, torch)
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}, \
-        (q_plan, q_batches, gf)
+        (q_plan, q_batches, gf), d_plan
 
 
 # ---------------------------------------------------------------------------
@@ -3169,9 +3329,9 @@ def _q_cost(torch, q_plan, q_batches, gf) -> None:
               f"{out.length} groups; median of 5: {ms:.2f} ms")
 
 
-def _join_and_sort_ms(df, torch, label: str) -> None:
+def _join_and_sort_ms(df, torch, label: str):
     """The query's join and its sort on device batches already in memory
-    (no scan), with the kernels."""
+    (no scan), with the kernels. Returns the join over its batches."""
     from exon_tpu_torch.plan import join_exec, physical
 
     plan = df._execute(df.logical_plan())
@@ -3189,6 +3349,66 @@ def _join_and_sort_ms(df, torch, label: str) -> None:
         print(f"query {label} {part} alone: {rows} rows out; median of 5: "
               f"{ms:.2f} ms; bound {bound_ms(nbytes):.4f} ms (its input and "
               f"output batches, {nbytes} bytes)")
+    return join
+
+
+def _dist_join_ms(torch, join, label: str, partitioned: bool) -> None:
+    """The query's join alone on Q_SHARDS shards of the card (C_dist's
+    broadcast join, D_part's partitioned join) over the in-memory batches
+    of its one-device JoinExec, beside that JoinExec (median of 5
+    host-clock runs ending in a sync; both ways give the same rows in the
+    same order)."""
+    from exon_tpu_torch.batch import concat_host
+    from exon_tpu_torch.parallel import distributed as D
+    from exon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(Q_SHARDS, "cuda")
+    args = (join.on, join.how, join.filter, join.out_schema, mesh)
+    dist = D.DistributedPartitionedJoinExec(join.left, join.right, *args) \
+        if partitioned else D.DistributedJoinExec(join.left, (), join.right,
+                                                  *args)
+    outs = [concat_host(join.schema(), [b.to_host() for b in op.batches()])
+            for op in (join, dist)]
+    if not _same_rows(*outs):
+        fail(f"query {label}'s join alone: {type(dist).__name__} differs "
+             "from JoinExec")
+    ms_one = _host_ms(lambda: list(join.batches()), torch)
+    ms_dist = _host_ms(lambda: list(dist.batches()), torch)
+    print(f"query {label} join alone, inputs in memory: JoinExec on one "
+          f"device {ms_one:.2f} ms, {type(dist).__name__} on {Q_SHARDS} "
+          f"shards {ms_dist:.2f} ms (median of 5; {outs[0].length} rows out, "
+          "the same both ways)")
+
+
+def _window_ms(torch, session, sql: str) -> None:
+    """L's windows alone, their input batches in memory: WindowExec on one
+    device beside DistributedWindowExec on Q_SHARDS shards of the card (L
+    on 8 shards: L_dist), median of 5 host-clock runs ending in a sync,
+    beside the bound of the input and output bytes; both ways give the same
+    rows."""
+    from exon_tpu_torch.batch import concat_host
+    from exon_tpu_torch.parallel import distributed as D
+    from exon_tpu_torch.parallel.mesh import make_mesh
+    from exon_tpu_torch.plan.window_exec import WindowExec
+
+    df = session.sql(sql)
+    one = _find(df._execute(df.logical_plan()), WindowExec)
+    one.input = _in_memory(one.input)
+    dist = D.DistributedWindowExec(one.calls, one.names, one.out_schema,
+                                   one.input, make_mesh(Q_SHARDS, "cuda"))
+    outs = [list(op.batches()) for op in (one, dist)]
+    if not _same_rows(*[concat_host(one.out_schema, [b.to_host() for b in o])
+                        for o in outs]):
+        fail("query L's windows alone: DistributedWindowExec differs from "
+             "WindowExec")
+    nbytes = _batch_bytes(one.input.held) + _batch_bytes(outs[0])
+    ms_one = _host_ms(lambda: list(one.batches()), torch)
+    ms_dist = _host_ms(lambda: list(dist.batches()), torch)
+    print(f"query L windows alone, input in memory: WindowExec on one device "
+          f"{ms_one:.2f} ms, DistributedWindowExec on {Q_SHARDS} shards "
+          f"{ms_dist:.2f} ms (median of 5; {sum(b.length for b in outs[0])} "
+          f"rows, the same both ways); bound {bound_ms(nbytes):.4f} ms (its "
+          f"input and output batches, {nbytes} bytes)")
 
 
 def _batch_bytes(batches) -> int:
@@ -3240,10 +3460,14 @@ def phase_breakdown(torch, q) -> None:
     queries = {"C": lambda: _query_c(T, session, bam, gf),
                "D": lambda: _query_d(T, session, bam)}
     for label, query in queries.items():
-        _join_and_sort_ms(query(), torch, label)
+        join = _join_and_sort_ms(query(), torch, label)
+        _dist_join_ms(torch, join, label, partitioned=label == "D")
+        del join
     q_plan, q_batches, _gf = q
     _q_cost(torch, q_plan, q_batches, gf)
     del q_batches, q
+    vcf = make_vcf(VCF_RECORDS, VCF_SEED)
+    _window_ms(torch, session, SQL_L.format(vcf=vcf, panel=_panel_file(vcf)))
     # C's and D's profiled runs (~50 s and ~30 s) are cut for the smoke's
     # time: the card was under 0.5 % busy in them (PERF.md section 5). The
     # profiler's first use sets up its tracing (~10 s), which would land in
@@ -3263,7 +3487,6 @@ def phase_breakdown(torch, q) -> None:
     _device_profile(lambda: session.read_fastq(fq).filter(
         T.col("sequence").like(ADAPTER)).select(
         "name", "sequence", "quality_scores").collect_host(), torch, "E")
-    vcf = make_vcf(VCF_RECORDS, VCF_SEED)
     # I's and I_panel's profiled runs (~6 s; the card 0.18-0.25 % busy in
     # them, PERF.md section 5) are cut for the smoke's time, as is P's
     # (its mzML parse, ~7 s; 0.41 % busy)
@@ -3278,18 +3501,14 @@ def phase_breakdown(torch, q) -> None:
     _device_profile(lambda: session.sql(sql).collect_host(), torch, "L")
     # the list columns: N's map lookups and O's encodings (kept on the card)
     from benchlib.gencode_gff_fixture import make_gencode_gff
-    from exon_tpu_torch.config import new_exon_config
 
     gencode = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
     _device_profile(lambda: session.sql(SQL_N.format(
         gf=gencode)).collect_host(), torch, "N")
     _device_profile(lambda: _device_batches(session.sql(SQL_O.format(
         fq=fq))), torch, "O")
-    # Q on Q_SHARDS shards of the card: how much of its wall is on the card
-    dsession = T.ExonSession(device="cuda", config=new_exon_config(
-        distributed=True, n_shards=Q_SHARDS))
-    _device_profile(lambda: dsession.sql(SQL_Q.format(gf=gf)).collect_host(),
-                    torch, "Q")
+    # Q's profiled run (~14 s; the card 0.45 % busy in it, PERF.md section
+    # 5) is cut for the smoke's time
 
 
 def main() -> int:
@@ -3305,9 +3524,12 @@ def main() -> int:
     name, card = phase_device(torch)
     phase_build()
     results = phase_kernels(torch)
-    counts, q = phase_main_path(torch)
-    # phase 3's bucket_pack case needs Q's shard tables: it runs after Q
+    counts, q, d_plan = phase_main_path(torch)
+    # phase 3's bucket_pack cases need Q's shard tables and D_part's join:
+    # they run after the main path
     results["bucket_pack"] = check_bucket_pack(torch, q[0], q[1])
+    check_bucket_pack_pairs(torch, d_plan)
+    del d_plan
     phase_breakdown(torch, q)
     del q
     kernels = []

@@ -375,8 +375,8 @@ def pyvalues_column(vals: list, dtype: DataType) -> Column:
                                       for v in vals], f.dtype)
              for f in dtype.children}, valid)
     if not dtype.is_fixed_width:
-        raise NotImplementedError(f"{dtype} values are not ported (ROADMAP "
-                                  "Queue 1, item 14: memory tables)")
+        raise NotImplementedError(f"Python values of {dtype} are not "
+                                  "supported")
     return FixedColumn(np.asarray([0 if v is None else v for v in vals],
                                   dtype=numpy_dtype(dtype)), valid)
 
@@ -484,6 +484,43 @@ def _dtype_from(d) -> DataType:
 # ---------------------------------------------------------------------------
 # Arrow conversion (host columns), exon_tpu/batch.py:402-598
 # ---------------------------------------------------------------------------
+
+
+def schema_from_arrow(pa_schema) -> Schema:
+    """The port's schema of an Arrow schema (exon_tpu/batch.py:429)."""
+    return Schema(tuple(Field(f.name, _dtype_from_arrow(f.type), f.nullable)
+                        for f in pa_schema))
+
+
+def _dtype_from_arrow(t) -> DataType:
+    import pyarrow as pa
+
+    from . import datatypes as dt
+
+    for test, dtype in ((pa.types.is_int8, dt.int8),
+                        (pa.types.is_int16, dt.int16),
+                        (pa.types.is_int32, dt.int32),
+                        (pa.types.is_int64, dt.int64),
+                        (pa.types.is_uint8, dt.uint8),
+                        (pa.types.is_uint32, dt.uint32),
+                        (pa.types.is_float32, dt.float32),
+                        (pa.types.is_float64, dt.float64),
+                        (pa.types.is_boolean, dt.bool_),
+                        (pa.types.is_large_string, dt.large_utf8),
+                        (pa.types.is_string, dt.utf8),
+                        (pa.types.is_binary, dt.binary),
+                        (pa.types.is_dictionary, dt.utf8)):
+        if test(t):
+            return dtype
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        return dt.list_(_dtype_from_arrow(t.value_type))
+    if pa.types.is_struct(t):
+        return dt.struct([Field(f.name, _dtype_from_arrow(f.type),
+                                f.nullable) for f in t])
+    if pa.types.is_map(t):
+        return dt.map_(_dtype_from_arrow(t.key_type),
+                       _dtype_from_arrow(t.item_type))
+    raise TypeError(f"unsupported arrow type {t}")
 
 
 def arrow_type(dtype: DataType):

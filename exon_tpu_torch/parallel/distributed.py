@@ -1,11 +1,14 @@
 """Distributed execution over a mesh of shards (K13).
 
-Counterpart of exon_tpu/parallel/distributed.py for the aggregate and TopK
-paths: ``DistributedAggregateExec`` (:718-1086) and ``DistributedTopKExec``
-(:1506-1697) with their planner hooks (:1401-1505, :1640), the wave loop
-(``lockstep_wave_iter`` :401) and the host data plane of a multi-process
-run (``allgather_pickled`` :270, ``_sync_template`` :296). The operators
-are built from the port's own parts, not block by block from the JAX code:
+Counterpart of exon_tpu/parallel/distributed.py: ``DistributedAggregateExec``
+(:718-1086), ``DistributedTopKExec`` (:1506-1697), ``DistributedJoinExec``
+(:1218-1345), ``DistributedWindowExec`` (:1698-1843),
+``DistributedSortExec`` (:1887-1928) and ``DistributedPartitionedJoinExec``
+(:1959-2211), with their planner hooks (:1347-1505, :1640, :1846, :1930,
+:2214), the wave loop (``lockstep_wave_iter`` :401) and the host data
+plane of a multi-process run (``allgather_pickled`` :270,
+``_sync_template`` :296). The operators are built from the port's own
+parts, not block by block from the JAX code:
 
 - The scan's batches are dealt round-robin, in stream order, to the shards
   of the mesh, one wave of ``n_local`` batches at a time; a wave advances
@@ -31,11 +34,21 @@ are built from the port's own parts, not block by block from the JAX code:
 - TopK: each shard sorts each of its batches (sort_keys + ``torch.sort``,
   ``SortExec`` with a fetch) and keeps its top k; the candidates, gathered
   over the processes, are finished by one more ``SortExec`` with the fetch.
+- Joins: the broadcast join probes each shard's batches against one build
+  side a card; the partitioned join sends (key, row) pairs of both sides
+  to the key's owner and verifies every matched pair (ROADMAP F31, F32).
+- Windows: each row goes to the shard of its PARTITION BY key's hash, the
+  shard runs WindowExec's path, the results go back to input order.
+- Sort across processes: each process sorts its files, the runs are
+  exchanged once and merged on the host.
 
 With several processes each decodes only its own files (``iter_scan_files``
 under ``scan_shard_context``), every process takes the same number of
 waves (a process whose files are done takes empty ones), and every process
-ends with the whole result.
+ends with the whole result. The JAX package's host-function gates
+(``contains_host_fn``) have no counterpart: the port traces no step, and
+every function of it runs eagerly on each batch, on the mesh as on one
+device.
 """
 
 from __future__ import annotations
@@ -49,31 +62,37 @@ import torch
 import torch.distributed as dist
 
 from ..batch import (Batch, DictColumn, FixedColumn, Schema, VarColumn,
-                     empty_batch)
+                     concat_host, empty_batch, take_host)
 from ..errors import ExecutionError
 from ..kernels.bucket_pack import bucket_pack
+from ..kernels.expand_segments import expand_segments
 from ..kernels.sort_keys import gather_prefix
 from ..ops import aggregate as agg_ops
 from ..ops import layout as layout_ops
 from ..plan.expressions import as_bool_mask, eval_expr
+from ..plan.join_exec import JoinExec, verify_pairs
 from ..plan.physical import (_NULL_KEY_SENT, AggregateExec, PhysicalPlan,
-                             SortExec, _key_part, _to_column, fold_key)
+                             SortExec, _key_part, _merge_runs, _to_column,
+                             concat_batches, fold_key, join_key_parts)
 from .mesh import Mesh, make_mesh, process_count, scan_shard_context
 from .shuffle import any_process, exchange
 
 DEFAULT_REP_W = 64    # the string key bytes a group row carries (:61)
 MAX_DIST_TOPK = 1 << 16  # the largest fetch the mesh takes (:1636)
 
-# aggregates that fell back to the single-device plan, and the group rows
-# and bytes the aggregate exchange has moved, since reset_stats()
+# since reset_stats(): aggregates that fell back to the single-device plan,
+# the group rows and bytes the aggregate exchange has moved, the (key, row)
+# pairs the partitioned join has routed and the rows the windows have
 fallbacks = 0
 exchanged_rows = 0
 exchanged_bytes = 0
+exchanged_pairs = 0
+window_rows = 0
 
 
 def reset_stats() -> None:
-    global fallbacks, exchanged_rows, exchanged_bytes
-    fallbacks = exchanged_rows = exchanged_bytes = 0
+    global fallbacks, exchanged_rows, exchanged_bytes, exchanged_pairs,         window_rows
+    fallbacks = exchanged_rows = exchanged_bytes = exchanged_pairs =         window_rows = 0
 
 
 class RepTooLongError(ExecutionError):
@@ -489,6 +508,406 @@ class DistributedTopKExec(PhysicalPlan):
 
 
 # ---------------------------------------------------------------------------
+# The broadcast join
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DistributedJoinExec(PhysicalPlan):
+    """Inner or left equi-join with the build (right) side broadcast and the
+    probe stream dealt over the shards (:1218). The build side is collected
+    and sorted once a card (``JoinExec._build_side``) and shared by the
+    card's shards; in a multi-process run every process builds it from the
+    whole file set, as :1253 does. The probe scan's batches go round-robin
+    to the shards a wave at a time; each shard runs ``JoinExec``'s probe
+    (searchsorted, expand_segments, every key part verified) on its batch
+    after the fused Filter/Project stages. Output comes wave-major, then in
+    global shard order: the probe stream's order, as from ``JoinExec``."""
+
+    probe: PhysicalPlan   # the probe side's scan
+    stages: tuple         # the Filter/Project chain over it, scan side first
+    build: PhysicalPlan
+    on: list              # [(left_expr, right_expr)]
+    how: str              # inner | left
+    filter: Optional[object]
+    out_schema: Schema
+    mesh: Mesh
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def children(self):
+        return [self.probe, self.build]
+
+    def batches(self) -> Iterator[Batch]:
+        join = JoinExec(self.probe, self.build, self.on, self.how,
+                        self.filter, self.out_schema)
+        rschema = self.build.schema()
+        parts = [b for b in self.build.batches() if b.length]
+        vocab_of: dict = {}
+        builds = {}
+        if parts:
+            whole = concat_batches(rschema, parts, parts[0].device)
+            for dev in dict.fromkeys(self.mesh.devices):
+                builds[dev] = join._build_side(_on(whole, dev), vocab_of)
+        for wave, _cap in lockstep_wave_iter(iter(self.probe.batches()),
+                                             self.mesh):
+            outs = []
+            for s, b in enumerate(wave):
+                dev = self.mesh.devices[s]
+                b, _mask = apply_stages(self.stages, _on(b, dev),
+                                        compact_last=True)
+                if b.length == 0:
+                    continue
+                if not builds:
+                    if self.how == "left":
+                        outs.append(join._unmatched(b, rschema))
+                    continue
+                out = join._probe(b, builds[dev], vocab_of)
+                if out is not None:
+                    outs.append(out)
+            if self.mesh.n_processes > 1:
+                every = allgather_pickled([o.to_host() for o in outs])
+                outs = [_on(o, self.mesh.devices[0])
+                        for host in every for o in host]
+            yield from outs
+
+
+# ---------------------------------------------------------------------------
+# Rows to the shard that owns their key
+# ---------------------------------------------------------------------------
+
+
+def _collect_rows(plan: PhysicalPlan, mesh: Mesh) -> Batch:
+    """``plan``'s rows as one batch on the first shard's device. In a
+    multi-process run each process decodes its own files and the rows of
+    every process are gathered to each, in process order (as the JAX
+    package gathers its Arrow tables, :1741-1766, :2065-2084). Returns
+    (batch, first row of this process's own rows, their count)."""
+    dev = mesh.devices[0]
+    schema = plan.schema()
+    if mesh.n_processes == 1:
+        b = concat_batches(schema, [_on(b, dev) for b in plan.batches()], dev)
+        return b, 0, b.length
+    with scan_shard_context(mesh.process_index, mesh.n_processes):
+        local = concat_batches(schema, [_on(b, dev) for b in plan.batches()],
+                               dev)
+    every = allgather_pickled(local.to_host())
+    base = sum(b.length for b in every[:mesh.process_index])
+    return concat_host(schema, every).to_device(dev), base, local.length
+
+
+def _bucket(mesh: Mesh, route: torch.Tensor, mask, cols: list) -> tuple:
+    """One bucket_pack of ``cols`` to the mesh's shards by the hash of
+    ``route``, the buckets sized from a first, counting call (capacity 0),
+    so none overflows: (buckets, counts as a host list)."""
+    n = mesh.n_shards
+    _o, counts, _d, _r = bucket_pack(route, mask, [], n, 0)
+    counts = counts.tolist()
+    out, _c, _d, _r = bucket_pack(route, mask, cols, n, max(counts, default=0))
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# PARTITION BY windows
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DistributedWindowExec(PhysicalPlan):
+    """Window calls that share one non-empty PARTITION BY, data-parallel
+    over the shards (:1698). Each row goes to shard ``hash(partition key) %
+    n_shards`` through bucket_pack, routed by the fold of its
+    ``join_key_parts``, so that a dictionary key and a string key route
+    alike and NULL keys form one partition on one shard. Only the columns
+    the calls read travel to the shards (:1774-1782). Each shard runs
+    WindowExec's own path over its rows, in input order (sort_keys and
+    stable sorts, window_bounds, window_frame; exact on every key byte), and
+    each call's column is scattered back to input order and appended to the
+    input rows. In a multi-process run each process decodes its own files,
+    the rows of every process are gathered to each, each process computes
+    its own shards, and their columns are gathered back."""
+
+    calls: list
+    names: list
+    out_schema: Schema
+    input: PhysicalPlan
+    mesh: Mesh
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def children(self):
+        return [self.input]
+
+    def batches(self) -> Iterator[Batch]:
+        global window_rows
+        from ..plan.expressions import _torch_dtype, expr_columns
+        from ..plan.window_exec import _sorted_bounds, _window_column
+
+        mesh, dev0 = self.mesh, self.mesh.devices[0]
+        in_schema = self.input.schema()
+        whole, _base, _own = _collect_rows(self.input, mesh)
+        n = whole.length
+        if n == 0:
+            yield empty_batch(self.out_schema).to_device(dev0)
+            return
+        need: set = set()
+        for c in self.calls:
+            for e in c.children():
+                need |= expr_columns(e)
+        sub = whole.project([f for f in in_schema.names if f in need]
+                            or in_schema.names[:1])
+        parts, _valid, _cols = join_key_parts(self.calls[0].partition_by,
+                                              whole, {})
+        rows = torch.arange(n, dtype=torch.int32, device=dev0)
+        (buckets,), counts = _bucket(mesh, fold_key(parts), None, [rows])
+        window_rows += n
+        fields = self.out_schema.all_fields[len(in_schema.all_fields):]
+        outs = [(torch.zeros(n, dtype=_torch_dtype(f.dtype), device=dev0),
+                 torch.zeros(n, dtype=torch.bool, device=dev0))
+                for f in fields]
+        owned = []
+        for s, dev in enumerate(mesh.devices):
+            g = mesh.first_shard + s
+            idx = buckets[g, :counts[g]]
+            owned.append(idx)
+            if idx.numel() == 0:
+                continue
+            shard = _on(layout_ops.take_batch(sub, idx), dev)
+            sorts: dict = {}
+            for (vals, valid), call, f in zip(outs, self.calls, fields):
+                key = repr((call.partition_by, call.order_by))
+                if key not in sorts:
+                    sorts[key] = _sorted_bounds(call, shard)
+                col = _window_column(call, shard, *sorts[key], f)
+                vals[idx.long()] = col.values.to(dev0)
+                valid[idx.long()] = col.validity.to(dev0)
+        if mesh.n_processes > 1:
+            mine = torch.cat(owned).long()
+            every = allgather_pickled(
+                (mine.cpu().numpy(), [(v[mine].cpu().numpy(),
+                                       m[mine].cpu().numpy())
+                                      for v, m in outs]))
+            for idx, cols in every:
+                idx = torch.from_numpy(idx).to(dev0)
+                for (vals, valid), (v, m) in zip(outs, cols):
+                    vals[idx] = torch.from_numpy(v).to(dev0)
+                    valid[idx] = torch.from_numpy(m).to(dev0)
+        yield Batch(self.out_schema, list(whole.columns)
+                    + [FixedColumn(v, m) for v, m in outs], n, dev0)
+
+
+# ---------------------------------------------------------------------------
+# The partitioned join
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Side:
+    batch: Batch        # every row of the side, on the first shard's device
+    parts: torch.Tensor  # int64 [P, n] key parts
+    valid: torch.Tensor  # bool [n]: every key part non-NULL
+    cols: list          # the evaluated key columns
+    own: tuple          # (first row, count) of this process's own rows
+
+
+def _collect_side(plan: PhysicalPlan, exprs: list, mesh: Mesh,
+                  vocab_of: dict) -> _Side:
+    """One side of the partitioned join, collected once with its key parts
+    (:2046)."""
+    batch, base, n_own = _collect_rows(plan, mesh)
+    parts, valid, cols = join_key_parts(exprs, batch, vocab_of)
+    return _Side(batch, parts, valid, cols, (base, n_own))
+
+
+@dataclasses.dataclass
+class DistributedPartitionedJoinExec(PhysicalPlan):
+    """Inner or left equi-join with both sides hash-partitioned over the
+    shards (:1959), chosen by the session's ``partitioned_join``. Each side
+    is collected once on the first shard's device with its key parts. Only
+    (folded key, row id) pairs travel: one bucket_pack a side, its buckets
+    sized from a first counting call (no overflow and no retry, where the
+    JAX package grows them ×4), then the exchange to each key's owner. The
+    owner sorts its build keys, searches them with its probe keys and lays
+    out the candidate pairs with expand_segments. Every key part of every
+    pair is then verified (string_eq on strings; the JAX package trusts the
+    64-bit ``_group_key_i64``, ROADMAP Queue 3, F32). The pairs are sorted
+    to (left row, right row) order, the order of ``JoinExec``; the ON
+    residual is applied to them before a LEFT join's null extension, as
+    ``JoinExec._probe`` does (the JAX package filters after it and drops
+    the NULL-extended rows, F31); both sides are gathered with
+    ``take_batch``. In a multi-process run each process decodes its own
+    files, both sides are gathered to every process (as :2076-2084 does),
+    each process sends the pairs of its own rows through the exchange, and
+    the verified pairs of every owner are gathered to every process."""
+
+    left: PhysicalPlan
+    right: PhysicalPlan
+    on: list
+    how: str              # inner | left
+    filter: Optional[object]
+    out_schema: Schema
+    mesh: Mesh
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def children(self):
+        return [self.left, self.right]
+
+    def batches(self) -> Iterator[Batch]:
+        vocab_of: dict = {}
+        lside = _collect_side(self.left, [le for le, _r in self.on],
+                              self.mesh, vocab_of)
+        rside = _collect_side(self.right, [re for _l, re in self.on],
+                              self.mesh, vocab_of)
+        if lside.batch.length == 0:
+            return
+        li, ri = self._pairs(lside, rside)
+        out = self._emit(lside, rside, li, ri)
+        if out is not None:
+            yield out
+
+    def _pairs(self, lside: _Side, rside: _Side) -> tuple:
+        """The verified (left row, right row) pairs of every owner, int64
+        on the first shard's device. A pair travels as its folded key and
+        row id, int64 and int32."""
+        global exchanged_pairs
+        mesh, dev0 = self.mesh, self.mesh.devices[0]
+        recv = []
+        for side in (lside, rside):
+            base, n_own = side.own
+            key = fold_key(side.parts[:, base:base + n_own])
+            rows = torch.arange(base, base + n_own, dtype=torch.int32,
+                                device=dev0)
+            mask = side.valid[base:base + n_own]
+            out, counts = _bucket(mesh, key, mask, [key, rows])
+            recv.append(exchange(mesh, [out], [counts]))
+            exchanged_pairs += sum(counts)
+        li, ri = [], []
+        for (lk, lr), (rk, rr) in zip(*recv):
+            perm = torch.sort(rk, stable=True).indices
+            rk, rr = rk[perm], rr[perm]
+            lo = torch.searchsorted(rk, lk, side="left")
+            cnt = (torch.searchsorted(rk, lk, side="right") - lo).to(
+                torch.int32)
+            ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+            total = int(ends[-1]) if ends.numel() else 0
+            if total == 0:
+                continue
+            pi, bi = expand_segments(lo.to(torch.int32), cnt, ends - cnt,
+                                     total, rk.shape[0])
+            li.append(lr[pi.long()].to(dev0))
+            ri.append(rr[bi.long()].to(dev0))
+        empty = torch.zeros(0, dtype=torch.int32, device=dev0)
+        li = torch.cat(li) if li else empty
+        ri = torch.cat(ri) if ri else empty
+        ok = verify_pairs(lside.parts, lside.cols, rside.parts, rside.cols,
+                          li, ri)
+        sel, count = layout_ops.mask_to_indices(ok)
+        sel = sel[:int(count)].long()
+        li, ri = li[sel].long(), ri[sel].long()
+        if mesh.n_processes > 1:
+            every = allgather_pickled((li.cpu().numpy(), ri.cpu().numpy()))
+            li = torch.from_numpy(np.concatenate([a for a, _b in every])
+                                  ).to(dev0)
+            ri = torch.from_numpy(np.concatenate([b for _a, b in every])
+                                  ).to(dev0)
+        return li, ri
+
+    def _emit(self, lside: _Side, rside: _Side, li, ri) -> Optional[Batch]:
+        """The output rows of the pairs, in (left row, right row) order."""
+        n_left, dev0 = lside.batch.length, self.mesh.devices[0]
+        left_join = self.how == "left"
+        if left_join:
+            # a left row with no pair keeps one row, its right side NULL
+            hit = torch.zeros(n_left, dtype=torch.bool, device=dev0)
+            hit[li] = True
+            lone, count = layout_ops.mask_to_indices(~hit)
+            lone = lone[:int(count)].long()
+            li = torch.cat([li, lone])
+            ri = torch.cat([ri, torch.full_like(lone, -1)])
+        n = li.shape[0]
+        if n == 0:
+            return None
+        perm = torch.sort(ri, stable=True).indices
+        perm = perm[torch.sort(li[perm], stable=True).indices]
+        li, ri = li[perm], ri[perm]
+        left = layout_ops.take_batch(lside.batch, li.to(torch.int32))
+        if rside.batch.length:
+            right = layout_ops.take_batch(rside.batch,
+                                          ri.clamp(min=0).to(torch.int32))
+        else:
+            right = empty_batch(rside.batch.schema, n).to_device(dev0)
+        miss = ri < 0
+        if self.filter is not None:
+            raw = Batch(self.out_schema, left.columns + right.columns, n)
+            ok = as_bool_mask(eval_expr(self.filter, raw), raw) & ~miss
+            if left_join:
+                # a left row none of whose pairs passed the residual keeps
+                # its first row, null-extended (join_exec.py:280-297)
+                surv = torch.zeros(n_left, dtype=torch.uint8,
+                                   device=dev0).scatter_reduce(
+                    0, li, ok.to(torch.uint8), "amax")
+                first = torch.ones(n, dtype=torch.bool, device=dev0)
+                first[1:] = li[1:] != li[:-1]
+                miss = first & (surv[li] == 0)
+                ok |= miss
+            sel, count = layout_ops.mask_to_indices(ok)
+            sel = sel[:int(count)]
+            left = layout_ops.take_batch(left, sel)
+            right = layout_ops.take_batch(right, sel)
+            miss = miss[sel.long()]
+        right_cols = [layout_ops.null_where(c, miss) for c in right.columns] \
+            if left_join else right.columns
+        return Batch(self.out_schema, left.columns + right_cols, left.length,
+                     dev0)
+
+
+# ---------------------------------------------------------------------------
+# A full ORDER BY over several processes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DistributedSortExec(PhysicalPlan):
+    """ORDER BY across processes (:1887): each process sorts only its own
+    files into one run (``SortExec.merged_run``: the device sort of each
+    run, the host merge of the runs), the runs (host batch, key matrix,
+    chunk widths) are exchanged once and merged by ``_merge_runs``, which
+    pads a run's narrower var-width keys (``_pad_key_matrix``) and lets
+    earlier runs win ties, so ties go process-major. Every process ends with
+    the whole result. ``fetch`` cuts each run and the merge: a LIMIT the
+    TopK does not take comes here with its skip + fetch."""
+
+    keys: list          # [(Expr, ascending)]
+    input: PhysicalPlan
+    fetch: Optional[int]
+    mesh: Mesh
+    device: object = "cuda"
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+    def batches(self) -> Iterator[Batch]:
+        inner = SortExec(self.keys, self.input, self.fetch)
+        with scan_shard_context(self.mesh.process_index,
+                                self.mesh.n_processes):
+            run = inner.merged_run()
+        runs = [r for r in allgather_pickled(run) if r is not None]
+        if not runs:
+            return
+        merged = _merge_runs(runs, [a for _e, a in self.keys])[0]
+        if self.fetch is not None and merged.length > self.fetch:
+            merged = take_host(merged, np.arange(self.fetch))
+        yield merged.to_device(self.device)
+
+
+# ---------------------------------------------------------------------------
 # Planner hooks
 # ---------------------------------------------------------------------------
 
@@ -531,6 +950,12 @@ def _scan_input(node, device) -> Optional[tuple]:
     return stages, create_physical_plan(scan, device)
 
 
+def _shards(config, device) -> Optional[Mesh]:
+    """The session's mesh when it has more than one shard."""
+    mesh = _config_mesh(config, device)
+    return mesh if mesh is not None and mesh.n_shards > 1 else None
+
+
 def plan_distributed_aggregate(agg_plan, device, config
                                ) -> Optional[PhysicalPlan]:
     """A DistributedAggregateExec for an L.Aggregate over a scan chain the
@@ -538,8 +963,8 @@ def plan_distributed_aggregate(agg_plan, device, config
     strings."""
     from ..plan.planner import create_physical_plan, infer_expr_field
 
-    mesh = _config_mesh(config, device)
-    if mesh is None or mesh.n_shards <= 1:
+    mesh = _shards(config, device)
+    if mesh is None:
         return None
     in_schema = agg_plan.input.schema()
     for call in agg_plan.agg_exprs:
@@ -564,10 +989,8 @@ def plan_distributed_topk(sort_plan, fetch, device, config
                           ) -> Optional[PhysicalPlan]:
     """A DistributedTopKExec for Sort(keys) + a fetch over a scan chain
     (:1640), else None."""
-    mesh = _config_mesh(config, device)
-    if mesh is None or mesh.n_shards <= 1:
-        return None
-    if fetch is None or fetch > MAX_DIST_TOPK:
+    mesh = _shards(config, device)
+    if mesh is None or fetch is None or fetch > MAX_DIST_TOPK:
         return None
     found = _scan_input(sort_plan.input, device)
     if found is None:
@@ -577,55 +1000,81 @@ def plan_distributed_topk(sort_plan, fetch, device, config
                                sort_plan.schema(), scan, stages, mesh, device)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"distributed {what} is not ported yet (ROADMAP Queue 1, item 12)")
+def plan_distributed_sort(sort_plan, fetch, device, config
+                          ) -> Optional[PhysicalPlan]:
+    """A DistributedSortExec for a Sort over a scan chain in a
+    multi-process run (:1930), else None; ``fetch`` cuts it."""
+    from ..plan.planner import create_physical_plan
+
+    if process_count() <= 1 or not _scan_chain(sort_plan.input):
+        return None
+    mesh = _config_mesh(config, device)
+    if mesh is None:
+        return None
+    return DistributedSortExec(list(sort_plan.keys),
+                               create_physical_plan(sort_plan.input, device),
+                               fetch, mesh, device)
 
 
-def refuse_distributed_sort(sort_plan, device, config) -> None:
-    """Raise where the JAX package would sort across processes
-    (``plan_distributed_sort`` :1930: several processes, a scan chain),
-    and for a Limit over such a sort whose rows the TopK does not take."""
-    if process_count() > 1 and _scan_chain(sort_plan.input) and \
-            _config_mesh(config, device) is not None:
-        raise _not_ported("ORDER BY over several processes without a "
-                          f"LIMIT of at most {MAX_DIST_TOPK} rows")
-
-
-def refuse_distributed_window(win_plan, device, config) -> None:
-    """Raise where the JAX package would shard the window by its PARTITION
-    BY (``plan_distributed_window`` :1846)."""
+def plan_distributed_window(win_plan, device, config
+                            ) -> Optional[PhysicalPlan]:
+    """A DistributedWindowExec when every call shares one non-empty
+    PARTITION BY and is a window function (:1846), over a scan chain in a
+    multi-process run; else None."""
+    from ..plan.planner import create_physical_plan
     from ..plan.window_exec import WINDOW_FUNCS
 
     if process_count() > 1 and not _scan_chain(win_plan.input):
-        return
-    mesh = _config_mesh(config, device)
-    if mesh is None or mesh.n_shards <= 1:
-        return
+        return None
+    mesh = _shards(config, device)
     calls = win_plan.calls
-    if not calls or not calls[0].partition_by:
-        return
+    if mesh is None or not calls or not calls[0].partition_by:
+        return None
     first = [repr(e) for e in calls[0].partition_by]
-    if all(c.fn in WINDOW_FUNCS and [repr(e) for e in c.partition_by] == first
-           for c in calls):
-        raise _not_ported("window (PARTITION BY over the mesh)")
+    if not all(c.fn in WINDOW_FUNCS and
+               [repr(e) for e in c.partition_by] == first for c in calls):
+        return None
+    return DistributedWindowExec(
+        list(calls), list(win_plan.names), win_plan.schema(),
+        create_physical_plan(win_plan.input, device, config), mesh)
 
 
-def refuse_distributed_join(join_plan, device, config) -> None:
-    """Raise where the JAX package would join on the mesh: the partitioned
-    join under ``partitioned_join`` (:2214), else the broadcast join of a
-    scan-chain probe side (:1347)."""
+def plan_distributed_join(join_plan, device, config
+                          ) -> Optional[PhysicalPlan]:
+    """A DistributedJoinExec for an inner or left L.Join whose probe (left)
+    side is a Filter/Project chain over a scan the mesh takes (:1347), else
+    None; the build side lowers as usual."""
     from ..plan import logical as L
+    from ..plan.planner import create_physical_plan
 
-    mesh = _config_mesh(config, device)
-    if mesh is None or mesh.n_shards <= 1 or \
-            join_plan.how not in ("inner", "left"):
-        return
-    if getattr(config, "partitioned_join", False):
-        if process_count() > 1 and not (_scan_chain(join_plan.left) and
-                                        _scan_chain(join_plan.right)):
-            return
-        raise _not_ported("partitioned join")
-    _stages, scan = _chain(join_plan.left)
-    if isinstance(scan, L.Scan) and _multihost_shardable(scan):
-        raise _not_ported("broadcast join")
+    mesh = _shards(config, device)
+    if mesh is None or join_plan.how not in ("inner", "left"):
+        return None
+    stages, scan = _chain(join_plan.left)
+    if not isinstance(scan, L.Scan) or not _multihost_shardable(scan):
+        return None
+    return DistributedJoinExec(
+        create_physical_plan(scan, device), stages,
+        create_physical_plan(join_plan.right, device, config),
+        list(join_plan.on), join_plan.how, join_plan.filter,
+        join_plan.schema(), mesh)
+
+
+def plan_distributed_partitioned_join(join_plan, device, config
+                                      ) -> Optional[PhysicalPlan]:
+    """A DistributedPartitionedJoinExec for an inner or left L.Join under
+    ``partitioned_join`` (:2214), else None (the planner then tries the
+    broadcast join). A multi-process run needs both sides scan chains."""
+    from ..plan.planner import create_physical_plan
+
+    if process_count() > 1 and not (_scan_chain(join_plan.left) and
+                                    _scan_chain(join_plan.right)):
+        return None
+    mesh = _shards(config, device)
+    if mesh is None or join_plan.how not in ("inner", "left"):
+        return None
+    return DistributedPartitionedJoinExec(
+        create_physical_plan(join_plan.left, device, config),
+        create_physical_plan(join_plan.right, device, config),
+        list(join_plan.on), join_plan.how, join_plan.filter,
+        join_plan.schema(), mesh)

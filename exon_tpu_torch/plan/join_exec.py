@@ -193,20 +193,8 @@ class JoinExec(PhysicalPlan):
 
     def _verify(self, parts, cols, build: _BuildSide, probe_idx, build_idx
                 ) -> torch.Tensor:
-        """bool per pair: every key part equal. String parts (var-width on
-        either side) compare byte for byte; the rest by their int64 part."""
-        pi, bi = probe_idx.long(), build_idx.long()
-        ok = torch.ones(pi.shape[0], dtype=torch.bool, device=pi.device)
-        for p, (a, b) in enumerate(zip(cols, build.cols)):
-            if _is_string(a) != _is_string(b):
-                raise PlanError("join keys compare a string with a number")
-            if isinstance(a, VarColumn) or isinstance(b, VarColumn):
-                a, b = _as_var(a), build.var_col(p)
-                ok &= string_eq((a.offsets, a.values, a.validity), probe_idx,
-                                (b.offsets, b.values, b.validity), build_idx)
-            else:
-                ok &= parts[p][pi] == build.parts[p][bi]
-        return ok
+        return verify_pairs(parts, cols, build.parts, build.cols, probe_idx,
+                            build_idx, build.var_col)
 
     def _unmatched(self, pb: Batch, rschema: Schema) -> Batch:
         """A left join's probe batch against an empty build side: every
@@ -214,3 +202,22 @@ class JoinExec(PhysicalPlan):
         right = empty_batch(rschema, pb.length).to_device(pb.device)
         return Batch(self.out_schema, pb.columns + right.columns, pb.length)
 
+
+def verify_pairs(a_parts, a_cols, b_parts, b_cols, ia: torch.Tensor,
+                 ib: torch.Tensor, b_var=None) -> torch.Tensor:
+    """bool per pair (row ia[k] of side a, row ib[k] of side b): every key
+    part equal. String parts (var-width on either side) compare byte for
+    byte; the rest by their int64 part (a dictionary's is its verified
+    content hash). ``b_var(p)`` gives side b's part p as a var-width column
+    (by default decoded here)."""
+    ok = torch.ones(ia.shape[0], dtype=torch.bool, device=ia.device)
+    for p, (a, b) in enumerate(zip(a_cols, b_cols)):
+        if _is_string(a) != _is_string(b):
+            raise PlanError("join keys compare a string with a number")
+        if isinstance(a, VarColumn) or isinstance(b, VarColumn):
+            a, b = _as_var(a), b_var(p) if b_var else _as_var(b)
+            ok &= string_eq((a.offsets, a.values, a.validity), ia,
+                            (b.offsets, b.values, b.validity), ib)
+        else:
+            ok &= a_parts[p][ia.long()] == b_parts[p][ib.long()]
+    return ok

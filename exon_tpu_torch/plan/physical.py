@@ -870,9 +870,37 @@ class SortExec(PhysicalPlan):
         return self.input.schema()
 
     def batches(self) -> Iterator[Batch]:
+        runs = self._runs()
+        if not runs:
+            return
+        if len(runs) == 1:
+            yield runs[0][0]
+            return
+        device = runs[0][0].device
+        merged = self._merge(runs)[0]
+        if self.fetch is not None and merged.length > self.fetch:
+            merged = take_host(merged, np.arange(self.fetch))
+        yield merged.to_device(device)
+
+    def merged_run(self) -> Optional[tuple]:
+        """The whole input sorted into one host run (host batch, key matrix
+        [n, C], chunk widths), or None for an empty input
+        (exon_tpu/plan/physical.py:1041). Each run keeps at most ``fetch``
+        rows; the merged run is not cut. The distributed sort exchanges
+        these runs and merges them with the same ``_merge_runs``."""
+        runs = self._runs()
+        return self._merge(runs) if runs else None
+
+    def _merge(self, runs: list) -> tuple:
+        host_runs = [(b.to_host(), k.T.cpu().numpy(), c) for b, k, c in runs]
+        return _merge_runs(host_runs, [a for _e, a in self.keys])
+
+    def _runs(self) -> list:
+        """The input's sorted runs: (device batch, key matrix [C, n], chunk
+        widths)."""
         run_rows = int(os.environ.get("EXON_TPU_SORT_RUN_ROWS", 1 << 21))
         self._chunks_seen = None
-        runs: list = []  # (Batch, key matrix [C, n], chunk widths)
+        runs: list = []
         acc: list[Batch] = []
         acc_rows = 0
         for b in self.input.batches():
@@ -885,17 +913,7 @@ class SortExec(PhysicalPlan):
                 acc, acc_rows = [], 0
         if acc:
             runs.append(self._sorted_run(acc))
-        if not runs:
-            return
-        if len(runs) == 1:
-            yield runs[0][0]
-            return
-        device = runs[0][0].device
-        host_runs = [(b.to_host(), k.T.cpu().numpy(), c) for b, k, c in runs]
-        merged = _merge_runs(host_runs, [a for _e, a in self.keys])[0]
-        if self.fetch is not None and merged.length > self.fetch:
-            merged = take_host(merged, np.arange(self.fetch))
-        yield merged.to_device(device)
+        return runs
 
     def _key_specs(self, batch: Batch) -> list:
         """The sort_keys specs of one run, var-width keys widened to

@@ -16,12 +16,14 @@ into a TopK sort. Window calls are typed by ``infer_window_field`` (:147).
 Projection pushdown runs through Sort, Window and Join (:460-501), and
 drops a Project's unread columns and narrows a Union's inputs, which the
 JAX planner does not. CopyTo and Explain raise NotImplementedError naming
-their ROADMAP item. With the session config's ``distributed`` on, an
-Aggregate, a Sort with a fetch and a Limit over a Sort lower to the
-distributed operators of parallel/distributed.py (:568-612); the other
-distributed branches (the broadcast and partitioned joins, PARTITION BY
-windows, a sort across processes) raise NotImplementedError (ROADMAP
-Queue 1, item 12).
+their ROADMAP item. With the session config's ``distributed`` on, the
+planner tries the distributed operators of parallel/distributed.py first,
+as :568-662 does: an Aggregate, a Sort with a fetch and a Limit over a Sort
+(TopK), a Sort across processes (a Limit over a Sort whose skip + fetch the
+TopK does not take goes there with that fetch), a Window whose calls share
+one PARTITION BY, and a Join (the partitioned join under
+``partitioned_join``, else the broadcast join); a hook that returns None
+leaves the single-device plan.
 """
 
 from __future__ import annotations
@@ -411,11 +413,8 @@ def _with_children(plan: L.LogicalPlan, kids: list) -> L.LogicalPlan:
 def create_physical_plan(plan: L.LogicalPlan, device,
                          config=None) -> P.PhysicalPlan:
     """The physical plan of ``plan`` on ``device``. With ``distributed`` on
-    in the session ``config``, aggregates and TopK sorts over a scan chain
-    run over the mesh of shards (exon_tpu/plan/planner.py:568-612), and the
-    plans the JAX package would also put on the mesh but the port does not
-    carry yet (joins, PARTITION BY windows, a sort across processes) raise
-    NotImplementedError rather than run on one shard."""
+    in the session ``config``, the plans the mesh takes run over its
+    shards (exon_tpu/plan/planner.py:568-662)."""
     dist = config is not None and getattr(config, "distributed", False)
     if dist:
         from ..parallel import distributed as D
@@ -446,22 +445,21 @@ def create_physical_plan(plan: L.LogicalPlan, device,
                                lower(inner), pre_filter=pre_filter)
     if isinstance(plan, L.Sort):
         if dist:
-            if plan.fetch is not None:
-                found = D.plan_distributed_topk(plan, plan.fetch, device,
-                                                config)
-                if found is not None:
-                    return found
-            D.refuse_distributed_sort(plan, device, config)
+            found = D.plan_distributed_topk(plan, plan.fetch, device, config) \
+                or D.plan_distributed_sort(plan, plan.fetch, device, config)
+            if found is not None:
+                return found
         return P.SortExec(plan.keys, lower(plan.input), plan.fetch)
     if isinstance(plan, L.Limit):
         top = plan.fetch is not None and isinstance(plan.input, L.Sort) and \
             plan.input.fetch is None
         if top and dist:
-            found = D.plan_distributed_topk(plan.input, plan.skip + plan.fetch,
-                                            device, config)
+            fetch = plan.skip + plan.fetch
+            found = D.plan_distributed_topk(plan.input, fetch, device,
+                                            config) or \
+                D.plan_distributed_sort(plan.input, fetch, device, config)
             if found is not None:
                 return P.LimitExec(plan.skip, plan.fetch, found)
-            D.refuse_distributed_sort(plan.input, device, config)
         # Limit(Sort) → SortExec with fetch (TopK): each sort run truncates
         # to skip + fetch rows (exon_tpu/plan/planner.py:612-620)
         if top:
@@ -473,7 +471,11 @@ def create_physical_plan(plan: L.LogicalPlan, device,
         from .join_exec import JoinExec
 
         if dist:
-            D.refuse_distributed_join(plan, device, config)
+            found = (D.plan_distributed_partitioned_join(plan, device, config)
+                     if getattr(config, "partitioned_join", False) else None) \
+                or D.plan_distributed_join(plan, device, config)
+            if found is not None:
+                return found
         return JoinExec(lower(plan.left), lower(plan.right),
                         plan.on, plan.how, plan.filter, plan.schema())
     if isinstance(plan, L.Values):
@@ -482,7 +484,9 @@ def create_physical_plan(plan: L.LogicalPlan, device,
         from .window_exec import WindowExec
 
         if dist:
-            D.refuse_distributed_window(plan, device, config)
+            found = D.plan_distributed_window(plan, device, config)
+            if found is not None:
+                return found
         return WindowExec(plan.calls, plan.names, plan.schema(),
                           lower(plan.input), device)
     if isinstance(plan, L.Union):

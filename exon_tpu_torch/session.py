@@ -3,7 +3,8 @@
 Counterpart of exon_tpu/session.py: ``read_fasta``, ``read_fastq``,
 ``read_vcf``, ``read_gff``, ``read_bam`` and ``read_mzml`` (VCF through its own provider
 with region pushdown, as ``_make_provider`` :121 gives it), the table registry (``register_table``,
-``deregister_table``, ``table``, ``tables``; :95-105) and ``sql`` (:213),
+``deregister_table``, ``table``, ``tables``; :95-105; an Arrow table
+registered becomes a ``MemTable``) and ``sql`` (:213),
 which runs the port's copy of the SQL frontend. Creating a session
 registers the UDFs of the port's udfs.py and the SQL functions of its
 ops/sqlfuncs.py. The session names the
@@ -28,7 +29,7 @@ from .config import SessionConfig, new_exon_config
 from .dataframe import DataFrame
 from .errors import PlanError
 from .plan import logical as L
-from .tables import get_format, make_provider
+from .tables import MemTable, get_format, make_provider
 
 
 class ExonSession:
@@ -69,6 +70,11 @@ class ExonSession:
     # -- registration -------------------------------------------------------
 
     def register_table(self, name: str, provider) -> None:
+        """``provider`` is a table provider, or an Arrow table, which is
+        held as a ``MemTable`` of host batches (pyarrow is imported only
+        here, for that conversion)."""
+        if not hasattr(provider, "scan") and hasattr(provider, "to_batches"):
+            provider = MemTable.from_arrow(provider)
         self.tables[name.lower()] = provider
 
     def deregister_table(self, name: str) -> None:
@@ -85,6 +91,7 @@ class ExonSession:
     def _read(self, fmt_name: str, url: str, options=None, **kwargs) -> DataFrame:
         spec = get_format(fmt_name)
         options = options or spec.default_options()
+        kwargs = {**self.config.scan_flags(fmt_name), **kwargs}
         options = dataclasses.replace(options, **kwargs,
                                       batch_size=self.device_batch_size)
         provider = make_provider(url, spec, options)

@@ -10,12 +10,16 @@ restricted to what the port carries: SELECT (with WHERE, GROUP BY/HAVING,
 GROUPING SETS/ROLLUP/CUBE, DISTINCT, DISTINCT ON, window functions,
 inner/left/right/full JOIN, UNION/INTERSECT/EXCEPT [ALL], ORDER BY,
 LIMIT/OFFSET, subqueries, WITH), CREATE EXTERNAL TABLE, DESCRIBE, SHOW
-TABLES and DROP TABLE over the port's formats. Statements and table kinds the port does not carry raise
-NotImplementedError naming their ROADMAP Queue 1 item: COPY (item 10),
-EXPLAIN (item 11), SET, CREATE TABLE [AS], INSERT
-and VALUES (item 14), PARQUET/Delta tables, partitioned tables and the
-indexed tables and ``*_indexed_scan`` region forms of formats other than
-VCF (item 2c). CREATE FUNCTION parses and raises PlanError, as in the JAX
+TABLES and DROP TABLE over the port's formats, ``SET`` (through
+``SessionConfig.set_option``), and the memory tables of ``CREATE TABLE t
+(cols)``, ``CREATE TABLE t AS SELECT …`` or ``AS VALUES …``, ``INSERT INTO
+t VALUES …`` and a bare ``VALUES`` (:150-259; a ``MemTable`` of host
+batches, built without pyarrow: a column's type is that of its values, as
+pyarrow infers it there). Statements and table kinds the port does not
+carry raise NotImplementedError naming their ROADMAP Queue 1 item: COPY
+(item 10), EXPLAIN (item 11), PARQUET/Delta tables, partitioned tables and
+the indexed tables and ``*_indexed_scan`` region forms of formats other
+than VCF (item 2c). CREATE FUNCTION parses and raises PlanError, as in the JAX
 package. Set operations, FULL JOIN and GROUPING SETS plan through Union
 (and Repeat for INTERSECT ALL / EXCEPT ALL), windows and DISTINCT ON
 through Window, as in the JAX package. Subquery results are read through
@@ -33,6 +37,7 @@ from ..plan import logical as L
 from ..plan.expressions import (AggregateCall, Alias, BinaryOp, Case,
                                 ColumnRef, Expr, FieldAccess, FunctionCall,
                                 IsNull, Literal, split_conjunction)
+from ..tables import MemTable
 from . import ast as A
 from .parser import parse_sql
 
@@ -93,7 +98,8 @@ def _execute_stmt(session, stmt):
     if isinstance(stmt, A.CopyToStmt):
         raise _not_ported("COPY", "10: sinks")
     if isinstance(stmt, A.SetStmt):
-        raise _not_ported("SET", "14: session config and memory tables")
+        session.config.set_option(stmt.key, stmt.value)
+        return _status_ok(session)
     if isinstance(stmt, A.DescribeStmt):
         df = session.table(stmt.name)
         schema = df.schema()
@@ -113,16 +119,133 @@ def _execute_stmt(session, stmt):
         if stmt.name.lower() not in session.tables and not stmt.if_exists:
             raise PlanError(f"table {stmt.name!r} not found")
         session.deregister_table(stmt.name)
-        return _result_df(session, dt.Schema.of(
-            dt.Field("status", dt.utf8, False)), [("ok",)])
+        return _status_ok(session)
     if isinstance(stmt, A.CreateFunctionStmt):
         # parsed, then rejected as the JAX package rejects it
         # (exon_tpu/sql/frontend.py:124-127)
         raise PlanError(f"Unsupported function definition: {stmt.name}")
-    if isinstance(stmt, (A.CreateMemoryTable, A.InsertStmt, A.ValuesQuery)):
-        raise _not_ported("CREATE TABLE, INSERT and VALUES",
-                          "14: session config and memory tables")
+    if isinstance(stmt, A.CreateMemoryTable):
+        return _create_memory_table(session, stmt)
+    if isinstance(stmt, A.InsertStmt):
+        return _insert_into(session, stmt)
+    if isinstance(stmt, A.ValuesQuery):
+        return DataFrame(session, L.Scan(MemTable(*_rows_batch(stmt.rows)),
+                                         "values"))
     raise SqlError(f"unsupported statement {type(stmt).__name__}")
+
+
+def _status_ok(session):
+    return _result_df(session, dt.Schema.of(
+        dt.Field("status", dt.utf8, False)), [("ok",)])
+
+
+# the column types of CREATE TABLE t (cols) (exon_tpu/sql/frontend.py:142)
+_MEM_TYPE_NAMES = {
+    "int": dt.int64, "integer": dt.int64, "bigint": dt.int64,
+    "smallint": dt.int64, "tinyint": dt.int64,
+    "text": dt.utf8, "varchar": dt.utf8, "char": dt.utf8, "string": dt.utf8,
+    "float": dt.float64, "double": dt.float64, "real": dt.float32,
+    "boolean": dt.bool_, "bool": dt.bool_,
+}
+
+
+def _value_type(vals: list) -> dt.DataType:
+    """The type pyarrow gives a column of these Python values (frontend.py
+    ``_rows_to_arrow`` :187 builds it with ``pa.array``)."""
+    live = [v for v in vals if v is not None]
+    kinds = {type(v) for v in live}
+    if kinds and kinds <= {bool}:
+        return dt.bool_
+    if kinds and kinds <= {int}:
+        return dt.int64
+    if kinds and kinds <= {int, float}:
+        return dt.float64
+    if kinds and kinds <= {str}:
+        return dt.utf8
+    if kinds and kinds <= {list}:
+        return dt.list_(_value_type([x for v in live for x in v]))
+    if not kinds:
+        raise SqlError("a VALUES column of NULLs alone has no type")
+    raise SqlError("a VALUES column mixes "
+                   f"{', '.join(sorted(k.__name__ for k in kinds))}")
+
+
+def _rows_batch(rows: list, names: Optional[list] = None,
+                types: Optional[list] = None) -> tuple:
+    """(schema, [host batch]) of literal rows: columns ``names`` (default
+    column1, column2, …) of ``types`` (default: each column's values')."""
+    from ..batch import Batch, pyvalues_column
+
+    n_cols = len(rows[0]) if rows else len(names or [])
+    if any(len(r) != n_cols for r in rows):
+        raise SqlError("VALUES rows differ in length")
+    fields, cols = [], []
+    for j in range(n_cols):
+        vals = [_const_eval(r[j]) for r in rows]
+        dtype = types[j] if types else _value_type(vals)
+        fields.append(dt.Field(names[j] if names else f"column{j + 1}",
+                               dtype, True))
+        cols.append(pyvalues_column(vals, dtype))
+    schema = dt.Schema(tuple(fields))
+    return schema, [Batch(schema, cols, len(rows))] if rows else []
+
+
+def _create_memory_table(session, stmt: A.CreateMemoryTable):
+    """CREATE TABLE t (cols), CREATE TABLE t [(cols)] AS SELECT … or AS
+    VALUES … (exon_tpu/sql/frontend.py:171-206)."""
+    from ..batch import Batch, column_pyvalues, utf8_column
+    from ..dataframe import DataFrame
+
+    if stmt.if_not_exists and stmt.name.lower() in session.tables:
+        return _status_ok(session)
+    names = [c for c, _t in stmt.columns] or None
+    if stmt.query is None:
+        types = []
+        for _name, tname in stmt.columns:
+            if tname not in _MEM_TYPE_NAMES:
+                raise SqlError(f"unknown column type {tname!r}")
+            types.append(_MEM_TYPE_NAMES[tname])
+        schema, parts = _rows_batch([], names, types)
+    elif isinstance(stmt.query, A.ValuesQuery):
+        schema, parts = _rows_batch(stmt.query.rows, names)
+    else:
+        host = DataFrame(session, plan_select(session,
+                                              stmt.query)).collect_host()
+        # the JAX package keeps the collected Arrow table, whose
+        # dictionary columns are strings
+        fields, cols = [], []
+        for i, (f, c) in enumerate(zip(host.schema.all_fields, host.columns)):
+            if f.dtype.kind == dt.TypeKind.DICTIONARY:
+                f = dt.Field(f.name, dt.utf8, f.nullable)
+                c = utf8_column(column_pyvalues(c, host.length))
+            fields.append(dt.Field(names[i] if names else f.name, f.dtype,
+                                   f.nullable))
+            cols.append(c)
+        schema = dt.Schema(tuple(fields))
+        parts = [Batch(schema, cols, host.length)] if host.length else []
+    session.register_table(stmt.name, MemTable(schema, parts))
+    return _status_ok(session)
+
+
+def _insert_into(session, stmt: A.InsertStmt):
+    """INSERT INTO a memory table (frontend.py:209-219): its rows take the
+    table's column types; the result is one row, the count."""
+    provider = session.tables.get(stmt.table.lower())
+    if provider is None:
+        raise PlanError(f"table {stmt.table!r} not found")
+    if not isinstance(provider, MemTable):
+        raise PlanError("INSERT INTO requires an in-memory table")
+    schema = provider.schema()
+    cols = stmt.columns or list(schema.names)
+    if sorted(cols) != sorted(schema.names):
+        raise PlanError(f"INSERT INTO {stmt.table} must give every column "
+                        f"{list(schema.names)}")
+    _s, parts = _rows_batch(stmt.rows, cols,
+                            [schema.field(c).dtype for c in cols])
+    for b in parts:
+        provider.insert(b.project(list(schema.names)))
+    return _result_df(session, dt.Schema.of(
+        dt.Field("count", dt.int64, False)), [(len(stmt.rows),)])
 
 
 def _create_external_table(session, stmt: A.CreateExternalTable):
@@ -155,6 +278,8 @@ def _create_external_table(session, stmt: A.CreateExternalTable):
                 kw[key] = v
     if bare != fmt_name:
         kw["indexed"] = True
+    for k, v in session.config.scan_flags(bare).items():
+        kw.setdefault(k, v)
     if hasattr(options, "batch_size"):
         kw["batch_size"] = session.device_batch_size
     if kw:

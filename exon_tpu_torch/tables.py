@@ -11,7 +11,10 @@ As in the JAX package (tables.py:212-217), a format with a device decoder
 ``ScanExec`` moves their batches to the device. A ``FileTable`` takes no
 filter (prefix-LIKE pushdown, tables.py:163-169, is not ported), so every
 predicate on it runs as a device operator; a ``VcfTable`` takes the
-region-filter markers.
+region-filter markers. A ``MemTable`` holds host batches: the tables of
+SQL ``CREATE TABLE``, ``INSERT`` and ``VALUES`` and Arrow tables given to
+``ExonSession.register_table`` (exon_tpu/sql/frontend.py ``MemTable``,
+:150-180, which holds a pyarrow Table).
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import os
 import zlib
 from typing import Callable, Iterator, Optional, Sequence
 
-from .batch import Batch, Schema
+import numpy as np
+
+from .batch import Batch, Schema, concat_host, take_host
 from .errors import InvalidRegionError
 from .formats import bam, fasta, fasta_device, fastq, gff, mzml, vcf
 from .indexes import parse_tabix
@@ -287,3 +292,64 @@ def _past_header(buf: bytearray) -> bool:
         if buf[start:start + 1] != b"#":
             return True
         start = nl + 1
+
+
+MEM_BATCH_ROWS = 8192  # a MemTable scan's batch (frontend.py:172)
+
+
+@dataclasses.dataclass
+class MemTable:
+    """An in-memory table of host batches. Its scan moves them to the
+    device in batches of at most ``MEM_BATCH_ROWS`` rows. It does not split
+    its rows per process (no ``shards_files``), so in a multi-process run
+    every operator over it runs on each process's single device, as in the
+    JAX package."""
+
+    out_schema: Schema
+    parts: list  # host Batches of out_schema
+
+    @staticmethod
+    def from_arrow(table) -> "MemTable":
+        """A pyarrow Table's rows; dictionary columns decoded to strings."""
+        import pyarrow as pa
+
+        from .batch import schema_from_arrow
+
+        for i, f in enumerate(table.schema):
+            if pa.types.is_dictionary(f.type):
+                table = table.set_column(i, f.name, table.column(i).cast(
+                    f.type.value_type))
+        schema = schema_from_arrow(table.schema)
+        return MemTable(schema, [Batch.from_arrow(rb, schema)
+                                 for rb in table.to_batches()
+                                 if rb.num_rows])
+
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def supports_filter_pushdown(self, expr: Expr) -> str:
+        return "none"
+
+    def insert(self, batch: Batch) -> None:
+        """Append a host batch of the table's schema."""
+        if batch.length:
+            self.parts.append(Batch(self.out_schema, batch.columns,
+                                    batch.length))
+
+    def scan(self, projection: Optional[list[str]] = None,
+             filters: Sequence[Expr] = (), device="cpu") -> ScanExec:
+        if filters:
+            raise NotImplementedError("scan filter pushdown is not ported")
+        names = self.out_schema.names if projection is None else projection
+        schema = self.out_schema.project(list(names))
+        parts = list(self.parts)
+
+        def source() -> Iterator[Batch]:
+            if not parts:
+                return
+            whole = concat_host(self.out_schema, parts).project(list(names))
+            for lo in range(0, whole.length, MEM_BATCH_ROWS):
+                yield take_host(whole, np.arange(
+                    lo, min(lo + MEM_BATCH_ROWS, whole.length)))
+
+        return ScanExec(schema, source, device)

@@ -12,10 +12,10 @@ features and a seeded FASTA), with small batches so that every shard gets
 several. The three Arrow tables must agree: integers and strings exactly,
 in the same row order; float64 sums and averages at relative 1e-12 (the
 shards add their partials in another order than one device). Also: the
-plans really go to the mesh; with ``distributed`` on, a join, a PARTITION
-BY window and the partitioned join raise the item-12 NotImplementedError;
-and Query Q of chip_smoke.py (exon density per 100 kb window) at a small
-size, ``start / 100000`` typed int64 by both packages."""
+plans really go to the mesh (the joins and windows are held in
+test_torch_dist_join.py and test_torch_dist_window.py); and Query Q of
+chip_smoke.py (exon density per 100 kb window) at a small size,
+``start / 100000`` typed int64 by both packages."""
 
 import numpy as np
 import pyarrow as pa
@@ -221,30 +221,6 @@ def test_aggregate_past_state_cap(sessions, tmp_path, monkeypatch):
     assert got.column("n").to_pylist() == list(want.values())
 
 
-@pytest.mark.parametrize("q,what", [
-    ("SELECT f.id, g.start FROM fasta_scan('{fa}') f JOIN gff_scan('{gff}') "
-     "g ON f.description = g.seqname", "broadcast join"),
-    ("SELECT seqname, start, ROW_NUMBER() OVER (PARTITION BY seqname ORDER "
-     "BY start) AS rn FROM gff_scan('{gff}')", "window"),
-])
-def test_unported_distributed_plans_raise(sessions, gff, big_fasta, q, what):
-    with pytest.raises(NotImplementedError, match="item 12") as e:
-        sessions[1].sql(q.format(gff=gff, fa=big_fasta)).collect_arrow()
-    assert what in str(e.value)
-    # the single-device session runs the same plan
-    sessions[2].sql(q.format(gff=gff, fa=big_fasta)).collect_arrow()
-
-
-def test_partitioned_join_raises(big_fasta):
-    cfg = t_config(distributed=True, n_shards=N_SHARDS)
-    cfg.set_option("exon.partitioned_join", "true")
-    s = T.ExonSession.with_config_exon(cfg, device="cpu")
-    q = ("SELECT a.id FROM fasta_scan('%s') a JOIN fasta_scan('%s') b ON "
-         "a.id = b.id" % (big_fasta, big_fasta))
-    with pytest.raises(NotImplementedError, match="partitioned join"):
-        s.sql(q).collect_arrow()
-
-
 def test_config_and_session(monkeypatch):
     cfg = t_config()
     assert (cfg.distributed, cfg.n_shards, cfg.partitioned_join) == \
@@ -253,7 +229,9 @@ def test_config_and_session(monkeypatch):
     cfg.set_option("n_shards", "4")
     assert cfg.distributed and cfg.n_shards == 4
     with pytest.raises(KeyError):
-        cfg.set_option("exon.vcf_parse_info", "true")
+        cfg.set_option("exon.no_such_flag", "true")
+    cfg.set_option("exon.vcf_parse_info", "true")
+    assert cfg.scan_flags("VCF") == {"parse_info": True}
     monkeypatch.setenv("EXON_TPU_DISTRIBUTED", "1")
     assert t_config().distributed
     monkeypatch.delenv("EXON_TPU_DISTRIBUTED")

@@ -7,12 +7,20 @@ waves).
 Each process is ``python tests/test_torch_multihost.py worker ...`` (the
 ``__main__`` block below), started over ``tcp://127.0.0.1:<free port>``
 through the session's ``EXON_TPU_*`` variables, with a time limit of its
-own; it runs ``count_star``, ``group_by``, ``filtered_group_by`` and
-``topk`` through ``ExonSession.sql``, plans the sorts the port does not
-carry across processes, and writes what it got as JSON. The
-answers must be those tests/test_multihost.py asserts, identical on every
-process, and every process must have decoded only its own files
-(``iter_scan_files`` gave it ``files[p::P]`` and nothing else)."""
+own; it runs every query of ``QUERIES`` through ``ExonSession.sql``, checks
+that its plan holds the distributed operator named there, and writes what
+it got as JSON: the aggregates and the TopK of tests/test_multihost.py, a
+broadcast join (its build side an aggregate on the mesh, or a memory
+table), a LEFT join with an ON residual, a PARTITION BY window, the
+partitioned join under ``SET exon.partitioned_join = true``, a full ORDER
+BY (``DistributedSortExec``), and a LIMIT and an OFFSET past the TopK's
+largest fetch (``MAX_DIST_TOPK``, set to 16 in the workers), which go to
+the distributed sort with their skip + fetch. The answers must be
+identical on every process and equal to the answer of one process on one
+device (sorted, where the query has no ORDER BY); every process must have
+decoded only its own files (``iter_scan_files`` gave it ``files[p::P]``),
+but for the build side of a broadcast join, which every process reads
+whole."""
 
 import json
 import os
@@ -79,10 +87,34 @@ def _run_workers(tmp_path, data_dir: str, n_procs: int) -> dict:
         assert r["answers"] == results[0]["answers"]
     for pid, r in enumerate(results):
         mine = len(range(pid, r["n_files"], n_procs))
-        assert r["shard_calls"] and all(
-            tot == r["n_files"] and got == mine
-            for tot, got in r["shard_calls"]), r["shard_calls"]
+        for name, calls in r["shard_calls"].items():
+            # a broadcast join's build side reads every file
+            whole = r["n_files"] if QUERIES[name][2] else mine
+            assert calls and all(tot == r["n_files"] and got in (mine, whole)
+                                 for tot, got in calls), (name, calls)
+            assert any(got == mine for _tot, got in calls), (name, calls)
+    want = _one_process(data_dir)
+    for name, (_q, ordered, _b) in QUERIES.items():
+        got = results[0]["answers"][name]
+        if not ordered:
+            got, want[name] = _sorted(got), _sorted(want[name])
+        assert got == want[name], name
     return results[0]["answers"]
+
+
+def _sorted(rows: list) -> list:
+    return sorted(rows, key=lambda r: json.dumps(r, sort_keys=True))
+
+
+def _one_process(data_dir: str) -> dict:
+    """Every query's answer from one process on one device."""
+    import exon_tpu_torch as T
+
+    s = T.ExonSession(device="cpu")
+    for sql in SETUP:
+        s.sql(sql.format(data_dir=data_dir))
+    return {name: json.loads(json.dumps(s.sql(q).collect_arrow().to_pylist()))
+            for name, (q, _o, _b) in QUERIES.items()}
 
 
 @pytest.fixture(scope="module")
@@ -109,15 +141,6 @@ def test_two_process_parity(two_process):
         {"id": i, "description": "group0"} for i in ids[:4]]
 
 
-def test_multi_process_sort_the_topk_cannot_take_raises(two_process):
-    """A sort across processes is not ported: a LIMIT past the TopK's
-    largest fetch, or with skip + fetch past it, raises on every process as
-    a bare ORDER BY does, rather than sorting the whole scan on each."""
-    for name in ("limit_past_topk", "offset_past_topk", "order_by"):
-        assert "not ported yet (ROADMAP Queue 1, item 12)" in \
-            two_process[name], (name, two_process[name])
-
-
 @pytest.mark.parametrize("n_procs", [2, 3])
 def test_uneven_files(tmp_path, n_procs):
     """9 files over 2 processes (5/4) or 3 (3/3/3), 4 shards each."""
@@ -137,6 +160,46 @@ def test_uneven_files(tmp_path, n_procs):
         {"id": i, "description": "group0"} for i in ids[:4]]
 
 
+SETUP = ["CREATE EXTERNAL TABLE t STORED AS FASTA LOCATION '{data_dir}'",
+         "CREATE TABLE m AS VALUES ('group1', 10), ('group3', 30), "
+         "('group9', 90)"]
+SMALL_TOPK = 16  # MAX_DIST_TOPK in the workers
+# name: (SQL, whether its ORDER BY fixes the row order, whether its plan
+# holds a broadcast join, whose build side every process reads whole)
+QUERIES = {
+    "count_star": ("SELECT COUNT(*) AS n FROM t", True, False),
+    "group_by": ("SELECT description, COUNT(*) AS n FROM t GROUP BY "
+                 "description ORDER BY description", True, False),
+    "filtered_group_by": ("SELECT description, COUNT(*) AS n FROM t WHERE "
+                          "sequence LIKE 'AC%' GROUP BY description ORDER BY "
+                          "description", True, False),
+    "topk": ("SELECT id, description FROM t ORDER BY description, id "
+             "LIMIT 4", True, False),
+    "join": ("SELECT a.id, b.n FROM t a JOIN (SELECT description, COUNT(*) "
+             "AS n FROM t GROUP BY description) b ON a.description = "
+             "b.description", False, True),
+    "left_join_residual": ("SELECT a.id, b.id AS bid FROM t a LEFT JOIN t b "
+                           "ON a.id = b.id AND b.sequence LIKE 'TT%'", False,
+                           True),
+    "memory_join": ("SELECT t.id, m.column2 FROM t JOIN m ON t.description "
+                    "= m.column1", False, True),
+    "window": ("SELECT id, row_number() OVER (PARTITION BY description ORDER "
+               "BY id) AS rn, count(*) OVER (PARTITION BY description) AS n "
+               "FROM t", False, False),
+    "partitioned_join": ("SELECT a.id, b.description FROM t a JOIN t b ON "
+                         "a.id = b.id", False, False),
+    "partitioned_left_join": ("SELECT a.id, b.id AS bid FROM t a LEFT JOIN t "
+                              "b ON a.id = b.id AND b.sequence LIKE 'TT%'",
+                              False, False),
+    "order_by": ("SELECT id, description FROM t ORDER BY description DESC, "
+                 "id", True, False),
+    "limit_past_topk": (f"SELECT id FROM t ORDER BY id LIMIT "
+                        f"{SMALL_TOPK + 1}", True, False),
+    "offset_past_topk": (f"SELECT id FROM t ORDER BY id DESC LIMIT 10 OFFSET "
+                         f"{SMALL_TOPK - 5}", True, False),
+}
+
+
 def _worker(data_dir: str, out_path: str) -> None:
     import torch.distributed as dist
 
@@ -145,53 +208,48 @@ def _worker(data_dir: str, out_path: str) -> None:
     from exon_tpu_torch import tables
     from exon_tpu_torch.parallel import distributed as D
 
-    shard_calls = []
+    calls = []
     orig = tables.iter_scan_files
 
     def spy(files):
         got = orig(files)
-        shard_calls.append((len(list(files)), len(got)))
+        calls.append((len(list(files)), len(got)))
         return got
 
     tables.iter_scan_files = spy
+    D.MAX_DIST_TOPK = SMALL_TOPK
     s = T.ExonSession(device="cpu")  # the process group starts here
     assert dist.is_initialized() and s.config.distributed
     s.config.n_shards = LOCAL_SHARDS
-    s.sql(f"CREATE EXTERNAL TABLE t STORED AS FASTA LOCATION '{data_dir}'")
-
-    def rows(q, routed):
+    for sql in SETUP:
+        s.sql(sql.format(data_dir=data_dir))
+    routed = {
+        "count_star": D.DistributedAggregateExec,
+        "group_by": D.DistributedAggregateExec,
+        "filtered_group_by": D.DistributedAggregateExec,
+        "topk": D.DistributedTopKExec, "join": D.DistributedJoinExec,
+        "left_join_residual": D.DistributedJoinExec,
+        "memory_join": D.DistributedJoinExec,
+        "window": D.DistributedWindowExec,
+        "partitioned_join": D.DistributedPartitionedJoinExec,
+        "partitioned_left_join": D.DistributedPartitionedJoinExec,
+        "order_by": D.DistributedSortExec,
+        "limit_past_topk": D.DistributedSortExec,
+        "offset_past_topk": D.DistributedSortExec}
+    answers, shard_calls = {}, {}
+    for name, (q, _ordered, _build) in QUERIES.items():
+        flag = "true" if name.startswith("partitioned") else "false"
+        s.sql(f"SET exon.partitioned_join = {flag}")
         df = s.sql(q)
         plan = df._execute(df.logical_plan())
         stack, seen = [plan], []
         while stack:
             seen.append(stack.pop())
             stack.extend(seen[-1].children())
-        assert any(isinstance(p, routed) for p in seen), q
-        return plan.collect_arrow().to_pylist()
-
-    agg, top = D.DistributedAggregateExec, D.DistributedTopKExec
-    answers = {
-        "count_star": rows("SELECT COUNT(*) AS n FROM t", agg),
-        "group_by": rows("SELECT description, COUNT(*) AS n FROM t GROUP BY "
-                         "description ORDER BY description", agg),
-        "filtered_group_by": rows(
-            "SELECT description, COUNT(*) AS n FROM t WHERE sequence LIKE "
-            "'AC%' GROUP BY description ORDER BY description", agg),
-        "topk": rows("SELECT id, description FROM t ORDER BY description, "
-                     "id LIMIT 4", top),
-    }
-    cap = D.MAX_DIST_TOPK
-    for name, q in (
-            ("limit_past_topk", f"SELECT id FROM t ORDER BY id LIMIT {cap + 1}"),
-            ("offset_past_topk",
-             f"SELECT id FROM t ORDER BY id LIMIT {cap} OFFSET 1"),
-            ("order_by", "SELECT id FROM t ORDER BY id")):
-        df = s.sql(q)
-        try:
-            df._execute(df.logical_plan())
-            answers[name] = "planned"
-        except NotImplementedError as e:
-            answers[name] = str(e)
+        assert any(isinstance(p, routed[name]) for p in seen), name
+        calls.clear()
+        answers[name] = plan.collect_arrow().to_pylist()
+        shard_calls[name] = list(calls)
     n_files = len(os.listdir(data_dir))
     with open(out_path, "w") as f:
         json.dump({"answers": answers, "shard_calls": shard_calls,

@@ -465,11 +465,11 @@ OUT_OF_SLICE = [
     ("COPY (SELECT id FROM prot) TO '/tmp/x.fasta' STORED AS FASTA",
      "item 10"),
     ("EXPLAIN SELECT COUNT(*) FROM genes", "item 11"),
-    ("SET exon.vcf_parse_info = true", "item 14"),
-    ("CREATE TABLE ca (k INT, v INT)", "item 14"),
-    ("INSERT INTO genes VALUES (1, 2)", "item 14"),
-    ("VALUES (1, 2), (3, 4)", "item 14"),
-    # items 8 and 7 have landed: these give the JAX package's answer
+    # items 14, 8 and 7 have landed: these give the JAX package's answer
+    ("SET exon.vcf_parse_info = true", None),
+    ("CREATE TABLE ca (k INT, v INT)", None),
+    ("INSERT INTO genes VALUES (1, 2)", None),
+    ("VALUES (1, 2), (3, 4)", None),
     ("CREATE FUNCTION f(a BIGINT) RETURNS BIGINT LANGUAGE SQL RETURN a + 1",
      None),
     ("SELECT seqname FROM genes UNION SELECT seqname FROM genes", None),

@@ -1,8 +1,8 @@
 """The SQL functions of exon_tpu_torch (ops/sqlfuncs.py) against exon_tpu's.
 
-The port has no CREATE TABLE AS VALUES (ROADMAP Queue 1, item 14), so the
-strings of the JAX package's own tests ('Hello World', '  pad  ',
-'abcabc') sit in a small FASTA file, as ids, descriptions and sequences,
+The strings of the JAX package's own tests ('Hello World', '  pad  ',
+'abcabc'), which those tests hold in memory tables, sit here in a small
+FASTA file, as ids, descriptions and sequences,
 with empty strings, NULL descriptions, multi-byte UTF-8 and rows past 64
 bytes. Each case runs one query through ``exon_tpu.ExonSession.sql`` and
 ``exon_tpu_torch.ExonSession(device="cpu").sql`` (the kernels' plain twins)
