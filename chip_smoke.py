@@ -4,6 +4,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``--kernels hash_aggregate,list_bins,q_aggregate`` (any of them) runs
+phases 1-2 and those cases alone; ``--tree DIR`` imports exon_tpu_torch and
+benchlib from another checkout (an earlier commit, unpacked), so that two
+versions are timed in one run on one card.
+
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), and whether jax
@@ -32,8 +37,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    hash_aggregate runs on Query I's first batch (the scan's batch after the
    tabix seek, keyed by chrom and ref, masked by qual >= 30) with the sum
    of squares and each row's slot, beside one index_add_ of x^2 at those
-   slots, the library call for the sum-of-squares partial; then on 25
-   int64 keys (printed apart). The SQL function kernels (K12) run at the
+   slots, the library call for the sum-of-squares partial; then on the
+   same batch with its live rows' keys dealt into equal groups (the
+   control without hot slots) and on 25 int64 keys (printed apart), each
+   with the kernel's own device time (torch.profiler) and the wrapper's
+   host work beside the CUDA-event time. The SQL function kernels (K12) run at the
    shapes of queries J and K: span_concat on J's concat_ws (the kernels
    line) and lpad over the first decoded chunk of A (295,660 records);
    map_bytes on J's upper (beside table[values], the library call) and in
@@ -55,7 +63,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    maps of N's first 131,072-row batch; list_bins' peak mode on P's 30,000
    spectra and its bins mode on the spectra that pass P's filter, beside
    one index_add_ (bins at relative 1e-12, the twin adding in atomic
-   order). bucket_pack (K13) runs at Query Q's shape once Q has run: the
+   order), at 1,900 bins and, printed apart, at 30,000 (past a block's
+   shared memory: the kernel's device-memory variant). bucket_pack (K13) runs at Query Q's shape once Q has run: the
    groups of Q's 8 shard tables after its scan, all their columns, in the
    exchange's one call for the card, to 8 destinations (every output equal
    to the twin's), beside a stable
@@ -135,7 +144,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    shards (C_dist's broadcast join, D_part's partitioned join) beside
    JoinExec on one device (median of 5); Q's aggregate alone on its device
    batches in memory on one device (AggregateExec), 2 shards and 8 shards
-   (median of 5); L's windows alone on their input batches in memory, on
+   (median of 5, and one profiled run: its device time and
+   hash_aggregate_kernel's); L's windows alone on their input batches in memory, on
    8 shards (L_dist's DistributedWindowExec) beside WindowExec on one
    device (median of 5); then one run of A, E, J, J_agg, K, L, N and O under
    torch.profiler, with the device time of its CUDA kernels and copies and
@@ -184,6 +194,9 @@ MZML_SPECTRA = 30_000          # Query P: ~8.6 M peaks, ~185 MB of mzML
 TMT_126 = 126.127726           # the TMT-126 reporter ion's m/z (Query P)
 PEAK_TOL = 0.5                 # a low-resolution (ion trap) window
 N_BINS, BIN_MIN, BIN_WIDTH = 1900, 100.0, 1.0  # 1 m/z bins over 100-2000
+# past the 29,056 float64 bins a block's shared memory holds on the H100:
+# list_bins' other bins variant, over the same m/z range
+N_BINS_PAST_SHARED = 30_000
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM integer rate: 132 SMs x 64 INT32 units x 1.98 GHz boost (NVIDIA
@@ -553,16 +566,21 @@ def _bytes_to_first_kk(offs, vals) -> int:
 
 def check_hash(rng, torch, first_i) -> dict:
     """hash_aggregate against its twin: Query I's first batch (the kernels
-    line), with the sum of squares and the slot output; then 25 int64 keys
-    with count/min/max/sum (a printed line)."""
+    line), with the sum of squares and the slot output; the same batch with
+    its live rows' keys dealt out anew into groups of equal size (the
+    control without hot slots); then 25 int64 keys with count/min/max/sum
+    (printed lines). Each beside the kernel's own device time."""
     from exon_tpu_torch.kernels import hash_aggregate as hk
     from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
 
-    res = _check_hash_query_i(torch, hk, GroupedHashAggregate, first_i)
+    res = _check_hash_query_i(torch, hk, GroupedHashAggregate, first_i,
+                              "query I first batch")
+    _check_hash_query_i(torch, hk, GroupedHashAggregate,
+                        _equal_groups(first_i), "query I, equal groups")
     specs = [(hk.COUNT, False), (hk.MIN, False), (hk.MAX, False),
              (hk.SUM, False), (hk.SUM, True), (hk.MIN, True), (hk.MAX, True)]
-    for label, n, n_keys, perm in (("25 keys", N_ROWS, 25, False),):
-        keys = rng.permutation(n_keys) if perm else rng.integers(0, n_keys, n)
+    for label, n, n_keys in (("25 keys", N_ROWS, 25),):
+        keys = rng.integers(0, n_keys, n)
         parts = torch.from_numpy(keys.astype(np.int64)[None, :]).cuda()
         pvalid = torch.ones_like(parts, dtype=torch.uint8)
         mask = torch.from_numpy(rng.random(n) < 0.9).cuda()
@@ -574,17 +592,39 @@ def check_hash(rng, torch, first_i) -> dict:
                 [valid] * len(specs))
         got, want, err = _hash_vs_twin(torch, hk, GroupedHashAggregate,
                                        specs, args, label)
-        ms = _hash_ms(torch, hk.insert, GroupedHashAggregate, specs, args)
-        plain = _hash_ms(torch, hk.insert_plain, GroupedHashAggregate, specs,
-                         args)
+        ms, host = _hash_ms(torch, hk.insert, GroupedHashAggregate, specs,
+                            args)
+        dev = _hash_device_ms(torch, hk, GroupedHashAggregate, specs, args)
+        plain, _host = _hash_ms(torch, hk.insert_plain, GroupedHashAggregate,
+                                specs, args)
         # key part, its validity, mask, the int and float values and their
         # validity in; per group the key and 7 (value, count) pairs out
         nbytes = 27 * n + got.num_groups * (8 + 7 * 16)
         print(f"  hash_aggregate {label}: {got.num_groups} groups, "
-              f"{n} rows, kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-              f"bound {bound_ms(nbytes):.4f} ms, "
+              f"{n} rows, kernel {ms:.4f} ms (the kernel alone {dev:.4f} ms "
+              f"on the device, the wrapper's host work {host:.4f} ms), twin "
+              f"{plain:.4f} ms, bound {bound_ms(nbytes):.4f} ms, "
               f"max float-sum diff {err:.3e}")
     return res
+
+
+def _equal_groups(first: dict, seed: int = 5) -> dict:
+    """Query I's first batch with the keys of its live rows dealt out anew:
+    the same groups, each over an equal share of the rows (to one), in a
+    random order, so no slot is hot. The mask and the values stay."""
+    import torch
+
+    parts, pvalid, mask = first["parts"], first["pvalid"], first["mask"]
+    k = parts.shape[0]
+    rows = torch.nonzero(mask).flatten()
+    uniq = torch.unique(torch.cat([parts[:, rows], pvalid[:, rows].long()]),
+                        dim=1)
+    pick = torch.from_numpy(np.random.default_rng(seed).permutation(
+        rows.shape[0])).to(parts.device) % uniq.shape[1]
+    parts, pvalid = parts.clone(), pvalid.clone()
+    parts[:, rows] = uniq[:k, pick]
+    pvalid[:, rows] = uniq[k:, pick].to(torch.uint8)
+    return {**first, "parts": parts, "pvalid": pvalid}
 
 
 def _hash_vs_twin(torch, hk, agg_cls, specs, args, label: str):
@@ -625,11 +665,13 @@ def _hash_vs_twin(torch, hk, agg_cls, specs, args, label: str):
     return got, want, err
 
 
-def _hash_ms(torch, insert, agg_cls, specs, args, slots=False) -> float:
+def _hash_ms(torch, insert, agg_cls, specs, args,
+             slots=False) -> tuple[float, float]:
     """Median time of one insert into a fresh table made outside the
-    timing."""
+    timing, between CUDA events, and the median host time of the call (its
+    work before it returns, no sync)."""
     parts = args[0]
-    times = []
+    times, host = [], []
     for _ in range(REPS + 1):
         agg = agg_cls(parts.shape[0], specs, parts.device)
         agg.reserve(parts.shape[1])
@@ -637,11 +679,49 @@ def _hash_ms(torch, insert, agg_cls, specs, args, slots=False) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t = time.perf_counter()
         insert(agg.table, *args, slots=slots)
+        host.append(1e3 * (time.perf_counter() - t))
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times[1:]))
+    return float(np.median(times[1:])), float(np.median(host[1:]))
+
+
+def _cuda_rows(torch, run, reps: int = 1) -> list:
+    """torch.profiler's rows of CUDA kernels and copies over ``reps`` runs
+    of ``run``, after one run outside the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _hash_device_ms(torch, hk, agg_cls, specs, args, slots=False) -> float:
+    """The mean device time of hash_aggregate_kernel alone over REPS
+    inserts into fresh tables, from torch.profiler's self_device_time_total
+    (the tables' fills are other kernels)."""
+    parts = args[0]
+
+    def run():
+        agg = agg_cls(parts.shape[0], specs, parts.device)
+        agg.reserve(parts.shape[1])
+        hk.insert(agg.table, *args, slots=slots)
+
+    rows = [e for e in _cuda_rows(torch, run, REPS)
+            if "hash_aggregate_kernel" in e.key]
+    launched = sum(e.count for e in rows)
+    if launched != REPS:
+        fail(f"hash_aggregate: the profile shows {launched} kernel runs, "
+             f"not {REPS}")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / launched
 
 
 def _query_i_first_batch(torch):
@@ -670,7 +750,7 @@ def _query_i_first_batch(torch):
             "valid": valid, "kinds": kinds}
 
 
-def _check_hash_query_i(torch, hk, agg_cls, first) -> dict:
+def _check_hash_query_i(torch, hk, agg_cls, first, label: str) -> dict:
     # COUNT(*), AVG(qual), STDDEV(qual), VAR_POP(qual): count, a sum, and
     # two (sum, sum of squares) pairs over the same float64 values
     specs = [(hk.COUNT, False), (hk.SUM, True), (hk.SUM, True),
@@ -680,11 +760,11 @@ def _check_hash_query_i(torch, hk, agg_cls, first) -> dict:
     n = parts.shape[1]
     args = (parts, pvalid, mask, None, 0,
             [None] + [x] * 5, [mask] + [valid] * 5)
-    got, _want, err = _hash_vs_twin(torch, hk, agg_cls, specs, args,
-                                    "query I")
-    ms = _hash_ms(torch, hk.insert, agg_cls, specs, args, slots=True)
-    plain = _hash_ms(torch, hk.insert_plain, agg_cls, specs, args,
-                     slots=True)
+    got, _want, err = _hash_vs_twin(torch, hk, agg_cls, specs, args, label)
+    ms, host = _hash_ms(torch, hk.insert, agg_cls, specs, args, slots=True)
+    dev = _hash_device_ms(torch, hk, agg_cls, specs, args, slots=True)
+    plain, _host = _hash_ms(torch, hk.insert_plain, agg_cls, specs, args,
+                            slots=True)
     # the library yardstick for the Σx² partial: one index_add_ of x² at the
     # kernel's slots, over the rows that feed it
     agg = agg_cls(parts.shape[0], specs, parts.device)
@@ -696,13 +776,16 @@ def _check_hash_query_i(torch, hk, agg_cls, first) -> dict:
                       device=x.device)
     lib = median_ms(lambda: acc.index_add_(0, at, x2), torch)
     g = got.num_groups
+    sizes = torch.bincount(slots[slots >= 0])
     # parts, their validity, the mask, the qual values and their validity
     # in, each row's slot out; per group its keys, key validity, first row
     # and 6 (accumulator, count) pairs
     nbytes = n * (parts.shape[0] * 9 + 1 + 8 + 1) + 8 * n + \
         g * (parts.shape[0] * 9 + 8 + 6 * 16)
-    print(f"  hash_aggregate query I first batch: {n} rows, {g} groups "
-          f"(keys {first['kinds']}), kernel {ms:.4f} ms with slots, twin "
+    print(f"  hash_aggregate {label}: {n} rows, {g} groups (keys "
+          f"{first['kinds']}, the largest {int(sizes.max())} live rows), "
+          f"kernel {ms:.4f} ms with slots (the kernel alone {dev:.4f} ms on "
+          f"the device, the wrapper's host work {host:.4f} ms), twin "
           f"{plain:.4f} ms, index_add_ of x^2 {lib:.4f} ms, bound "
           f"{bound_ms(nbytes):.4f} ms, max float-sum diff {err:.3e}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1553,14 +1636,10 @@ def check_list_kernels(torch, fq_path: str) -> dict:
     map_bytes' widen mode (the DNA codes and the Phred scores) and narrow
     mode (the scores back to text) on the first FASTQ chunk of O's scan,
     beside table[values]; map_lookup on the attribute maps of N's first
-    131,072-row batch ('gene_type'); list_bins' peak mode on the m/z lists
-    of P's spectra and its bins mode on the spectra that pass P's filter,
-    beside one index_add_ of the in-range intensities. Exact, but the bins
-    at relative BINS_RTOL."""
-    from benchlib.fixtures import make_mzml
+    131,072-row batch ('gene_type'); list_bins at P's (check_list_bins).
+    Exact, but the bins at relative BINS_RTOL."""
     from benchlib.gencode_gff_fixture import make_gencode_gff
     from exon_tpu_torch.formats.fasta import DNA_CODE
-    from exon_tpu_torch.kernels import list_bins as lb
     from exon_tpu_torch.kernels import map_bytes as mb
     from exon_tpu_torch.kernels import map_lookup as ml
 
@@ -1602,6 +1681,18 @@ def check_list_kernels(torch, fq_path: str) -> dict:
             (klen == len(lit)).sum()) + 4 * n_maps,
         f"{n_maps} attribute maps, {n_ent} entries, key 'gene_type'")
     del attrs, keys, args
+    return {"map_lookup": r_lookup, "list_bins": check_list_bins(torch)}
+
+
+def check_list_bins(torch) -> dict:
+    """list_bins' peak mode on the m/z lists of P's spectra and its bins
+    mode on the spectra that pass P's filter, beside one index_add_ of the
+    in-range intensities, at N_BINS (a row's bins in shared memory) and at
+    N_BINS_PAST_SHARED (each addition into the output row; printed apart).
+    Exact, but the bins at relative BINS_RTOL."""
+    from benchlib.fixtures import make_mzml
+    from exon_tpu_torch.kernels import list_bins as lb
+    from exon_tpu_torch.ops import layout
 
     mzml = make_mzml(MZML_SPECTRA)
     spectra = _first_batch(lambda s: s.read_mzml(mzml).select(
@@ -1628,8 +1719,6 @@ def check_list_kernels(torch, fq_path: str) -> dict:
           4 * (n_spec + 1) + 8 * int(read.sum()) + 2 * n_spec,
           f"{n_spec} spectra, {n_peaks} peaks, {TMT_126} +- {PEAK_TOL}")
     keep = lb.list_bins_peak(offs, vals, mz.validity, TMT_126, PEAK_TOL)
-    from exon_tpu_torch.ops import layout
-
     kept = layout.filter_batch(spectra, keep)
     kmz = kept.column("mz").children["mz"]
     kin = kept.column("intensity").children["intensity"]
@@ -1662,7 +1751,27 @@ def check_list_kernels(torch, fq_path: str) -> dict:
           f"{r_bins['ms']:.4f} ms, twin {r_bins['plain_ms']:.4f} ms, library "
           f"{r_bins['library_ms']:.4f} ms, bound "
           f"{bound_ms(r_bins['bytes']):.4f} ms by bytes")
-    return {"map_lookup": r_lookup, "list_bins": r_bins}
+    # the kernel's other variant: more bins than a block's shared memory
+    # holds, over the same m/z range, each addition into the output row
+    big = bargs[:4] + ((2000.0 - BIN_MIN) / N_BINS_PAST_SHARED,
+                       N_BINS_PAST_SHARED)
+    got = lb.list_bins_bins(*big)
+    want = lb.list_bins_bins_plain(*big)
+    try:
+        torch.testing.assert_close(got, want, rtol=BINS_RTOL, atol=0)
+    except AssertionError as e:
+        fail(f"list_bins bins past shared memory: kernel and twin differ: "
+             f"{e}")
+    err = _rel_err(got, want)
+    del got, want
+    nbytes = 16 * k_peaks + 4 * (n_kept + 1) + 8 * n_kept * N_BINS_PAST_SHARED
+    ms = median_ms(lambda: lb.list_bins_bins(*big), torch)
+    plain = median_ms(lambda: lb.list_bins_bins_plain(*big), torch)
+    print(f"  list_bins bins past shared memory ({n_kept} spectra, {k_peaks} "
+          f"peaks -> {N_BINS_PAST_SHARED} bins each, relative error {err}): "
+          f"kernel {ms:.4f} ms, twin {plain:.4f} ms, bound "
+          f"{bound_ms(nbytes):.4f} ms by bytes")
+    return r_bins
 
 
 def phase_kernels(torch) -> dict:
@@ -3298,11 +3407,13 @@ def _in_memory(plan, batches=None):
     return InMemory()
 
 
-def _q_cost(torch, q_plan, q_batches, gf) -> None:
+def _q_cost(torch, q_batches, gf) -> None:
     """Q's aggregate alone on its device batches already in memory, on one
     device (AggregateExec), 2 shards and Q_SHARDS shards of the card: the
     cost of distribution on one card (median of 5 host-clock runs ending in
-    a sync; every way gives the same groups)."""
+    a sync; every way gives the same groups), and one more run under
+    torch.profiler: the device time of its kernels and copies and of
+    hash_aggregate_kernel's launches."""
     import exon_tpu_torch as T
     from exon_tpu_torch.config import new_exon_config
     from exon_tpu_torch.parallel.distributed import DistributedAggregateExec
@@ -3325,8 +3436,14 @@ def _q_cost(torch, q_plan, q_batches, gf) -> None:
         elif not _same_batch(out, first):
             fail(f"query Q alone: {label} differs from AggregateExec")
         ms = _host_ms(lambda: list(plan.batches()), torch)
+        cuda = _cuda_rows(torch, lambda: list(plan.batches()))
+        kern = [e for e in cuda if "hash_aggregate_kernel" in e.key]
         print(f"query Q aggregate alone, {label}: {rows} rows in memory, "
-              f"{out.length} groups; median of 5: {ms:.2f} ms")
+              f"{out.length} groups; median of 5: {ms:.2f} ms; one profiled "
+              f"run: {sum(e.self_device_time_total for e in cuda) / 1e3:.2f}"
+              f" ms on the device, hash_aggregate_kernel "
+              f"{sum(e.self_device_time_total for e in kern) / 1e3:.3f} ms "
+              f"in {sum(e.count for e in kern)} launches")
 
 
 def _join_and_sort_ms(df, torch, label: str):
@@ -3463,9 +3580,8 @@ def phase_breakdown(torch, q) -> None:
         join = _join_and_sort_ms(query(), torch, label)
         _dist_join_ms(torch, join, label, partitioned=label == "D")
         del join
-    q_plan, q_batches, _gf = q
-    _q_cost(torch, q_plan, q_batches, gf)
-    del q_batches, q
+    _q_cost(torch, q[1], gf)
+    del q
     vcf = make_vcf(VCF_RECORDS, VCF_SEED)
     _window_ms(torch, session, SQL_L.format(vcf=vcf, panel=_panel_file(vcf)))
     # C's and D's profiled runs (~50 s and ~30 s) are cut for the smoke's
@@ -3511,16 +3627,73 @@ def phase_breakdown(torch, q) -> None:
     # 5) is cut for the smoke's time
 
 
+def phase_focus(torch, names: list) -> None:
+    """The named cases of FOCUS alone, on fresh seeds."""
+    for k in names:
+        if k not in FOCUS:
+            fail(f"--kernels: {k} is not one of {sorted(FOCUS)}")
+    for k in names:
+        FOCUS[k](torch)
+
+
+def check_q_aggregate(torch) -> None:
+    """Phase 5's timing of Q's aggregate alone, on the device batches of
+    Q's scan."""
+    import exon_tpu_torch as T
+    from benchlib.gff_fixture import make_gff
+    from exon_tpu_torch.config import new_exon_config
+    from exon_tpu_torch.parallel.distributed import DistributedAggregateExec
+
+    gf = make_gff(GFF_FEATURES, GFF_SEED)
+    df = T.ExonSession(device="cuda", config=new_exon_config(
+        distributed=True, n_shards=Q_SHARDS)).sql(SQL_Q.format(gf=gf))
+    q_plan = _find(df._execute(df.logical_plan()), DistributedAggregateExec)
+    _q_cost(torch, list(q_plan.input.batches()), gf)
+
+
+# the cases a run with --kernels can take alone: phase 3's of two kernels,
+# and phase 5's of Q's aggregate (hash_aggregate on Q's path)
+FOCUS = {
+    "hash_aggregate": lambda torch: check_hash(
+        np.random.default_rng(1234), torch, _query_i_first_batch(torch)),
+    "list_bins": check_list_bins,
+    "q_aggregate": check_q_aggregate,
+}
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated names from FOCUS: run phases 1-2 "
+                         "and those cases alone")
+    ap.add_argument("--tree", default="",
+                    help="import exon_tpu_torch and benchlib from this "
+                         "checkout (an earlier commit, unpacked) instead of "
+                         "the script's own, to time two versions in one run")
+    args = ap.parse_args()
     t0 = time.perf_counter()
     try:
         import torch
     except ImportError as e:
         fail(f"torch is not installed: {e}")
-    root = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(args.tree) if args.tree else \
+        os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "exon_tpu_torch")):
-        fail(f"exon_tpu_torch is not beside {__file__}")
+        fail(f"exon_tpu_torch is not in {root}")
     sys.path.insert(0, root)
+    if args.kernels:
+        name, card = phase_device(torch)
+        phase_build()
+        phase_focus(torch, args.kernels.split(","))
+        print(f"smoke (--kernels {args.kernels}, exon_tpu_torch from {root})"
+              f": {time.perf_counter() - t0:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     name, card = phase_device(torch)
     phase_build()
     results = phase_kernels(torch)

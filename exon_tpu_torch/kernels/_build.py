@@ -66,7 +66,8 @@ SIGNATURES = {
     "exon_map_bytes_widen": [_P, _I64, _P, _I32, _P, _P],
     "exon_map_bytes_narrow": [_P, _I64, _P, _P],
     "exon_list_bins_peak": [_P, _P, _P, _I64, _F64, _F64, _P, _P],
-    "exon_list_bins_bins": [_P, _P, _P, _I64, _F64, _F64, _I32, _P, _P],
+    "exon_list_bins_bins": [_P, _P, _P, _I64, _F64, _F64, _I32, _I32, _P,
+                            _P],
     "exon_map_lookup": [_P, _P, _P, _P, _I64, _P, _I32, _P, _P],
     "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
     "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],

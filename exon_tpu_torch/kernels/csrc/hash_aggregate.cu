@@ -14,36 +14,51 @@
 //
 // Bound on the H100: HBM bytes and atomic throughput. Each live row reads
 // its key parts (9 bytes a part), its mask and its values (9 bytes an
-// aggregate) once and issues a few atomics into the table; with few groups
-// (25 seqnames) those atomics contend on the same slots and serialise in L2,
-// with many groups (1 M keys) they are spread and the table's random
-// accesses dominate.
+// aggregate) once; the table takes atomics. With few groups (Query I's
+// batch: 90 % of its rows in the 4 (chr1, SNV REF) groups; 25 seqnames)
+// the atomics of a hot slot serialise in L2, with many groups (1 M keys)
+// they are spread and the table's random accesses dominate.
 //
-// Design: open addressing with linear probing in global memory. A slot holds
+// Table: open addressing with linear probing in global memory. A slot holds
 //   state (int32): 0 empty, 1 being written, 2 full;
-//   one int64 value and one validity byte per key part (a group key is up to
-//     kMaxParts columns, compared in full, so there are no hash collisions
+//   one int64 value and one validity byte per key part (a group key has any
+//     number of columns, compared in full, so there are no hash collisions
 //     between groups and every int64 value is a legal key);
 //   first (int64): the smallest global row number seen in the group;
 //   per aggregate an accumulator (int64, or float64 bits) and a count of
 //     non-null inputs.
 // A thread claims an empty slot with atomicCAS on its state word, writes the
 // key parts, fences and publishes state 2; a thread that meets state 1 waits
-// for 2 and then compares keys. It then updates first with atomicMin, the
-// count with atomicAdd, int64 sums with atomicAdd on the unsigned bits,
-// float64 sums with atomicAdd(double), int64 min/max with atomicMin/Max and
-// float64 min/max with a CAS loop, and the sum of squares with
-// atomicAdd(double) of x * x (of the partial itself in merge mode).
-// Optionally each row's slot is written to slot_out (-1 for a masked row
-// or a full table), in the same pass, so that the caller can map rows to
-// groups without a second probe. Identity values (0, +/-max, +/-inf) are
-// written by the wrapper when it allocates the table; the wrapper keeps the
-// load factor at or below one half and grows the table by re-inserting its
-// full slots in merge mode, where each input row is one partial (a count and
-// an accumulator) rather than a raw value. A probe that wraps the whole
-// table sets an overflow flag that the wrapper turns into an error: rows are
-// never dropped silently. The kernel allocates nothing and does not
-// synchronise.
+// for 2 and then compares keys.
+//
+// Design: the rows of a warp are aggregated before they touch the table.
+// Every lane hashes its row's key; a lane past n or dropped by the mask
+// stays in the warp, inactive, so the warp's collectives see all 32 lanes.
+// __match_any_sync groups the active lanes by their 64-bit hash, and the
+// lowest lane of a group leads it. Each lane compares every key part and
+// its validity with its leader's (__shfl_sync); a lane that differs (a true
+// 64-bit collision) leaves the group and waits for a later round, so equal
+// hashes never merge two keys. The leader alone probes the table and
+// broadcasts the slot; every lane writes its own slot_out (-1 for a masked
+// row or a full table). Per aggregate the lanes stage their count and value
+// in shared memory, and the leader folds its group's live values in lane
+// (row) order and issues one atomic per (group, aggregate): atomicAdd of the
+// count (in raw mode the popcount of the live lanes), atomicAdd on the
+// unsigned bits of an int64 sum, atomicAdd(double) of a float64 sum or sum
+// of squares (x * x in raw mode, the partial itself in merge mode),
+// atomicMin/Max for int64 and a CAS loop for float64 min/max (a NaN never
+// replaces an accumulator, in the fold as in the loop); `first` takes
+// atomicMin of the group's least row number (the leader's, in raw mode).
+// At Query I's batch, 32 neighbouring position-sorted rows hold a few
+// groups, so the hot slots' atomics fall several-fold.
+//
+// Identity values (0, +/-max, +/-inf) are written by the wrapper when it
+// allocates the table; the wrapper keeps the load factor at or below one
+// half and grows the table by re-inserting its full slots in merge mode,
+// where each input row is one partial (a count and an accumulator) rather
+// than a raw value. A probe that wraps the whole table sets an overflow
+// flag that the wrapper turns into an error: rows are never dropped
+// silently. The kernel allocates nothing and does not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,7 +66,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxAggs = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum AggOp : int32_t { kCount = 0, kSum = 1, kMin = 2, kMax = 3, kSumSq = 4 };
 
@@ -105,18 +122,27 @@ __device__ void atomic_max_f64(double* addr, double v) {
   }
 }
 
-// Finds or creates the slot of the row's key; -1 when the table is full.
-__device__ int64_t find_slot(const Table& t, int32_t n_parts,
-                             const int64_t* __restrict__ parts,
-                             const uint8_t* __restrict__ part_valid,
-                             int64_t n, int64_t row) {
+// The row's 64-bit key hash; the probe starts at its low bits.
+__device__ __forceinline__ uint64_t key_hash(int32_t n_parts,
+                                             const int64_t* __restrict__ parts,
+                                             const uint8_t* __restrict__ part_valid,
+                                             int64_t n, int64_t row) {
   uint64_t h = 0;
   for (int32_t p = 0; p < n_parts; ++p) {
     h = h * 1099511628211ull + static_cast<uint64_t>(parts[p * n + row]) +
         (part_valid[p * n + row] ? 1ull : 0ull);
   }
+  return mix64(h);
+}
+
+// Finds or creates the slot of the row's key, whose hash is h; -1 when the
+// table is full.
+__device__ int64_t find_slot(const Table& t, int32_t n_parts,
+                             const int64_t* __restrict__ parts,
+                             const uint8_t* __restrict__ part_valid,
+                             int64_t n, int64_t row, uint64_t h) {
   const int64_t mask = t.capacity - 1;
-  int64_t slot = static_cast<int64_t>(mix64(h)) & mask;
+  int64_t slot = static_cast<int64_t>(h) & mask;
   for (int64_t probe = 0; probe < t.capacity; ++probe) {
     volatile int32_t* st = t.state + slot;
     int32_t s = *st;
@@ -151,6 +177,51 @@ __device__ int64_t find_slot(const Table& t, int32_t n_parts,
   return -1;
 }
 
+// The leader's fold of aggregate op over the staged values of the lanes in
+// live, in lane order, and its one atomic into dst.
+__device__ void fold_and_add(int32_t op, bool is_float, unsigned live,
+                             const long long* staged, int64_t* dst) {
+  if (is_float) {
+    double* d = reinterpret_cast<double*>(dst);
+    if (op == kSum || op == kSumSq) {
+      double s = __longlong_as_double(staged[__ffs(live) - 1]);
+      for (unsigned m = live & (live - 1); m; m &= m - 1) {
+        s += __longlong_as_double(staged[__ffs(m) - 1]);
+      }
+      atomicAdd(d, s);
+      return;
+    }
+    // NaN never replaces: v < acc and v > acc are false for it
+    double acc = op == kMin ? __longlong_as_double(0x7ff0000000000000ll)
+                            : __longlong_as_double(0xfff0000000000000ll);
+    for (unsigned m = live; m; m &= m - 1) {
+      const double v = __longlong_as_double(staged[__ffs(m) - 1]);
+      if (op == kMin ? v < acc : v > acc) acc = v;
+    }
+    if (op == kMin) atomic_min_f64(d, acc);
+    else atomic_max_f64(d, acc);
+    return;
+  }
+  long long acc = staged[__ffs(live) - 1];
+  for (unsigned m = live & (live - 1); m; m &= m - 1) {
+    const long long v = staged[__ffs(m) - 1];
+    if (op == kSum) {
+      acc = static_cast<long long>(static_cast<unsigned long long>(acc) +
+                                   static_cast<unsigned long long>(v));
+    } else if (op == kMin ? v < acc : v > acc) {
+      acc = v;
+    }
+  }
+  if (op == kSum) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+              static_cast<unsigned long long>(acc));
+  } else if (op == kMin) {
+    atomicMin(reinterpret_cast<long long*>(dst), acc);
+  } else {
+    atomicMax(reinterpret_cast<long long*>(dst), acc);
+  }
+}
+
 __global__ void hash_aggregate_kernel(int64_t n, int32_t n_parts,
                                       const int64_t* __restrict__ parts,
                                       const uint8_t* __restrict__ part_valid,
@@ -159,47 +230,94 @@ __global__ void hash_aggregate_kernel(int64_t n, int32_t n_parts,
                                       int64_t base_row, int32_t merge,
                                       AggArgs aggs, Table t,
                                       int64_t* __restrict__ slot_out) {
+  __shared__ long long stage_c[kWarps][32];
+  __shared__ long long stage_v[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  long long* sc = stage_c[threadIdx.x >> 5];
+  long long* sv = stage_v[threadIdx.x >> 5];
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= n) return;
-  const int64_t slot = (row_mask != nullptr && row_mask[row] == 0)
-                           ? -1
-                           : find_slot(t, n_parts, parts, part_valid, n, row);
-  if (slot_out != nullptr) slot_out[row] = slot;
-  if (slot < 0) return;
-  const int64_t first = merge ? first_in[row] : base_row + row;
-  atomicMin(reinterpret_cast<long long*>(t.first + slot),
-            static_cast<long long>(first));
-  for (int32_t a = 0; a < aggs.n_aggs; ++a) {
-    const int64_t c =
-        merge ? static_cast<const int64_t*>(aggs.counts[a])[row]
-              : (static_cast<const uint8_t*>(aggs.counts[a])[row] ? 1 : 0);
-    if (c == 0) continue;
-    const int64_t at = static_cast<int64_t>(a) * t.capacity + slot;
-    atomicAdd(reinterpret_cast<unsigned long long*>(t.cnt + at),
-              static_cast<unsigned long long>(c));
-    const int32_t op = aggs.op[a];
-    if (op == kCount) continue;
-    if (aggs.is_float[a]) {
-      const double v = static_cast<const double*>(aggs.values[a])[row];
-      double* dst = reinterpret_cast<double*>(t.acc + at);
-      if (op == kSum) atomicAdd(dst, v);
-      else if (op == kSumSq) atomicAdd(dst, merge ? v : v * v);
-      else if (op == kMin) atomic_min_f64(dst, v);
-      else atomic_max_f64(dst, v);
-    } else {
-      const int64_t v = static_cast<const int64_t*>(aggs.values[a])[row];
-      if (op == kSum) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(t.acc + at),
-                  static_cast<unsigned long long>(v));
-      } else if (op == kMin) {
-        atomicMin(reinterpret_cast<long long*>(t.acc + at),
-                  static_cast<long long>(v));
-      } else {
-        atomicMax(reinterpret_cast<long long*>(t.acc + at),
-                  static_cast<long long>(v));
-      }
+  // no early return: every lane takes part in the warp's collectives
+  bool pending = row < n && (row_mask == nullptr || row_mask[row] != 0);
+  const uint64_t h =
+      pending ? key_hash(n_parts, parts, part_valid, n, row) : 0;
+  int64_t my_slot = -1;
+  // one round per set of keys that share a hash in the warp: almost always
+  // one; a true 64-bit collision takes another
+  while (__any_sync(kFull, pending)) {
+    const unsigned group =
+        __match_any_sync(kFull, static_cast<unsigned long long>(h)) &
+        __ballot_sync(kFull, pending);
+    const int leader = pending ? __ffs(group) - 1 : lane;
+    bool same = pending;
+    for (int32_t p = 0; p < n_parts; ++p) {
+      const long long k = pending ? parts[p * n + row] : 0;
+      const int v = pending ? (part_valid[p * n + row] ? 1 : 0) : 0;
+      // both shuffles run on every lane: none may skip a collective
+      const long long lk = __shfl_sync(kFull, k, leader);
+      const int lv = __shfl_sync(kFull, v, leader);
+      same = same && lk == k && lv == v;
     }
+    const unsigned mates = __ballot_sync(kFull, same) & group;
+    const bool lead = pending && leader == lane;
+    long long slot = -1;
+    if (lead) slot = find_slot(t, n_parts, parts, part_valid, n, row, h);
+    slot = __shfl_sync(kFull, slot, leader);
+    if (same) my_slot = slot;
+    const bool adds = same && slot >= 0;
+    if (merge) {
+      sc[lane] = adds ? first_in[row] : 0;
+      __syncwarp();
+      if (lead && slot >= 0) {
+        long long f = sc[lane];
+        for (unsigned m = mates; m; m &= m - 1) {
+          const long long g = sc[__ffs(m) - 1];
+          if (g < f) f = g;
+        }
+        atomicMin(reinterpret_cast<long long*>(t.first + slot), f);
+      }
+      __syncwarp();
+    } else if (lead && slot >= 0) {
+      // the leader's row is its group's first: the lowest lane
+      atomicMin(reinterpret_cast<long long*>(t.first + slot),
+                static_cast<long long>(base_row + row));
+    }
+    for (int32_t a = 0; a < aggs.n_aggs; ++a) {
+      long long c = 0;
+      if (adds) {
+        c = merge ? static_cast<const int64_t*>(aggs.counts[a])[row]
+                  : (static_cast<const uint8_t*>(aggs.counts[a])[row] ? 1 : 0);
+      }
+      const unsigned live = __ballot_sync(kFull, c != 0) & mates;
+      const int32_t op = aggs.op[a];
+      const bool is_float = aggs.is_float[a];
+      long long v = 0;
+      if (c != 0 && op != kCount) {
+        if (is_float) {
+          const double x = static_cast<const double*>(aggs.values[a])[row];
+          v = __double_as_longlong(op == kSumSq && !merge ? x * x : x);
+        } else {
+          v = static_cast<const int64_t*>(aggs.values[a])[row];
+        }
+      }
+      sc[lane] = c;
+      sv[lane] = v;
+      __syncwarp();
+      if (lead && live) {
+        const int64_t at = static_cast<int64_t>(a) * t.capacity + slot;
+        long long total = __popc(live);
+        if (merge) {
+          total = 0;
+          for (unsigned m = live; m; m &= m - 1) total += sc[__ffs(m) - 1];
+        }
+        atomicAdd(reinterpret_cast<unsigned long long*>(t.cnt + at),
+                  static_cast<unsigned long long>(total));
+        if (op != kCount) fold_and_add(op, is_float, live, sv, t.acc + at);
+      }
+      __syncwarp();
+    }
+    pending = pending && !same;
   }
+  if (slot_out != nullptr && row < n) slot_out[row] = my_slot;
 }
 
 }  // namespace

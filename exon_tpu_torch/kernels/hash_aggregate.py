@@ -46,6 +46,23 @@ class HashTable:
     acc: torch.Tensor        # int64 [n_aggs, cap] (float64 bits where float)
     cnt: torch.Tensor        # int64 [n_aggs, cap]
     meta: torch.Tensor       # int64 [2]: groups created, overflow flag
+    # what the kernel takes of the table, built once a table (its tensors
+    # are updated in place, never replaced): the per-aggregate op and
+    # is-float arrays, and the device pointers of the slots' arrays
+    c_ops: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+    c_floats: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+    c_table: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        n_aggs = len(self.specs)
+        self.c_ops = (ctypes.c_int32 * n_aggs)(*[op for op, _f in self.specs])
+        self.c_floats = (ctypes.c_int32 * n_aggs)(
+            *[int(f) for _op, f in self.specs])
+        self.c_table = tuple(x.data_ptr() for x in (
+            self.state, self.keys, self.key_valid, self.first, self.acc,
+            self.cnt, self.meta))
 
     @staticmethod
     def empty(n_parts: int, specs: tuple, capacity: int, device) -> "HashTable":
@@ -78,6 +95,10 @@ class HashTable:
         """Aggregate a's accumulators in their own dtype."""
         return self.acc[a].view(torch.float64) if self.specs[a][1] \
             else self.acc[a]
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    return x if x.is_contiguous() else x.contiguous()
 
 
 def insert_plain(t: HashTable, parts, part_valid, row_mask, first_in,
@@ -171,39 +192,36 @@ def insert(t: HashTable, parts: torch.Tensor, part_valid: torch.Tensor,
         if slots else None
     if n == 0:
         return slot_out
-    parts, part_valid = parts.contiguous(), part_valid.contiguous()
-    # keep holds every contiguous copy until the launch: a copy freed
-    # earlier could be handed to the next allocation before the kernel runs
+    # keep holds every tensor handed to the kernel until the launch: a
+    # contiguous copy freed earlier could be handed to the next allocation
+    # before the kernel runs
+    parts, part_valid = _dense(parts), _dense(part_valid)
     keep = [parts, part_valid]
     n_aggs = len(t.specs)
-    ops = (ctypes.c_int32 * n_aggs)(*[op for op, _f in t.specs])
-    floats = (ctypes.c_int32 * n_aggs)(*[int(f) for _op, f in t.specs])
     vptrs, cptrs = [], []
     for a in range(n_aggs):
-        v = values[a].contiguous() if values[a] is not None else None
-        c = counts[a].contiguous()
+        v = _dense(values[a]) if values[a] is not None else None
+        c = _dense(counts[a])
         keep += [v, c]
         vptrs.append(v.data_ptr() if v is not None else 0)
         cptrs.append(c.data_ptr())
     mask_ptr = None
     if row_mask is not None:
-        row_mask = row_mask.contiguous()
+        row_mask = _dense(row_mask)
         keep.append(row_mask)
         mask_ptr = row_mask.data_ptr()
     first_ptr = None
     if merge:
-        first_in = first_in.contiguous()
+        first_in = _dense(first_in)
         keep.append(first_in)
         first_ptr = first_in.data_ptr()
     lib = _build.library()
     status = lib.exon_hash_aggregate(
         n, n_parts, parts.data_ptr(), part_valid.data_ptr(), mask_ptr,
-        first_ptr, base_row, int(merge), n_aggs, ops, floats,
+        first_ptr, base_row, int(merge), n_aggs, t.c_ops, t.c_floats,
         (ctypes.c_uint64 * n_aggs)(*vptrs), (ctypes.c_uint64 * n_aggs)(*cptrs),
-        t.capacity, t.state.data_ptr(), t.keys.data_ptr(),
-        t.key_valid.data_ptr(), t.first.data_ptr(), t.acc.data_ptr(),
-        t.cnt.data_ptr(), t.meta.data_ptr(),
-        slot_out.data_ptr() if slots else None, _build.stream_of(parts))
+        t.capacity, *t.c_table, slot_out.data_ptr() if slots else None,
+        _build.stream_of(parts))
     _build.check(status, "hash_aggregate")
     launches += 1
     return slot_out

@@ -13,6 +13,8 @@ Replaces exon_tpu/udfs.py ``contains_peak`` (:376) and ``bin_vectors``
   ``floor((mz - min_mz) / bin_width) == k``; an mz outside
   ``[0, num_bins)`` (a NaN too) adds nothing. Intensity is read at mz's
   flat positions, so both lists must hold the same number of elements.
+  The kernel keeps a row's bins in shared memory up to ``SHARED_BINS_MAX``
+  bins and adds into the output row past that (``bins_variant``).
 
 Element validity is not read, as in the JAX functions.
 """
@@ -24,6 +26,16 @@ import torch
 from . import _build
 
 launches = 0
+
+# The most float64 bins a block's opt-in shared memory holds on the H100
+# (232,448 B); past it the kernel adds into the output row in device memory.
+SHARED_BINS_MAX = 232_448 // 8
+
+
+def bins_variant(num_bins: int) -> str:
+    """The bins-mode kernel variant for ``num_bins``: "shared" or
+    "global" (csrc/list_bins.cu)."""
+    return "shared" if num_bins <= SHARED_BINS_MAX else "global"
 
 
 def _row_ids(offsets: torch.Tensor) -> torch.Tensor:
@@ -125,12 +137,15 @@ def list_bins_bins(offsets: torch.Tensor, mz: torch.Tensor,
     offsets, mz, intensity = (offsets.contiguous(), mz.contiguous(),
                               intensity.contiguous())
     n = offsets.shape[0] - 1
-    out = torch.zeros(n * num_bins, dtype=torch.float64, device=mz.device)
+    shared = bins_variant(num_bins) == "shared"
+    # the shared variant writes every bin; the global one adds into zeros
+    out = (torch.empty if shared else torch.zeros)(
+        n * num_bins, dtype=torch.float64, device=mz.device)
     if n == 0 or num_bins == 0:
         return out
     _build.check(_build.library().exon_list_bins_bins(
         mz.data_ptr(), intensity.data_ptr(), offsets.data_ptr(), n,
-        float(min_mz), float(bin_width), int(num_bins), out.data_ptr(),
-        _build.stream_of(mz)), "list_bins_bins")
+        float(min_mz), float(bin_width), int(num_bins), int(shared),
+        out.data_ptr(), _build.stream_of(mz)), "list_bins_bins")
     launches += 1
     return out
