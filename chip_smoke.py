@@ -4,8 +4,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-``--kernels hash_aggregate,list_bins,q_aggregate`` (any of them) runs
-phases 1-2 and those cases alone; ``--tree DIR`` imports exon_tpu_torch and
+``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes``
+(any of them) runs phases 1-2 and those cases alone; ``--tree DIR`` imports exon_tpu_torch and
 benchlib from another checkout (an earlier commit, unpacked), so that two
 versions are timed in one run on one card.
 
@@ -20,7 +20,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    twin run on the same card; median times of 20 CUDA-event-timed runs of
    each, of one PyTorch call that computes the same function where there is
    one, and the least time the card could take (bytes moved / 3.35 TB/s).
-   The SQL kernels run at their queries' shapes: string_cmp over the ids of
+   compact_mask runs on a 131,072-row filter mask (the kernels line) and
+   on the header flags of that first chunk's 2.4 M lines (decode_chunk's
+   call), each beside torch.nonzero and taken apart: the device time and
+   launches a call of every kernel the wrapper runs (torch.profiler) and
+   its host time. The SQL kernels run at their queries' shapes: string_cmp over the ids of
    that first chunk, parse_number (int and float mode) and format_int over
    one 131,072-row batch of the GFF starts and ends as decimal text, and
    once more over all 3.4 M of them (printed apart). K7 and K14, left to
@@ -41,11 +45,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    same batch with its live rows' keys dealt into equal groups (the
    control without hot slots) and on 25 int64 keys (printed apart), each
    with the kernel's own device time (torch.profiler) and the wrapper's
-   host work beside the CUDA-event time. The SQL function kernels (K12) run at the
+   host work beside the CUDA-event time; then float64 MIN and MAX by 25
+   keys with NaN values (a NaN wins, as in the twin: F33), compared NaN
+   for NaN. The SQL function kernels (K12) run at the
    shapes of queries J and K: span_concat on J's concat_ws (the kernels
    line) and lpad over the first decoded chunk of A (295,660 records);
-   map_bytes on J's upper (beside table[values], the library call) and in
-   its word-start mode on J's trimmed descriptions (initcap); polya_tail's
+   map_bytes' table mode on J's upper and on the sequences of A's first
+   chunk (each beside table[values], the library call, and taken apart as
+   compact_mask is) and its word-start mode on J's trimmed descriptions (initcap); polya_tail's
    leading space run on J's descriptions (trim) and trailing 'N' run on
    K's cut reads of the first FASTQ chunk (rtrim); like_match's position
    mode on K's strpos over that chunk; translate (on no query's path) at
@@ -477,26 +484,53 @@ def _var_column(rng, n: int, torch):
 
 
 def _exact(name: str, a, b) -> float:
-    if a.shape != b.shape or not bool((a == b).all()):
+    """0.0 when a and b are equal: the same shape, NaN at the same places,
+    equal elsewhere."""
+    same = a.shape == b.shape
+    if same and a.is_floating_point():
+        nan = a.isnan()
+        same = bool((nan == b.isnan()).all()) and \
+            bool((a[~nan] == b[~nan]).all())
+    elif same:
+        same = bool((a == b).all())
+    if not same:
         fail(f"{name}: kernel and twin disagree")
     return 0.0
 
 
-def check_compact(rng, torch) -> dict:
+def check_compact(rng, torch, flags=None) -> dict:
+    """compact_mask against its twin, exact: on a 131,072-row batch's
+    filter mask (the kernels line) and, given ``flags``, on the header
+    flags of a FASTA chunk's lines (fasta_device.decode_chunk's call),
+    each beside torch.nonzero and taken apart (_print_split)."""
     from exon_tpu_torch.kernels import compact_mask as k
 
     mask = torch.from_numpy(rng.random(N_ROWS) < 0.5).cuda()
-    got, n_got = k.compact_mask(mask)
-    want, n_want = k.compact_mask_plain(mask)
-    torch.cuda.synchronize()
-    err = _exact("compact_mask", got, want) + _exact("compact_mask count",
-                                                       n_got, n_want)
-    return {"max_abs_err": err,
-            "ms": median_ms(lambda: k.compact_mask(mask), torch),
-            "plain_ms": median_ms(lambda: k.compact_mask_plain(mask), torch),
-            "library_ms": median_ms(lambda: torch.nonzero(mask), torch),
-            "bytes": N_ROWS + 4 * N_ROWS + 4,  # mask in; every slot, count out
-            "shape": f"{N_ROWS} rows"}
+    cases = [("compact_mask filter batch", mask, f"{N_ROWS} rows")]
+    if flags is not None:
+        cases.append(("compact_mask FASTA chunk line flags", flags,
+                      f"{flags.shape[0]} line flags, "
+                      f"{int(flags.sum())} headers"))
+    out = []
+    for label, m, shape in cases:
+        got, n_got = k.compact_mask(m)
+        want, n_want = k.compact_mask_plain(m)
+        torch.cuda.synchronize()
+        err = _exact(label, got, want) + _exact(f"{label} count", n_got,
+                                                n_want)
+        n = m.shape[0]
+        r = {"max_abs_err": err,
+             "ms": median_ms(lambda: k.compact_mask(m), torch),
+             "plain_ms": median_ms(lambda: k.compact_mask_plain(m), torch),
+             "library_ms": median_ms(lambda: torch.nonzero(m), torch),
+             "bytes": n + 4 * n + 4,  # mask in; every slot, count out
+             "shape": shape}
+        print(f"  {label} ({r['shape']}): kernel {r['ms']:.4f} ms, twin "
+              f"{r['plain_ms']:.4f} ms, torch.nonzero {r['library_ms']:.4f}"
+              f" ms, bound {bound_ms(r['bytes']):.4f} ms by bytes")
+        _print_split(torch, label, lambda: k.compact_mask(m))
+        out.append(r)
+    return out[0]
 
 
 def check_gather(rng, torch, offs, vals) -> dict:
@@ -605,7 +639,42 @@ def check_hash(rng, torch, first_i) -> dict:
               f"on the device, the wrapper's host work {host:.4f} ms), twin "
               f"{plain:.4f} ms, bound {bound_ms(nbytes):.4f} ms, "
               f"max float-sum diff {err:.3e}")
+    _check_hash_nan(rng, torch, hk, GroupedHashAggregate)
     return res
+
+
+def _check_hash_nan(rng, torch, hk, agg_cls) -> None:
+    """F33: float64 MIN and MAX by 25 keys over 131,072 rows holding NaN:
+    key 3's values all NaN, keys 5-9 one NaN each, key 4's values all
+    NULL. The kernel must give its twin's answer (as exon_tpu's): NaN for
+    a group with a live NaN, +-inf for a group with no live value;
+    compared with _exact, NaN at the same places."""
+    n = N_ROWS
+    keys = rng.integers(0, 25, n)
+    x = rng.standard_normal(n) * 1e3
+    valid = rng.random(n) < 0.95
+    x[keys == 3] = np.nan
+    for key in range(5, 10):
+        first = np.flatnonzero(keys == key)[0]
+        x[first], valid[first] = np.nan, True
+    valid[keys == 4] = False
+    parts = torch.from_numpy(keys[None, :]).cuda()
+    vals, live = torch.from_numpy(x).cuda(), torch.from_numpy(valid).cuda()
+    specs = [(hk.COUNT, False), (hk.MIN, True), (hk.MAX, True)]
+    args = (parts, torch.ones_like(parts, dtype=torch.uint8),
+            torch.ones(n, dtype=torch.bool, device=parts.device), None, 0,
+            [None, vals, vals], [live] * 3)
+    got, _want, _err = _hash_vs_twin(torch, hk, agg_cls, specs, args,
+                                     "NaN MIN/MAX")
+    nan = got.acc[1].isnan() & got.acc[2].isnan()
+    empty = (got.cnt[1] == 0) & (got.acc[1] == float("inf")) & \
+        (got.acc[2] == float("-inf"))
+    if int(nan.sum()) != 6 or int(empty.sum()) != 1:
+        fail(f"hash_aggregate NaN MIN/MAX: {int(nan.sum())} NaN groups and "
+             f"{int(empty.sum())} empty ones, not 6 and 1")
+    print(f"  hash_aggregate NaN MIN/MAX ({n} rows, {got.num_groups} "
+          "groups): equals the twin, NaN in the 6 groups that hold one, "
+          "+-inf in the group of NULLs")
 
 
 def _equal_groups(first: dict, seed: int = 5) -> dict:
@@ -704,6 +773,38 @@ def _cuda_rows(torch, run, reps: int = 1) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _call_host_ms(fn, torch) -> float:
+    """Median host time of one call of ``fn``: its work before it returns,
+    with the queue empty before the call and no sync inside it."""
+    fn()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _print_split(torch, label: str, fn) -> None:
+    """A wrapper's call taken apart: the device time and the launches a
+    call of every kernel, memset and copy it runs (torch.profiler over
+    REPS calls), and its host time (_call_host_ms)."""
+    rows = _cuda_rows(torch, fn, REPS)
+    # the profiler now and then loses a record, so each kernel's time is
+    # its mean over the records kept, times its launches a call
+    per_call = [max(1, round(e.count / REPS)) for e in rows]
+    dev = sum(k * e.self_device_time_total / e.count / 1e3
+              for k, e in zip(per_call, rows))
+    names = ", ".join(sorted({e.key.replace("(anonymous namespace)::", "")
+                              .replace("void ", "")[:48] for e in rows}))
+    kept = sum(e.count for e in rows)
+    print(f"    {label} split: device {dev:.4f} ms in {sum(per_call)} "
+          f"launches a call ({names}; {kept} of {REPS * sum(per_call)} "
+          f"records kept); host {_call_host_ms(fn, torch):.4f} ms a call")
+
+
 def _hash_device_ms(torch, hk, agg_cls, specs, args, slots=False) -> float:
     """The mean device time of hash_aggregate_kernel alone over REPS
     inserts into fresh tables, from torch.profiler's self_device_time_total
@@ -715,13 +816,16 @@ def _hash_device_ms(torch, hk, agg_cls, specs, args, slots=False) -> float:
         agg.reserve(parts.shape[1])
         hk.insert(agg.table, *args, slots=slots)
 
-    rows = [e for e in _cuda_rows(torch, run, REPS)
-            if "hash_aggregate_kernel" in e.key]
-    launched = sum(e.count for e in rows)
-    if launched != REPS:
-        fail(f"hash_aggregate: the profile shows {launched} kernel runs, "
-             f"not {REPS}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / launched
+    # the profiler now and then loses a kernel's record: a profile that
+    # does not show REPS runs is taken again, up to three in all
+    for _ in range(3):
+        rows = [e for e in _cuda_rows(torch, run, REPS)
+                if "hash_aggregate_kernel" in e.key]
+        launched = sum(e.count for e in rows)
+        if launched == REPS:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / REPS
+    fail(f"hash_aggregate: the profile shows {launched} kernel runs, not "
+         f"{REPS}, three times")
 
 
 def _query_i_first_batch(torch):
@@ -1341,12 +1445,46 @@ def _lens(col):
     return (col.offsets[1:] - col.offsets[:-1]).long()
 
 
+def check_map_table(torch, fa_batch):
+    """map_bytes' table mode (upper) against its twin, exact, beside
+    ``table[values]`` and taken apart (_print_split): on J's accession
+    parts, and over the sequence column of A's first decoded chunk (the
+    bandwidth-bound shape). Each bound counts the two offsets, the bytes
+    in the rows and the table read, the whole buffer written. Returns J's
+    accession parts."""
+    from exon_tpu_torch.batch import FixedColumn
+    from exon_tpu_torch.kernels import map_bytes as km
+    from exon_tpu_torch.ops import sqlfuncs as S
+    from exon_tpu_torch.ops.strings import UPPER
+
+    # J's right(id, length(id) - strpos(substr(id, 4), '|') - 3)
+    b, idc = fa_batch, fa_batch.column("id")
+    k = _lens(idc) - S.fn_strpos(b, S.fn_substr(b, idc, 4), "|").values - 3
+    right = S.fn_right(b, idc, FixedColumn(k, idc.validity))
+    seq = fa_batch.column("sequence")
+    upper = torch.from_numpy(UPPER).cuda()
+    n = fa_batch.length
+    for label, col, what in (("map_bytes J upper", right,
+                              "ids' accession parts"),
+                             ("map_bytes A chunk upper", seq,
+                              "first chunk's sequences")):
+        o, v = col.offsets, col.values
+        inside = int(o[-1] - o[0])
+        _case(torch, label, lambda: km.map_bytes(o, v, upper, "table"),
+              lambda: km.map_bytes_plain(o, v, upper, "table"),
+              8 + inside + v.shape[0] + 256,
+              f"{n} {what}, {inside} bytes in rows, {v.shape[0]} out",
+              library=lambda: upper[v.long()])
+        _print_split(torch, label, lambda: km.map_bytes(o, v, upper, "table"))
+    return right
+
+
 def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     """The K12 kernels at queries J's and K's shapes, each against its
     twin, bit for bit: span_concat on J's concat_ws (the kernels line) and
-    lpad over the first decoded chunk of A; map_bytes on J's upper (beside
-    table[values], the library call) and in its word-start mode on J's
-    trimmed descriptions (initcap); polya_tail's leading run on J's
+    lpad over the first decoded chunk of A; map_bytes' table mode on J's
+    upper and over A's first chunk (check_map_table) and its word-start
+    mode on J's trimmed descriptions (initcap); polya_tail's leading run on J's
     descriptions (trim) and trailing N run on K's left(...) over the first
     FASTQ chunk (rtrim), and, since neither class occurs in those rows,
     both runs at the same shapes on classes that do: 'sp|' leading J's
@@ -1368,17 +1506,9 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     b = fa_batch
     idc, desc, seq = (b.column(c) for c in ("id", "description", "sequence"))
     n = b.length
-    k = _lens(idc) - S.fn_strpos(b, S.fn_substr(b, idc, 4), "|").values - 3
-    right = S.fn_right(b, idc, FixedColumn(k, idc.validity))
+    right = check_map_table(torch, b)
     upper = torch.from_numpy(UPPER).cuda()
     lower = torch.from_numpy(LOWER).cuda()
-    o, v = right.offsets, right.values
-    total = int(o[-1])
-    _case(torch, "map_bytes J upper",
-          lambda: km.map_bytes(o, v, upper, "table"),
-          lambda: km.map_bytes_plain(o, v, upper, "table"),
-          4 * (n + 1) + 2 * total + 256, f"{n} ids' accession parts, "
-          f"{total} bytes", library=lambda: upper[v.long()])
     _class_runs(torch, "J trim", desc, b" ", True, n, "descriptions")
     lead = _class_runs(torch, "J ids 'sp|'", idc, b"sp|", True, n, "ids")
     if not bool((lead > 0).all()):
@@ -1788,12 +1918,13 @@ def phase_kernels(torch) -> dict:
                                                        ends_in_newline)
     decode["gather_spans"] = check_gather_spans(torch, chunk, lines)
     n_ids = int(lines.is_hdr.sum())  # records in the chunk
+    flags = lines.is_hdr  # decode_chunk's compact_mask operand
     del chunk, nl, lines
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
     names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
     results = {
-        "compact_mask": check_compact(rng, torch),
+        "compact_mask": check_compact(rng, torch, flags),
         "gather_var": check_gather(rng, torch, offs, vals),
         "like_match": check_like(torch, offs, vals),
         "hash_aggregate": check_hash(rng, torch, _query_i_first_batch(torch)),
@@ -1803,6 +1934,7 @@ def phase_kernels(torch) -> dict:
         "sort_keys": check_sort_keys(rng, torch, names),
         **decode,
     }
+    del flags
     feats = gff_features(GFF_FEATURES, GFF_SEED)
     results["string_cmp"] = check_string_cmp(torch, n_ids)
     results["parse_number"] = check_parse_number(torch, feats)
@@ -3651,13 +3783,38 @@ def check_q_aggregate(torch) -> None:
     _q_cost(torch, list(q_plan.input.batches()), gf)
 
 
-# the cases a run with --kernels can take alone: phase 3's of two kernels,
-# and phase 5's of Q's aggregate (hash_aggregate on Q's path)
+def _chunk_line_flags(torch):
+    """The header flags of the lines of Query A's first chunk, as
+    fasta_device.decode_chunk hands them to compact_mask."""
+    from exon_tpu_torch.kernels import line_index, text_records
+
+    chunk, ends_in_newline = _fasta_chunk(torch)
+    nl = line_index.line_index(chunk)
+    return text_records.text_records(
+        chunk, nl, nl.shape[0] + (0 if ends_in_newline else 1), False,
+        True).is_hdr
+
+
+def _fasta_first_batch(torch):
+    """The first device batch of Query A's FASTA scan (its first chunk)."""
+    from benchlib.fixtures import make_fasta
+
+    fa_path = make_fasta(FASTA_RECORDS, mean_len=MEAN_LEN, seed=42)
+    return _first_batch(lambda s: s.read_fasta(fa_path))
+
+
+# the cases a run with --kernels can take alone: phase 3's of four kernels
+# (each at the shapes its redesign was measured at), and phase 5's of Q's
+# aggregate (hash_aggregate on Q's path)
 FOCUS = {
     "hash_aggregate": lambda torch: check_hash(
         np.random.default_rng(1234), torch, _query_i_first_batch(torch)),
     "list_bins": check_list_bins,
     "q_aggregate": check_q_aggregate,
+    "compact_mask": lambda torch: check_compact(
+        np.random.default_rng(1234), torch, _chunk_line_flags(torch)),
+    "map_bytes": lambda torch: check_map_table(torch,
+                                               _fasta_first_batch(torch)),
 }
 
 

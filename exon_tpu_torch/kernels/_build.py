@@ -38,8 +38,7 @@ _F64 = ctypes.c_double
 # argtypes of every C entry point; pointers and the stream are c_void_p so
 # ctypes passes them at full width
 SIGNATURES = {
-    "exon_compact_count": [_P, _I64, _P, _P],
-    "exon_compact_scatter": [_P, _I64, _P, _P, _P],
+    "exon_compact_mask": [_P, _I64, _P, _P, _U64, _U64, _P, _P, _P],
     "exon_gather_var": [_P, _P, _P, _P, _I64, _P, _P],
     "exon_like_match": [_P, _P, _I64, _P, _P, _P],
     "exon_like_find": [_P, _P, _I64, _P, _P, _P],
@@ -63,6 +62,7 @@ SIGNATURES = {
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _P, _P, _P],
     "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
+    "exon_map_bytes_table": [_P, _I64, _P, _I64, _P, _P, _P],
     "exon_map_bytes_widen": [_P, _I64, _P, _I32, _P, _P],
     "exon_map_bytes_narrow": [_P, _I64, _P, _P],
     "exon_list_bins_peak": [_P, _P, _P, _I64, _F64, _F64, _P, _P],

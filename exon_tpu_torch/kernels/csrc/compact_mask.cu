@@ -4,22 +4,38 @@
 // jnp.nonzero(mask, size=cap, fill_value=cap): out[0:count) holds the
 // selected row numbers in ascending order and out[count:n) holds n.
 //
-// Bound on the H100: HBM bytes. Pass 1 reads the n mask bytes, pass 2 reads
-// them again and writes 4n index bytes, about 6n bytes in all; at 3.35 TB/s
-// a 131,072-row batch needs well under a microsecond, so at the slice's
-// sizes launch latency, not bandwidth, sets the time.
+// Bound on the H100: HBM bytes, the n mask bytes read once and the 4n
+// index bytes and the count written once; at 3.35 TB/s a 131,072-row batch
+// needs 0.2 us and a FASTA chunk's 2.4 M line flags 3.6 us. At the first
+// size a launch, not bandwidth, sets the time, so one call is one launch:
+// no pass to count, no scan between passes, no fill.
 //
-// Design: one thread per row, 256 threads per block.
-//   pass 1 (exon_compact_count): each warp counts its selected rows with
-//     __ballot_sync/__popc; the block writes its total to block_counts.
-//   between the passes the wrapper takes an exclusive scan of the block
-//     totals (torch.cumsum), block_offsets[nblocks] being the total count.
-//   pass 2 (exon_compact_scatter): each warp recomputes its ballot, the block
-//     scans its 8 warp counts in shared memory, and each thread finds its
-//     rank = block offset + warp offset + popc(ballot below its lane).
-//     A selected row writes its number to out[rank]; an unselected row
-//     writes n to out[count + (row - rank)], so every slot is written once
-//     and no separate fill is needed.
+// Design: a single pass with a decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016).
+//   A block takes a tile of kTile = 4,096 rows, its number from an atomic
+//     ticket rather than blockIdx, so a tile only ever waits on tiles whose
+//     blocks already run and no n deadlocks, even past the card's resident
+//     blocks.
+//   Each thread loads its 16 mask bytes as one uint4 (scalar loads for an
+//     unaligned mask or the last tile) and keeps one bit a row; a warp scan
+//     and a scan of the 8 warp totals give each thread its offset in the
+//     tile, and the thread stages its selected row numbers in shared memory.
+//   Thread 0 publishes the tile's count (flag kAggregate) in the tile's
+//     status word, then warp 0 reads its predecessors' words 32 at a time,
+//     from the nearest back, summing until a word holds an inclusive prefix
+//     (flag kPrefix), and publishes the tile's own inclusive prefix.
+//   The block then writes its staged rows to out[prefix, prefix + count),
+//     coalesced. Its unselected rows, whose unselected ranks before the tile
+//     number start - prefix, fill out[n - (start - prefix) - u, n - (start -
+//     prefix)) with n: the n - count fill slots are written once each, from
+//     the end, with no fill launch. The last tile writes the count.
+// A status word is 64 bits: the count or prefix (31 bits, n < 2^31), the
+// flag (2 bits) and the call's epoch (31 bits). The wrapper keeps the words
+// and the ticket counter in a workspace per (device, stream), numbers its
+// calls (the epoch) and passes the ticket base (the tiles it launched on
+// the workspace before), so a word left by an earlier call is never read
+// as this call's and the words need no clearing launch; it clears them
+// when the epoch wraps or the workspace grows.
 // The kernel allocates nothing and does not synchronise.
 
 #include <cstdint>
@@ -29,82 +45,166 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerThread = 16;
+constexpr int kTile = kThreads * kRowsPerThread;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void compact_count_kernel(const uint8_t* __restrict__ mask,
-                                     int64_t n,
-                                     int32_t* __restrict__ block_counts) {
-  __shared__ int warp_counts[kWarps];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool keep = i < n && mask[i] != 0;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-    block_counts[blockIdx.x] = total;
-  }
+constexpr unsigned long long kAggregate = 1;
+constexpr unsigned long long kPrefix = 2;
+
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned long long epoch, unsigned long long flag, int32_t value) {
+  return (epoch << 33) | (flag << 31) | static_cast<unsigned long long>(value);
 }
 
-__global__ void compact_scatter_kernel(const uint8_t* __restrict__ mask,
-                                       int64_t n,
-                                       const int32_t* __restrict__ block_offsets,
-                                       int32_t nblocks,
-                                       int32_t* __restrict__ out) {
-  __shared__ int warp_offsets[kWarps];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool keep = i < n && mask[i] != 0;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void publish(unsigned long long* status,
+                                        int64_t tile, unsigned long long w) {
+  atomicExch(status + tile, w);
+}
+
+// Flag of the word (0 while it is another call's or not yet written) and
+// its value.
+__device__ __forceinline__ unsigned long long read_status(
+    const unsigned long long* status, int64_t tile, unsigned long long epoch,
+    int32_t* value) {
+  const unsigned long long w =
+      *reinterpret_cast<const volatile unsigned long long*>(status + tile);
+  if ((w >> 33) != epoch) return 0;
+  *value = static_cast<int32_t>(w & 0x7fffffffull);
+  return (w >> 31) & 3ull;
+}
+
+// One bit a row of the thread's kRowsPerThread rows from row0 (0 past n).
+__device__ __forceinline__ unsigned row_bits(const uint8_t* __restrict__ mask,
+                                            int64_t n, int64_t row0,
+                                            bool aligned) {
+  unsigned bits = 0;
+  if (aligned && row0 + kRowsPerThread <= n) {
+    const uint4 q = *reinterpret_cast<const uint4*>(mask + row0);
+    const unsigned words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        bits |= (((words[w] >> (8 * b)) & 0xffu) != 0u ? 1u : 0u)
+                << (4 * w + b);
+      }
+    }
+    return bits;
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    if (row0 + j < n && mask[row0 + j] != 0) bits |= 1u << j;
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(kThreads)
+compact_mask_kernel(const uint8_t* __restrict__ mask, int64_t n,
+                    bool aligned, unsigned long long* __restrict__ status,
+                    unsigned long long* __restrict__ ticket,
+                    unsigned long long ticket_base, unsigned long long epoch,
+                    int64_t n_tiles, int32_t* __restrict__ out,
+                    int32_t* __restrict__ count) {
+  __shared__ int32_t staged[kTile];
+  __shared__ int32_t warp_sums[kWarps];
+  __shared__ int64_t tile_s;
+  __shared__ int32_t prefix_s;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) warp_offsets[warp] = __popc(ballot);
-  __syncthreads();
+  const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_offsets[w];
-      warp_offsets[w] = run;
-      run += c;
+    tile_s = static_cast<int64_t>(atomicAdd(ticket, 1ull) - ticket_base);
+  }
+  __syncthreads();
+  const int64_t tile = tile_s;
+  const int64_t start = tile * kTile;
+  const unsigned bits =
+      row_bits(mask, n, start + threadIdx.x * kRowsPerThread, aligned);
+  // the thread's offset in the tile: a warp scan, then the warp totals
+  const int mine = __popc(bits);
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0, tile_count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int s = warp_sums[w];
+    before += w < warp ? s : 0;
+    tile_count += s;
+  }
+  if (threadIdx.x == 0) {
+    publish(status, tile, status_word(epoch, tile == 0 ? kPrefix : kAggregate,
+                                      tile_count));
+  }
+  // stage the selected rows in order
+  int at = before + incl - mine;
+  for (unsigned m = bits; m; m &= m - 1) {
+    staged[at++] = static_cast<int32_t>(start + threadIdx.x * kRowsPerThread +
+                                        __ffs(m) - 1);
+  }
+  // the decoupled look-back, by warp 0
+  if (warp == 0) {
+    int32_t prefix = 0;
+    for (int64_t top = tile - 1; top >= 0; top -= 32) {
+      const int64_t pred = top - lane;
+      int32_t value = 0;
+      unsigned long long flag = kPrefix;  // before tile 0: a prefix of 0
+      if (pred >= 0) {
+        do {
+          flag = read_status(status, pred, epoch, &value);
+        } while (flag == 0);
+      }
+      const unsigned prefixes = __ballot_sync(kFull, flag == kPrefix);
+      // sum up to and including the nearest inclusive prefix
+      const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+      int32_t part = lane <= stop ? value : 0;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFull, part, d);
+      prefix += part;
+      if (prefixes) break;
+    }
+    if (lane == 0) {
+      if (tile > 0) {
+        publish(status, tile, status_word(epoch, kPrefix, prefix + tile_count));
+      }
+      prefix_s = prefix;
     }
   }
   __syncthreads();
-  if (i >= n) return;
-  const unsigned below = (1u << lane) - 1u;
-  const int64_t rank = static_cast<int64_t>(block_offsets[blockIdx.x]) +
-                       warp_offsets[warp] + __popc(ballot & below);
-  if (keep) {
-    out[rank] = static_cast<int32_t>(i);
-  } else {
-    const int64_t total = block_offsets[nblocks];
-    out[total + (i - rank)] = static_cast<int32_t>(n);
+  const int32_t prefix = prefix_s;
+  for (int k = threadIdx.x; k < tile_count; k += kThreads) {
+    out[prefix + k] = staged[k];
   }
-}
-
-inline int32_t num_blocks(int64_t n) {
-  return static_cast<int32_t>((n + kThreads - 1) / kThreads);
+  const int64_t rows = n - start < kTile ? n - start : kTile;
+  const int64_t unselected = rows - tile_count;
+  const int64_t fill = n - (start - prefix) - unselected;
+  for (int64_t k = threadIdx.x; k < unselected; k += kThreads) {
+    out[fill + k] = static_cast<int32_t>(n);
+  }
+  if (tile == n_tiles - 1 && threadIdx.x == 0) *count = prefix + tile_count;
 }
 
 }  // namespace
 
-extern "C" int exon_compact_count(const void* mask, int64_t n,
-                                  void* block_counts, void* stream) {
-  compact_count_kernel<<<num_blocks(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), n,
-      static_cast<int32_t*>(block_counts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int exon_compact_scatter(const void* mask, int64_t n,
-                                    const void* block_offsets, void* out,
-                                    void* stream) {
-  const int32_t nblocks = num_blocks(n);
-  compact_scatter_kernel<<<nblocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), n,
-      static_cast<const int32_t*>(block_offsets), nblocks,
-      static_cast<int32_t*>(out));
+// status holds at least ceil(n / kTile) words of the workspace and ticket
+// its counter; ticket_base is the number of tiles launched on them before
+// and epoch this call's number, 1 to 2^31 - 1. n must be > 0 and < 2^31.
+extern "C" int exon_compact_mask(const void* mask, int64_t n, void* status,
+                                 void* ticket, uint64_t ticket_base,
+                                 uint64_t epoch, void* out, void* count,
+                                 void* stream) {
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const bool aligned = (reinterpret_cast<uintptr_t>(mask) & 15u) == 0;
+  compact_mask_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), n, aligned,
+      static_cast<unsigned long long*>(status),
+      static_cast<unsigned long long*>(ticket), ticket_base, epoch, n_tiles,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,8 +46,10 @@
 // count (in raw mode the popcount of the live lanes), atomicAdd on the
 // unsigned bits of an int64 sum, atomicAdd(double) of a float64 sum or sum
 // of squares (x * x in raw mode, the partial itself in merge mode),
-// atomicMin/Max for int64 and a CAS loop for float64 min/max (a NaN never
-// replaces an accumulator, in the fold as in the loop); `first` takes
+// atomicMin/Max for int64 and a CAS loop for float64 min/max (a NaN wins
+// and is kept, in the fold as in the loop, as exon_tpu's .at[].min/max and
+// the twin's scatter_reduce do; a slot without NaN pays nothing more);
+// `first` takes
 // atomicMin of the group's least row number (the leader's, in raw mode).
 // At Query I's batch, 32 neighbouring position-sorted rows hold a few
 // groups, so the hot slots' atomics fall several-fold.
@@ -103,7 +105,10 @@ __device__ __forceinline__ uint64_t mix64(uint64_t h) {
 __device__ void atomic_min_f64(double* addr, double v) {
   unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
   unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(a);
-  while (v < __longlong_as_double(static_cast<long long>(old))) {
+  // a NaN wins, and an accumulator that holds one keeps it
+  for (;;) {
+    const double cur = __longlong_as_double(static_cast<long long>(old));
+    if (isnan(cur) || !(isnan(v) || v < cur)) break;
     const unsigned long long assumed = old;
     old = atomicCAS(a, assumed,
                     static_cast<unsigned long long>(__double_as_longlong(v)));
@@ -114,7 +119,9 @@ __device__ void atomic_min_f64(double* addr, double v) {
 __device__ void atomic_max_f64(double* addr, double v) {
   unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
   unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(a);
-  while (v > __longlong_as_double(static_cast<long long>(old))) {
+  for (;;) {
+    const double cur = __longlong_as_double(static_cast<long long>(old));
+    if (isnan(cur) || !(isnan(v) || v > cur)) break;
     const unsigned long long assumed = old;
     old = atomicCAS(a, assumed,
                     static_cast<unsigned long long>(__double_as_longlong(v)));
@@ -191,12 +198,12 @@ __device__ void fold_and_add(int32_t op, bool is_float, unsigned live,
       atomicAdd(d, s);
       return;
     }
-    // NaN never replaces: v < acc and v > acc are false for it
+    // a NaN wins, as in exon_tpu and the twin: once acc is NaN it stays
     double acc = op == kMin ? __longlong_as_double(0x7ff0000000000000ll)
                             : __longlong_as_double(0xfff0000000000000ll);
-    for (unsigned m = live; m; m &= m - 1) {
+    for (unsigned m = live; m && !isnan(acc); m &= m - 1) {
       const double v = __longlong_as_double(staged[__ffs(m) - 1]);
-      if (op == kMin ? v < acc : v > acc) acc = v;
+      if (isnan(v) || (op == kMin ? v < acc : v > acc)) acc = v;
     }
     if (op == kMin) atomic_min_f64(d, acc);
     else atomic_max_f64(d, acc);

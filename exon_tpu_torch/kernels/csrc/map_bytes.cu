@@ -15,12 +15,26 @@
 // once, plus its offset pair: ~2 bytes per base, a 56 MB chunk of reads in
 // ~34 us at 3.35 TB/s.
 //
-// Design: one warp per row, warps striding over the rows, the table in
-// shared memory. Lane j writes output bytes j, j + 32, ... of the row, so
-// stores are neighbouring; with the mirror the lanes read neighbouring
-// bytes in descending order. In word-start mode (mode 2) the table holds
-// 512 entries, and each lane also reads the byte before its own (a
-// neighbour's byte, from L1).
+// Design of the mirror and word-start modes: one warp per row, warps
+// striding over the rows, the table in shared memory. Lane j writes output
+// bytes j, j + 32, ... of the row, so stores are neighbouring; with the
+// mirror the lanes read neighbouring bytes in descending order. In
+// word-start mode (mode 2) the table holds 512 entries, and each lane also
+// reads the byte before its own (a neighbour's byte, from L1).
+//
+// Table mode (exon_map_bytes_table) needs no rows: the offsets are
+// monotone, so the bytes of the rows are exactly [offsets[0], offsets[n]),
+// and every other byte of the output is 0. One launch reads the two
+// offsets from device memory (no host read) and maps the whole buffer in a
+// grid-stride loop of 16-byte (uint4) loads and stores, through the
+// 256-byte table in shared memory; 16-byte chunks wholly outside the range
+// are stored as zeros without a load. Bytes below 128 sit in 32 distinct
+// banks, so ASCII text reads the table without bank conflicts. A scalar
+// head and tail bring the output to 16-byte alignment; where the values
+// are not aligned alike (a view at an odd offset), each thread loads the
+// two aligned uint4 that cover its 16 bytes and funnel-shifts them into
+// place. Bound: HBM bytes, the buffer read once (its range) and written
+// once.
 //
 // Widen and narrow (exon_map_bytes_widen, exon_map_bytes_narrow) are K11b's
 // byte-to-list maps, with the offsets unchanged, so they run elementwise
@@ -42,6 +56,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+static_assert(kThreads == 256, "map_table_kernel loads its table a thread a byte");
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int64_t kMaxBlocks = 132 * 64;
 
@@ -112,6 +127,83 @@ __global__ void narrow_kernel(const int64_t* __restrict__ values,
   }
 }
 
+// Bytes shift .. shift + 15 of the 32 in a (little-endian words), shift =
+// 4 * Q + r8 / 8.
+template <int Q>
+__device__ __forceinline__ uint4 funnel(const unsigned (&a)[8], unsigned r8) {
+  return make_uint4(__funnelshift_r(a[Q], a[Q + 1], r8),
+                    __funnelshift_r(a[Q + 1], a[Q + 2], r8),
+                    __funnelshift_r(a[Q + 2], a[Q + 3], r8),
+                    __funnelshift_r(a[Q + 3], a[Q + 4], r8));
+}
+
+// The 16 values bytes from p, where values + p lies shift bytes past a
+// 16-byte boundary; only aligned words that hold a byte below total are
+// read.
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ values,
+                                        int64_t total, int64_t p, int shift) {
+  if (shift == 0) return *reinterpret_cast<const uint4*>(values + p);
+  const uint4* base = reinterpret_cast<const uint4*>(values + p - shift);
+  const uint4 lo = base[0];
+  const uint4 hi = p - shift + 16 < total ? base[1] : make_uint4(0, 0, 0, 0);
+  const unsigned a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const unsigned r8 = 8u * (shift & 3);
+  switch (shift >> 2) {
+    case 0: return funnel<0>(a, r8);
+    case 1: return funnel<1>(a, r8);
+    case 2: return funnel<2>(a, r8);
+    default: return funnel<3>(a, r8);
+  }
+}
+
+__device__ __forceinline__ unsigned map_word(const uint8_t* map, unsigned w,
+                                             int64_t p, int64_t lo,
+                                             int64_t hi, bool whole) {
+  unsigned r = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (whole || (p + k >= lo && p + k < hi)) {
+      r |= static_cast<unsigned>(map[(w >> (8 * k)) & 0xffu]) << (8 * k);
+    }
+  }
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+map_table_kernel(const uint8_t* __restrict__ values, int64_t total,
+                 const int32_t* __restrict__ offsets, int64_t n,
+                 const uint8_t* __restrict__ table, int64_t head,
+                 int32_t shift, uint8_t* __restrict__ out) {
+  __shared__ uint8_t map[256];
+  map[threadIdx.x] = table[threadIdx.x];
+  __syncthreads();
+  const int64_t lo = offsets[0];
+  const int64_t hi = offsets[n];
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t chunks = (total - head) / 16;
+  const int64_t tail = head + 16 * chunks;
+  // the scalar head and tail, each under 16 bytes
+  if (gid < head) out[gid] = gid >= lo && gid < hi ? map[values[gid]] : 0;
+  if (gid < total - tail) {
+    const int64_t p = tail + gid;
+    out[p] = p >= lo && p < hi ? map[values[p]] : 0;
+  }
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t c = gid; c < chunks; c += stride) {
+    const int64_t p = head + 16 * c;
+    uint4 r = make_uint4(0, 0, 0, 0);
+    if (p + 16 > lo && p < hi) {
+      const uint4 v = load16(values, total, p, shift);
+      const bool whole = p >= lo && p + 16 <= hi;
+      r.x = map_word(map, v.x, p, lo, hi, whole);
+      r.y = map_word(map, v.y, p + 4, lo, hi, whole);
+      r.z = map_word(map, v.z, p + 8, lo, hi, whole);
+      r.w = map_word(map, v.w, p + 12, lo, hi, whole);
+    }
+    *reinterpret_cast<uint4*>(out + p) = r;
+  }
+}
+
 int64_t flat_blocks(int64_t total) {
   int64_t blocks = (total + kThreads - 1) / kThreads;
   return blocks > kMaxBlocks ? kMaxBlocks : blocks;
@@ -134,6 +226,28 @@ extern "C" int exon_map_bytes_narrow(const void* values, int64_t total,
   narrow_kernel<<<static_cast<unsigned>(flat_blocks(total)), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(values), total, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Table mode over the whole buffer of total bytes: out[p] = table[values[p]]
+// for offsets[0] <= p < offsets[n], 0 elsewhere. n may be 0.
+extern "C" int exon_map_bytes_table(const void* values, int64_t total,
+                                    const void* offsets, int64_t n,
+                                    const void* table, void* out,
+                                    void* stream) {
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  int64_t head = static_cast<int64_t>((16 - (o & 15)) & 15);
+  if (head > total) head = total;
+  const int32_t shift = static_cast<int32_t>(
+      (reinterpret_cast<uintptr_t>(values) + head) & 15);
+  int64_t blocks = flat_blocks((total - head) / 16);
+  if (blocks < 1) blocks = 1;
+  map_table_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(values), total,
+      static_cast<const int32_t*>(offsets), n,
+      static_cast<const uint8_t*>(table), head, shift,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

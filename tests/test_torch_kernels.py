@@ -49,7 +49,7 @@ from exon_tpu_torch.batch import host_pylists as host_rows
 from exon_tpu_torch.errors import ExecutionError as T_ExecutionError
 from exon_tpu_torch.ops import layout
 from exon_tpu_torch.ops.aggregate import GroupedHashAggregate
-from exon_tpu_torch.ops.strings import tokenize_like
+from exon_tpu_torch.ops.strings import LOWER, UPPER, tokenize_like
 
 
 @pytest.fixture
@@ -233,6 +233,177 @@ def test_compact_mask_kernel_matches_twin(card):
     want, n_want = kc.compact_mask_plain(mask)
     assert int(n_got) == int(n_want)
     assert torch.equal(got, want)
+
+
+# compact_mask's single pass (tiles of 4,096 rows, 16 a thread, a
+# decoupled look-back over per-call status words) and map_bytes' table mode
+# (one flat pass of 16-byte words): the cases of
+# test_torch_redesign_k1a_k2.py, whose twins meet exon_tpu there
+
+_COMPACT_LENGTHS = [0, 1, 15, 16, 17, 4095, 4096, 4097, 3 * 4096 + 15]
+
+
+def _compact_case(kind: str, n: int) -> np.ndarray:
+    if kind == "all_true":
+        return np.ones(n, bool)
+    if kind == "all_false":
+        return np.zeros(n, bool)
+    if kind == "alternating":
+        return np.arange(n) % 2 == 0
+    return np.random.default_rng(n).random(n) < 0.005
+
+
+def _assert_compact_matches_twin(mask):
+    got, n_got = kc.compact_mask(mask)
+    want, n_want = kc.compact_mask_plain(mask)
+    assert n_got.dim() == 0 and n_got.dtype == torch.int32
+    assert int(n_got) == int(n_want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all_true", "all_false", "alternating",
+                                  "sparse"])
+def test_compact_mask_tile_edges_match_twin(card, kind):
+    """Each length around a thread's 16 rows and a tile's 4,096, from an
+    aligned mask and from a view one byte in (the scalar loads)."""
+    for n in _COMPACT_LENGTHS:
+        m = _compact_case(kind, n)
+        before = kc.launches
+        _assert_compact_matches_twin(torch.from_numpy(m).to(card))
+        assert kc.launches == before + (n > 0)
+        shifted = torch.from_numpy(np.concatenate([[True], m])).to(card)
+        _assert_compact_matches_twin(shifted[1:])
+
+
+@pytest.mark.cuda
+def test_compact_mask_past_the_resident_blocks_matches_twin(card):
+    """50 M rows: 12,208 tiles, several times the blocks the card holds at
+    once, so tiles wait on tiles of blocks that started before them."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(50)
+    mask = torch.rand(50_000_000, device=card, generator=gen) < 0.3
+    _assert_compact_matches_twin(mask)
+
+
+@pytest.mark.cuda
+def test_compact_mask_back_to_back_calls_match_twin(card):
+    """200 calls of varying lengths queued on one stream before any is
+    read, then 100 more alternating between two streams: a status word or
+    ticket left by an earlier call would show as a wrong index."""
+    rng = np.random.default_rng(200)
+    masks = [torch.from_numpy(rng.random(int(m)) < rng.random()).to(card)
+             for m in rng.integers(1, 120_000, 300)]
+    torch.cuda.synchronize()
+    outs = [kc.compact_mask(m) for m in masks[:200]]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for i, m in enumerate(masks[200:]):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(kc.compact_mask(m))
+    torch.cuda.synchronize()
+    for m, (got, n_got) in zip(masks, outs):
+        want, n_want = kc.compact_mask_plain(m)
+        assert int(n_got) == int(n_want)
+        assert torch.equal(got, want)
+
+
+def _cuda_kernels(run, reps: int) -> dict:
+    """{kernel name: launches} of the CUDA rows torch.profiler records over
+    ``reps`` runs of ``run`` (after one outside the profile). The profiler
+    now and then loses a record, so a count may fall short by one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+def test_compact_mask_and_map_bytes_table_are_one_launch_a_call(card):
+    """No count pass, cumsum or fill beside compact_mask's kernel, and no
+    zero fill beside map_bytes' table-mode kernel."""
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy(rng.random(131_072) < 0.5).to(card)
+    seen = _cuda_kernels(lambda: kc.compact_mask(mask), 5)
+    assert len(seen) == 1 and 4 <= next(iter(seen.values())) <= 5, seen
+    assert "compact_mask_kernel" in next(iter(seen))
+    offs, vals = _map_table_case("slack_after", card)
+    table = torch.from_numpy(np.random.default_rng(4).permutation(256)
+                             .astype(np.uint8)).to(card)
+    seen = _cuda_kernels(lambda: kmb.map_bytes(offs, vals, table, "table"), 5)
+    assert len(seen) == 1 and 4 <= next(iter(seen.values())) <= 5, seen
+    assert "map_table_kernel" in next(iter(seen))
+
+
+_MAP_TABLE_CASES = ["from_zero", "start_past_zero", "slack_after",
+                    "empty_rows", "odd_view", "no_rows"]
+
+
+def _map_table_case(case: str, device):
+    """(offsets, values): offsets that start at 0 or past it, slack bytes
+    after offsets[n], empty rows, a values view at an odd offset, no rows;
+    test_torch_redesign_k1a_k2.py's _map_case."""
+    rng = np.random.default_rng(len(case))
+    lens = rng.integers(0, 40, 300)
+    if case == "empty_rows":
+        lens[::3] = 0
+        lens[-5:] = 0
+    if case == "no_rows":
+        lens = lens[:0]
+    start = 37 if case in ("start_past_zero", "odd_view") else 0
+    slack = 29 if case in ("slack_after", "odd_view", "no_rows") else 0
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    offs += start
+    total = int(offs[-1]) + slack
+    text = np.frombuffer(b"acgtNRY09 ,|_-ACGTzZ@[`{\x80\xe9\xff",
+                         np.uint8)
+    vals = torch.from_numpy(text[rng.integers(0, len(text), total + 3)])
+    vals = vals.to(device)
+    vals = vals[3:] if case == "odd_view" else vals[:total]
+    return torch.from_numpy(offs.astype(np.int32)).to(device), vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _MAP_TABLE_CASES)
+def test_map_bytes_table_cases_match_twin(card, case):
+    offs, vals = _map_table_case(case, card)
+    for table in (UPPER, LOWER, np.random.default_rng(5).permutation(256)
+                  .astype(np.uint8)):
+        t = torch.from_numpy(table).to(card)
+        before = kmb.launches
+        got = kmb.map_bytes(offs, vals, t, "table")
+        assert kmb.launches == before + 1
+        assert torch.equal(got, kmb.map_bytes_plain(offs, vals, t, "table"))
+
+
+@pytest.mark.cuda
+def test_map_bytes_table_at_every_alignment_matches_twin(card):
+    """values at each of the 16 byte offsets from a 16-byte boundary
+    (aligned loads, or two aligned loads funnel-shifted), over buffers
+    shorter than the 16-byte head and far longer; the rows start a quarter
+    of the buffer or 5 bytes in and end as far before its end."""
+    rng = np.random.default_rng(16)
+    t = torch.from_numpy(rng.permutation(256).astype(np.uint8)).to(card)
+    for total in (3, 20, 100_003):
+        base = torch.from_numpy(rng.integers(0, 256, total + 16)
+                                .astype(np.uint8)).to(card)
+        margin = min(5, total // 4)
+        lens = rng.integers(0, 30, max(1, total // 10))
+        ends = np.minimum(margin + np.cumsum(lens), total - margin)
+        offs = torch.from_numpy(np.concatenate([[margin], ends])
+                                .astype(np.int32)).to(card)
+        for align in range(16):
+            vals = base[align:align + total]
+            assert (vals.data_ptr() - base.data_ptr()) % 16 == align
+            assert torch.equal(kmb.map_bytes(offs, vals, t, "table"),
+                               kmb.map_bytes_plain(offs, vals, t, "table"))
 
 
 @pytest.mark.cuda
@@ -1656,43 +1827,62 @@ def test_hash_aggregate_warp_cases_match_twin(card, case, mode,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["one_table", "grow", "merge"])
-def test_hash_aggregate_float_min_max_never_take_nan(card, mode):
-    """A NaN value never replaces a float64 MIN or MAX accumulator, the
-    kernel's rule before its warp aggregation too: a group whose live
-    values are all NaN keeps +inf / -inf; the count still counts them. In
-    one table, through a table that grows (1,500 keys in batches of 500)
-    and on merge-mode input. (The twin and exon_tpu let NaN win: ROADMAP
-    Queue 3, F33, open.)"""
+def test_hash_aggregate_float_min_max_take_nan(card, mode, monkeypatch):
+    """A NaN wins a float64 MIN or MAX and is kept, as in exon_tpu's
+    .at[].min/max and the twin's scatter_reduce (F33): a group that holds a
+    live NaN gives NaN, a group of NaN alone gives NaN, a group with no live
+    value keeps the identity +inf / -inf; the count counts the NaNs. In one
+    table, through a table that grows (1,500 keys in batches of 500) and on
+    merge-mode input; the kernel against numpy and against its twin."""
     rng = np.random.default_rng(6)
     n = 5000
     k = rng.integers(0, 1500 if mode == "grow" else 40, n)
+    k[:3] = 4
     x = rng.uniform(-1e3, 1e3, n)
-    x[rng.random(n) < 0.3] = np.nan
+    x[rng.random(n) < 0.02] = np.nan
     x[k == 3] = np.nan                       # a group of NaN alone
     c = rng.integers(0, 3, n) if mode == "merge" else rng.random(n) < 0.8
+    c[k == 4] = 0                            # a group with no live value
     keys = torch.from_numpy(k[None, :]).to(card)
     xt, ct = torch.from_numpy(x).to(card), torch.from_numpy(c).to(card)
-    agg = GroupedHashAggregate(1, [(hk.MIN, True), (hk.MAX, True)], card)
-    step = 500 if mode == "grow" else n
-    for lo in range(0, n, step):
-        hi = lo + step
-        agg.reserve(hi - lo)
-        hk.insert(agg.table, keys[:, lo:hi].contiguous(),
-                  torch.ones_like(keys[:, lo:hi], dtype=torch.uint8), None,
-                  torch.arange(lo, hi, device=card) if mode == "merge"
-                  else None, lo, [xt[lo:hi]] * 2, [ct[lo:hi]] * 2)
-        agg._groups_bound += hi - lo
-    if mode == "grow":
-        assert agg.table.capacity > 1024    # the table was rehashed
-    res = agg.finalize()
-    for g in range(res.num_groups):
-        live = (k == int(res.keys[0, g])) & (c > 0)
-        v = np.where(np.isnan(x[live]), np.inf, x[live])
-        w = np.where(np.isnan(x[live]), -np.inf, x[live])
-        assert int(res.cnt[0][g]) == int(c[live].sum())
-        assert float(res.acc[0][g]) == v.min(initial=np.inf)
-        assert float(res.acc[1][g]) == w.max(initial=-np.inf)
-    assert float(res.acc[0][res.keys[0] == 3]) == np.inf
+    results = []
+    for insert in (hk.insert, hk.insert_plain):
+        monkeypatch.setattr(hk, "insert", insert)
+        agg = GroupedHashAggregate(1, [(hk.MIN, True), (hk.MAX, True)], card)
+        step = 500 if mode == "grow" else n
+        for lo in range(0, n, step):
+            hi = lo + step
+            agg.reserve(hi - lo)
+            insert(agg.table, keys[:, lo:hi].contiguous(),
+                   torch.ones_like(keys[:, lo:hi], dtype=torch.uint8), None,
+                   torch.arange(lo, hi, device=card) if mode == "merge"
+                   else None, lo, [xt[lo:hi]] * 2, [ct[lo:hi]] * 2)
+            agg._groups_bound += hi - lo
+        if mode == "grow":
+            assert agg.table.capacity > 1024    # the table was rehashed
+        results.append(agg.finalize())
+    got, want = results
+    assert torch.equal(got.keys, want.keys)
+    for a in range(2):
+        assert torch.equal(got.cnt[a], want.cnt[a])
+        assert torch.equal(torch.isnan(got.acc[a]), torch.isnan(want.acc[a]))
+        both = ~torch.isnan(want.acc[a])
+        assert torch.equal(got.acc[a][both], want.acc[a][both])
+    nan_groups = 0
+    for g in range(got.num_groups):
+        live = (k == int(got.keys[0, g])) & (c > 0)
+        assert int(got.cnt[0][g]) == int(c[live].sum())
+        lo_v, hi_v = float(got.acc[0][g]), float(got.acc[1][g])
+        if np.isnan(x[live]).any():
+            nan_groups += 1
+            assert np.isnan(lo_v) and np.isnan(hi_v)
+        else:
+            assert lo_v == x[live].min(initial=np.inf)
+            assert hi_v == x[live].max(initial=-np.inf)
+    assert nan_groups > 1
+    assert np.isnan(float(got.acc[0][got.keys[0] == 3]))
+    assert float(got.acc[0][got.keys[0] == 4]) == np.inf
+    assert float(got.acc[1][got.keys[0] == 4]) == -np.inf
 
 
 @pytest.mark.cuda
