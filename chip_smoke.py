@@ -4,8 +4,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes``
-(any of them) runs phases 1-2 and those cases alone; ``--tree DIR`` imports exon_tpu_torch and
+``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
+``gather_var,bucket_pack`` (any of them) runs phases 1-2 and those cases
+alone; ``--tree DIR`` imports exon_tpu_torch and
 benchlib from another checkout (an earlier commit, unpacked), so that two
 versions are timed in one run on one card.
 
@@ -24,7 +25,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    on the header flags of that first chunk's 2.4 M lines (decode_chunk's
    call), each beside torch.nonzero and taken apart: the device time and
    launches a call of every kernel the wrapper runs (torch.profiler) and
-   its host time. The SQL kernels run at their queries' shapes: string_cmp over the ids of
+   its host time. gather_var runs at A's shape (half of a 131,072-row
+   batch of sequences, in order) and, printed apart, on the 131,072 read
+   names of row_hash's case taken at as many random indices, repeats and
+   all (a join's short rows), each taken apart as compact_mask is.
+   The SQL kernels run at their queries' shapes: string_cmp over the ids of
    that first chunk, parse_number (int and float mode) and format_int over
    one 131,072-row batch of the GFF starts and ends as decimal text, and
    once more over all 3.4 M of them (printed apart). K7 and K14, left to
@@ -79,7 +84,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    printed apart, at D_part's pair exchange once D_part has run: the left
    side's (folded key, row id) pairs, int64 and int32, to 8 destinations in
    the exchange's two calls (count, then pack at the largest count), and
-   the whole route with the exchange.
+   the whole route with the exchange; both cases taken apart as
+   compact_mask is.
 4. Main path, through ExonSession(device="cuda") on generated data at full
    scale: Query A (FASTA filter/project) and its count, both on the device
    decode, Query B (GFF filter → group-by), Query C (BAM reads ⋈ GFF genes
@@ -242,7 +248,7 @@ KERNELS = {
     "window_frame": ("exon_tpu/plan/window_exec.py:263", "window_frame.cu"),
     "map_lookup": ("exon_tpu/plan/expressions.py:716", "map_lookup.cu"),
     "list_bins": ("exon_tpu/udfs.py:389", "list_bins.cu"),
-    "bucket_pack": ("exon_tpu/parallel/shuffle.py:53", "bucket_pack.cu"),
+    "bucket_pack": ("exon_tpu/parallel/shuffle.py:51", "bucket_pack.cu"),
 }
 DECODE = ("line_index", "text_records", "gather_spans")
 # the kernels each main-path query runs
@@ -533,26 +539,49 @@ def check_compact(rng, torch, flags=None) -> dict:
     return out[0]
 
 
-def check_gather(rng, torch, offs, vals) -> dict:
+def _gather_case(torch, label: str, offs, vals, idx) -> dict:
+    """gather_var against its twin, exact, timed beside its bound and taken
+    apart (_print_split)."""
     from exon_tpu_torch.kernels import gather_var as k
 
-    idx = torch.from_numpy(np.flatnonzero(rng.random(N_ROWS) < 0.5)
-                           .astype(np.int32)).cuda()
     o1, v1 = k.gather_var(offs, vals, idx)
     o2, v2 = k.gather_var_plain(offs, vals, idx)
     torch.cuda.synchronize()
-    err = _exact("gather_var offsets", o1, o2) + _exact("gather_var values",
-                                                        v1, v2)
+    err = _exact(f"{label} offsets", o1, o2) + _exact(f"{label} values", v1,
+                                                      v2)
     m, taken = idx.shape[0], v1.shape[0]
-    return {"max_abs_err": err, "library_ms": None,
-            # indices, the taken rows' offset pairs and bytes in; offsets
-            # and bytes out
-            "bytes": 4 * m + 8 * m + taken + 4 * (m + 1) + taken,
-            "ms": median_ms(lambda: k.gather_var(offs, vals, idx), torch),
-            "plain_ms": median_ms(lambda: k.gather_var_plain(offs, vals, idx),
-                                  torch),
-            "shape": f"{N_ROWS} rows, {vals.shape[0]} bytes, "
-                     f"{idx.shape[0]} taken"}
+    r = {"max_abs_err": err, "library_ms": None,
+         # indices, the taken rows' offset pairs and bytes in; offsets and
+         # bytes out
+         "bytes": 4 * m + 8 * m + taken + 4 * (m + 1) + taken,
+         "ms": median_ms(lambda: k.gather_var(offs, vals, idx), torch),
+         "plain_ms": median_ms(lambda: k.gather_var_plain(offs, vals, idx),
+                               torch),
+         "shape": f"{offs.shape[0] - 1} rows, {vals.shape[0]} bytes, {m} "
+                  f"taken, {taken} bytes out"}
+    print(f"  {label} ({r['shape']}): kernel {r['ms']:.4f} ms, twin "
+          f"{r['plain_ms']:.4f} ms, bound {bound_ms(r['bytes']):.4f} ms by "
+          "bytes")
+    _print_split(torch, label, lambda: k.gather_var(offs, vals, idx))
+    return r
+
+
+def check_gather(rng, torch, offs, vals, names=None) -> dict:
+    """gather_var at Query A's shape (the kernels line: half of a
+    131,072-row batch of 120-680-byte sequences, in order) and, given
+    ``names``, at a join's short rows: the 131,072 read names of
+    check_row_hash taken at as many random indices, repeats and all, in
+    random order."""
+    idx = torch.from_numpy(np.flatnonzero(rng.random(N_ROWS) < 0.5)
+                           .astype(np.int32)).cuda()
+    r = _gather_case(torch, "gather_var A's sequences", offs, vals, idx)
+    if names is not None:
+        n_offs, n_vals = _names_column(names[:N_ROWS], torch)
+        join = torch.from_numpy(rng.integers(0, N_ROWS, N_ROWS)
+                                .astype(np.int32)).cuda()
+        _gather_case(torch, "gather_var read names at a join's indices",
+                     n_offs, n_vals, join)
+    return r
 
 
 def check_like(torch, offs, vals) -> dict:
@@ -790,15 +819,18 @@ def _call_host_ms(fn, torch) -> float:
 def _print_split(torch, label: str, fn) -> None:
     """A wrapper's call taken apart: the device time and the launches a
     call of every kernel, memset and copy it runs (torch.profiler over
-    REPS calls), and its host time (_call_host_ms)."""
+    REPS calls), each with its own device time a call, and its host time
+    (_call_host_ms)."""
     rows = _cuda_rows(torch, fn, REPS)
     # the profiler now and then loses a record, so each kernel's time is
     # its mean over the records kept, times its launches a call
     per_call = [max(1, round(e.count / REPS)) for e in rows]
     dev = sum(k * e.self_device_time_total / e.count / 1e3
               for k, e in zip(per_call, rows))
-    names = ", ".join(sorted({e.key.replace("(anonymous namespace)::", "")
-                              .replace("void ", "")[:48] for e in rows}))
+    names = ", ".join(sorted(
+        e.key.replace("(anonymous namespace)::", "").replace("void ", "")[:48]
+        + f" {k * e.self_device_time_total / e.count / 1e3:.4f}"
+        for k, e in zip(per_call, rows)))
     kept = sum(e.count for e in rows)
     print(f"    {label} split: device {dev:.4f} ms in {sum(per_call)} "
           f"launches a call ({names}; {kept} of {REPS * sum(per_call)} "
@@ -1925,7 +1957,7 @@ def phase_kernels(torch) -> dict:
     names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
     results = {
         "compact_mask": check_compact(rng, torch, flags),
-        "gather_var": check_gather(rng, torch, offs, vals),
+        "gather_var": check_gather(rng, torch, offs, vals, names),
         "like_match": check_like(torch, offs, vals),
         "hash_aggregate": check_hash(rng, torch, _query_i_first_batch(torch)),
         "expand_segments": check_expand(rng, torch),
@@ -3148,6 +3180,8 @@ def check_bucket_pack_pairs(torch, d_plan) -> None:
           f"{lib:.4f} ms; bound {bound_ms(nbytes):.4f} ms by bytes "
           f"({nbytes} bytes); the route with the exchange to the {n} "
           f"shards {route:.4f} ms")
+    _print_split(torch, "bucket_pack at D_part's pairs (two calls)",
+                 lambda: run(kb.bucket_pack))
 
 
 def check_bucket_pack(torch, q_plan, q_batches) -> dict:
@@ -3206,6 +3240,7 @@ def check_bucket_pack(torch, q_plan, q_batches) -> dict:
           f"{REPS}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
           f"library sort + index_select {r['library_ms']:.4f} ms; bound "
           f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes)")
+    _print_split(torch, "bucket_pack at Q's shape", lambda: run(kb.bucket_pack))
     return r
 
 
@@ -3803,10 +3838,44 @@ def _fasta_first_batch(torch):
     return _first_batch(lambda s: s.read_fasta(fa_path))
 
 
-# the cases a run with --kernels can take alone: phase 3's of four kernels
+def check_bucket_pack_alone(torch) -> None:
+    """bucket_pack's two cases without the main path: Q's shard tables
+    after its scan and D_part's left pairs, from plans built as the main
+    path builds them (neither query runs)."""
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import make_bam
+    from benchlib.gff_fixture import make_gff
+    from exon_tpu_torch.config import new_exon_config
+    from exon_tpu_torch.parallel import distributed as D
+
+    dsession = T.ExonSession(device="cuda", config=new_exon_config(
+        distributed=True, n_shards=Q_SHARDS))
+    df = dsession.sql(SQL_Q.format(gf=make_gff(GFF_FEATURES, GFF_SEED)))
+    q_plan = _find(df._execute(df.logical_plan()), D.DistributedAggregateExec)
+    check_bucket_pack(torch, q_plan, list(q_plan.input.batches()))
+    del q_plan
+    dsession.sql("SET exon.partitioned_join = true")
+    df = _query_d(T, dsession, make_bam(N_TEMPLATES, BAM_SEED))
+    check_bucket_pack_pairs(torch, _find(df._execute(df.logical_plan()),
+                                         D.DistributedPartitionedJoinExec))
+
+
+def check_gather_alone(torch) -> None:
+    """gather_var's two cases of phase 3, on phase 3's seeds."""
+    from benchlib.bam_fixture import template_names
+
+    rng = np.random.default_rng(1234)
+    offs, vals = _var_column(rng, N_ROWS, torch)
+    check_gather(rng, torch, offs, vals,
+                 template_names(N_TEMPLATES, BAM_SEED)[:N_ROWS])
+
+
+# the cases a run with --kernels can take alone: phase 3's of six kernels
 # (each at the shapes its redesign was measured at), and phase 5's of Q's
 # aggregate (hash_aggregate on Q's path)
 FOCUS = {
+    "gather_var": check_gather_alone,
+    "bucket_pack": check_bucket_pack_alone,
     "hash_aggregate": lambda torch: check_hash(
         np.random.default_rng(1234), torch, _query_i_first_batch(torch)),
     "list_bins": check_list_bins,

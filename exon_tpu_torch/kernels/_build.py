@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled for ``sm_90a``, one ``nvcc`` per
-source, all started together, and linked into one shared library with a
-plain C interface, loaded with ``ctypes``. Nothing enables fast math: the
+The sources in ``csrc/`` (``*.cu``, with the ``*.cuh`` headers they share)
+are compiled for ``sm_90a``, one ``nvcc`` per source, all started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``. Nothing enables fast math: the
 float parse of ``parse_number.cu`` must round as the host does. The
 library lands in ``build/exon_tpu_torch/<hash>/`` at the repository root,
 where ``<hash>`` is a content hash of the sources, so an edited source is
@@ -39,7 +40,10 @@ _F64 = ctypes.c_double
 # ctypes passes them at full width
 SIGNATURES = {
     "exon_compact_mask": [_P, _I64, _P, _P, _U64, _U64, _P, _P, _P],
-    "exon_gather_var": [_P, _P, _P, _P, _I64, _P, _P],
+    "exon_gather_var_offsets": [_P, _P, _I64, _P, _P, _U64, _U64, _P, _P,
+                                _P, _I64, _P, _P],
+    "exon_gather_var_copy": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _P,
+                             _P],
     "exon_like_match": [_P, _P, _I64, _P, _P, _P],
     "exon_like_find": [_P, _P, _I64, _P, _P, _P],
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
@@ -73,9 +77,9 @@ SIGNATURES = {
     "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
     "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _P],
     "exon_window_frame": [_P, _P],
-    "exon_bucket_hist": [_I64, _P, _P, _P, _I32, _P, _P, _P],
-    "exon_bucket_scatter": [_I64, _P, _I32, _P, _I64, _I32, _P, _P, _P, _P,
-                            _P],
+    "exon_bucket_rank": [_I64, _P, _P, _P, _I32, _I32, _P, _P, _U64, _U64,
+                         _P, _P, _P, _P],
+    "exon_bucket_move": [_I64, _P, _P, _P, _I32, _I64, _I32, _P, _P],
 }
 
 _lib = None
@@ -87,8 +91,9 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
+    """A hash of the sources, the headers they include and the flags."""
     h = hashlib.sha256()
-    for p in sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())

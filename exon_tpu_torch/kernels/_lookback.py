@@ -1,0 +1,63 @@
+"""The workspace of the single-pass scans (``csrc/lookback.cuh``).
+
+compact_mask, bucket_pack and gather_var each scan in one pass with a
+decoupled look-back: a tile publishes its sum in a status word and reads
+its predecessors' words. This module keeps the words per (device, stream),
+with the ticket counter after them, the number of tiles launched on them so
+far and the number of the last call (the epoch). Calls on one stream run in
+order, so each finds the words of the calls before it finished, tagged with
+an older epoch: no call clears them. They are cleared when the workspace
+grows and when the epoch reaches the 30 bits a status word holds.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+EPOCH_LIMIT = (1 << 30) - 1  # the status word's 30 epoch bits
+
+
+class Workspace:
+    """Status words [capacity] and the ticket counter after them, in one
+    int64 tensor."""
+
+    def __init__(self, words: int, device: torch.device):
+        self.capacity = words
+        self.words = torch.zeros(words + 1, dtype=torch.int64, device=device)
+        self.status = self.words.data_ptr()
+        self.ticket = self.status + 8 * words
+        self.tickets = 0  # tiles launched on the words so far
+        self.epoch = 0
+
+
+_workspaces: dict = {}
+_lock = threading.Lock()
+
+
+def workspace(device: torch.device, stream: int, words: int) -> Workspace:
+    """The workspace of (device, stream), with at least ``words`` status
+    words, grown (doubled at least) and cleared when it has fewer, and
+    cleared at the last epoch."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.capacity < words:
+        grown = words if ws is None else max(words, 2 * ws.capacity)
+        ws = _workspaces[key] = Workspace(grown, device)
+    if ws.epoch == EPOCH_LIMIT:
+        ws.words.zero_()  # the ticket counter too
+        ws.epoch = ws.tickets = 0
+    return ws
+
+
+def scan(device: torch.device, stream: int, words: int, tiles: int,
+         launch) -> None:
+    """Make one single-pass launch of ``tiles`` tiles that reads and writes
+    ``words`` status words: ``launch(status, ticket, ticket_base, epoch)``
+    launches it and returns its status code (``_build.check`` raises)."""
+    with _lock:
+        ws = workspace(device, stream, max(words, 1))
+        ws.epoch += 1
+        launch(ws.status, ws.ticket, ws.tickets, ws.epoch)
+        ws.tickets += tiles

@@ -1,7 +1,7 @@
 """bucket_pack: rows into per-destination buckets, stably, in one sequence.
 
 Replaces exon_tpu/parallel/shuffle.py ``partition_ids`` (:39) and
-``bucketize`` (:53), the head of the hash-partition shuffle. Kernel source:
+``bucketize`` (:51), the head of the hash-partition shuffle. Kernel source:
 ``csrc/bucket_pack.cu``. The destinations are the murmur fmix32 finalizer
 of each int64 key's low 32 bits modulo ``n_parts`` (``hashed``), or given as
 int32. Masked rows, and given destinations outside ``[0, n_parts)``, take
@@ -19,21 +19,31 @@ no slot. Returns ``(buckets, counts, dest, rank)``:
 A column is any tensor with ``n`` rows whose row is 1, 4 or 8-byte
 elements (bool, uint8, int32, int64, float64, ...) or a ``[n, w]`` matrix of
 them; up to 17 columns.
+
+On the card a call is two launches whatever its column count: the rank
+pass, a single pass with a look-back per destination in the status words
+of ``_lookback`` (up to 19,285 destinations, the shared memory of one warp's
+counters), and the move pass, which scatters the rows and zeroes the empty
+slots, so the buckets are allocated unfilled.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
-from . import _build
+from . import _build, _lookback
 
 launches = 0
 
-TILE_ROWS = 64    # kTileRows in csrc/bucket_pack.cu
-MAX_COLS = 17     # kMaxCols
+WARP_ROWS = 256           # kWarpRows in csrc/bucket_pack.cu
+MAX_WARPS = 8             # kMaxWarps
+SHARED_MAX = 232_448 - 1024  # kSharedMax: dynamic shared memory a block
+MAX_PARTS = SHARED_MAX // 12  # one warp: (1 + 2) int32 counters a part
+MAX_COLS = 17             # kMaxCols
 _INT32_LIMIT = 1 << 31
 _M32 = 0xFFFFFFFF
 
@@ -88,14 +98,16 @@ def bucket_pack_plain(route, mask, cols: list, n_parts: int,
     return out, every[:n_parts].to(torch.int32), dest, rank
 
 
-def _aligned(c: torch.Tensor) -> torch.Tensor:
-    """c contiguous, its rows as bytes, at an address its words allow."""
-    c = c.contiguous()
-    if c.dtype == torch.bool:
-        c = c.view(torch.uint8)
-    row = c.element_size() * math.prod(c.shape[1:])
-    word = 8 if row % 8 == 0 else 4 if row % 4 == 0 else 1
-    return c if c.data_ptr() % word == 0 else c.clone()
+def rank_warps(n_parts: int) -> int:
+    """Warps of the rank pass's tile: 8, fewer where (warps + 2) int32
+    counters a destination would pass a block's shared memory."""
+    return min(MAX_WARPS, SHARED_MAX // (4 * n_parts) - 2)
+
+
+# the move pass's columns: source address, bucket address and row bytes
+# each, filled in place for every call under _args_lock
+_ARGS = (ctypes.c_int64 * (3 * MAX_COLS))()
+_args_lock = threading.Lock()
 
 
 def bucket_pack(route: torch.Tensor, mask, cols: list, n_parts: int,
@@ -111,52 +123,59 @@ def bucket_pack(route: torch.Tensor, mask, cols: list, n_parts: int,
         raise TypeError("bucket_pack: mask must be bool [n]")
     if len(cols) > MAX_COLS:
         raise ValueError(f"bucket_pack: {len(cols)} columns exceed {MAX_COLS}")
+    widths = []  # each column's row bytes
     for c in cols:
         if c.shape[:1] != (n,) or c.element_size() not in (1, 4, 8):
             raise TypeError("bucket_pack: every column needs n rows of 1-, "
                             "4- or 8-byte elements")
+        widths.append(c.element_size() * math.prod(c.shape[1:]))
     if n_parts < 1 or bucket_cap < 0 or n >= _INT32_LIMIT or \
             n_parts * max(bucket_cap, 1) >= 1 << 62:
         raise ValueError("bucket_pack: bad n_parts, bucket_cap or row count")
     if not _build.on_cuda(route, "bucket_pack"):
         return bucket_pack_plain(route, mask, cols, n_parts, bucket_cap,
                                  hashed)
+    if n_parts > MAX_PARTS:
+        raise ValueError(f"bucket_pack: {n_parts} destinations exceed the "
+                         f"{MAX_PARTS} the card's kernel takes")
     dev = route.device
     route = route.contiguous()
-    # keep holds every contiguous copy until the launches
-    keep = [route]
     if mask is not None:
         mask = mask.contiguous()
-        keep.append(mask)
-    n_tiles = (n + TILE_ROWS - 1) // TILE_ROWS
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    rank = torch.empty(n, dtype=torch.int32, device=dev)
-    outs = [torch.zeros((n_parts, bucket_cap) + tuple(c.shape[1:]),
-                        dtype=c.dtype, device=dev) for c in cols]
+    # destinations, ranks and counts in one allocation
+    dest, rank, counts = torch.empty(2 * n + n_parts, dtype=torch.int32,
+                                     device=dev).split([n, n, n_parts])
     if n == 0:
-        return outs, torch.zeros(n_parts, dtype=torch.int32, device=dev), \
-            dest, rank
-    hist = torch.zeros((n_parts, n_tiles), dtype=torch.int32, device=dev)
+        counts.zero_()
+        return [torch.zeros((n_parts, bucket_cap) + c.shape[1:],
+                            dtype=c.dtype, device=dev) for c in cols], \
+            counts, dest, rank
+    # the buckets, left as allocated: the move pass writes every slot
+    outs = [torch.empty((n_parts, bucket_cap) + c.shape[1:], dtype=c.dtype,
+                        device=dev) for c in cols]
     lib = _build.library()
     stream = _build.stream_of(route)
-    _build.check(lib.exon_bucket_hist(
-        n, route.data_ptr() if hashed else None,
-        None if hashed else route.data_ptr(),
-        mask.data_ptr() if mask is not None else None, n_parts,
-        dest.data_ptr(), hist.data_ptr(), stream), "bucket_pack")
-    counts = hist.sum(1, dtype=torch.int32)
-    base = (torch.cumsum(hist, 1, dtype=torch.int32) - hist).contiguous()
-    srcs = [_aligned(c) for c in cols]
-    keep += srcs
-    dsts = [o.view(torch.uint8) if o.dtype == torch.bool else o
-            for o in outs]
-    k = len(cols)
-    _build.check(lib.exon_bucket_scatter(
-        n, dest.data_ptr(), n_parts, base.data_ptr(), bucket_cap, k,
-        (ctypes.c_uint64 * k)(*[s.data_ptr() for s in srcs]),
-        (ctypes.c_uint64 * k)(*[d.data_ptr() for d in dsts]),
-        (ctypes.c_int64 * k)(*[s.element_size() * math.prod(s.shape[1:])
-                               for s in srcs]),
-        rank.data_ptr(), stream), "bucket_pack")
+    warps = rank_warps(n_parts)
+    tiles = -(-n // (warps * WARP_ROWS))
+
+    def rank_pass(status, ticket, base, epoch):
+        _build.check(lib.exon_bucket_rank(
+            n, route.data_ptr() if hashed else None,
+            None if hashed else route.data_ptr(),
+            mask.data_ptr() if mask is not None else None, n_parts, warps,
+            status, ticket, base, epoch, dest.data_ptr(), rank.data_ptr(),
+            counts.data_ptr(), stream), "bucket_pack")
+
+    _lookback.scan(dev, stream, tiles * n_parts, tiles, rank_pass)
+    if cols and bucket_cap:
+        srcs = [c.contiguous() for c in cols]
+        args = [x for c, o, w in zip(srcs, outs, widths)
+                for x in (c.data_ptr(), o.data_ptr(), w)]
+        with _args_lock:
+            _ARGS[:len(args)] = args
+            _build.check(lib.exon_bucket_move(
+                n, dest.data_ptr(), rank.data_ptr(), counts.data_ptr(),
+                n_parts, bucket_cap, len(cols), _ARGS, stream),
+                "bucket_pack")
     launches += 1
     return outs, counts, dest, rank

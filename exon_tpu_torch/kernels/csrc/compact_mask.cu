@@ -12,10 +12,8 @@
 //
 // Design: a single pass with a decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016).
-//   A block takes a tile of kTile = 4,096 rows, its number from an atomic
-//     ticket rather than blockIdx, so a tile only ever waits on tiles whose
-//     blocks already run and no n deadlocks, even past the card's resident
-//     blocks.
+//   A block takes a tile of kTile = 4,096 rows, its number from the
+//     ticket of lookback.cuh.
 //   Each thread loads its 16 mask bytes as one uint4 (scalar loads for an
 //     unaligned mask or the last tile) and keeps one bit a row; a warp scan
 //     and a scan of the 8 warp totals give each thread its offset in the
@@ -29,17 +27,14 @@
 //     number start - prefix, fill out[n - (start - prefix) - u, n - (start -
 //     prefix)) with n: the n - count fill slots are written once each, from
 //     the end, with no fill launch. The last tile writes the count.
-// A status word is 64 bits: the count or prefix (31 bits, n < 2^31), the
-// flag (2 bits) and the call's epoch (31 bits). The wrapper keeps the words
-// and the ticket counter in a workspace per (device, stream), numbers its
-// calls (the epoch) and passes the ticket base (the tiles it launched on
-// the workspace before), so a word left by an earlier call is never read
-// as this call's and the words need no clearing launch; it clears them
-// when the epoch wraps or the workspace grows.
+// The status words, their epochs and the tickets are lookback.cuh's, in
+// the workspace that kernels/_lookback.py keeps per (device, stream).
 // The kernel allocates nothing and does not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
 
 namespace {
 
@@ -48,31 +43,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerThread = 16;
 constexpr int kTile = kThreads * kRowsPerThread;
 constexpr unsigned kFull = 0xffffffffu;
-
-constexpr unsigned long long kAggregate = 1;
-constexpr unsigned long long kPrefix = 2;
-
-__device__ __forceinline__ unsigned long long status_word(
-    unsigned long long epoch, unsigned long long flag, int32_t value) {
-  return (epoch << 33) | (flag << 31) | static_cast<unsigned long long>(value);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* status,
-                                        int64_t tile, unsigned long long w) {
-  atomicExch(status + tile, w);
-}
-
-// Flag of the word (0 while it is another call's or not yet written) and
-// its value.
-__device__ __forceinline__ unsigned long long read_status(
-    const unsigned long long* status, int64_t tile, unsigned long long epoch,
-    int32_t* value) {
-  const unsigned long long w =
-      *reinterpret_cast<const volatile unsigned long long*>(status + tile);
-  if ((w >> 33) != epoch) return 0;
-  *value = static_cast<int32_t>(w & 0x7fffffffull);
-  return (w >> 31) & 3ull;
-}
 
 // One bit a row of the thread's kRowsPerThread rows from row0 (0 past n).
 __device__ __forceinline__ unsigned row_bits(const uint8_t* __restrict__ mask,
@@ -108,15 +78,10 @@ compact_mask_kernel(const uint8_t* __restrict__ mask, int64_t n,
                     int32_t* __restrict__ count) {
   __shared__ int32_t staged[kTile];
   __shared__ int32_t warp_sums[kWarps];
-  __shared__ int64_t tile_s;
   __shared__ int32_t prefix_s;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    tile_s = static_cast<int64_t>(atomicAdd(ticket, 1ull) - ticket_base);
-  }
-  __syncthreads();
-  const int64_t tile = tile_s;
+  const int64_t tile = lookback::ticket(ticket, ticket_base);
   const int64_t start = tile * kTile;
   const unsigned bits =
       row_bits(mask, n, start + threadIdx.x * kRowsPerThread, aligned);
@@ -138,8 +103,10 @@ compact_mask_kernel(const uint8_t* __restrict__ mask, int64_t n,
     tile_count += s;
   }
   if (threadIdx.x == 0) {
-    publish(status, tile, status_word(epoch, tile == 0 ? kPrefix : kAggregate,
-                                      tile_count));
+    lookback::publish(status, tile,
+                      lookback::word(epoch, tile == 0 ? lookback::kPrefix
+                                                      : lookback::kAggregate,
+                                     tile_count));
   }
   // stage the selected rows in order
   int at = before + incl - mine;
@@ -149,28 +116,13 @@ compact_mask_kernel(const uint8_t* __restrict__ mask, int64_t n,
   }
   // the decoupled look-back, by warp 0
   if (warp == 0) {
-    int32_t prefix = 0;
-    for (int64_t top = tile - 1; top >= 0; top -= 32) {
-      const int64_t pred = top - lane;
-      int32_t value = 0;
-      unsigned long long flag = kPrefix;  // before tile 0: a prefix of 0
-      if (pred >= 0) {
-        do {
-          flag = read_status(status, pred, epoch, &value);
-        } while (flag == 0);
-      }
-      const unsigned prefixes = __ballot_sync(kFull, flag == kPrefix);
-      // sum up to and including the nearest inclusive prefix
-      const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-      int32_t part = lane <= stop ? value : 0;
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFull, part, d);
-      prefix += part;
-      if (prefixes) break;
-    }
+    const int32_t prefix = static_cast<int32_t>(lookback::exclusive_prefix(
+        status, tile, 1, 0, epoch, 32, lane, kFull));
     if (lane == 0) {
       if (tile > 0) {
-        publish(status, tile, status_word(epoch, kPrefix, prefix + tile_count));
+        lookback::publish(status, tile,
+                          lookback::word(epoch, lookback::kPrefix,
+                                         prefix + tile_count));
       }
       prefix_s = prefix;
     }
@@ -193,7 +145,7 @@ compact_mask_kernel(const uint8_t* __restrict__ mask, int64_t n,
 
 // status holds at least ceil(n / kTile) words of the workspace and ticket
 // its counter; ticket_base is the number of tiles launched on them before
-// and epoch this call's number, 1 to 2^31 - 1. n must be > 0 and < 2^31.
+// and epoch this call's number, 1 to 2^30 - 1. n must be > 0 and < 2^31.
 extern "C" int exon_compact_mask(const void* mask, int64_t n, void* status,
                                  void* ticket, uint64_t ticket_base,
                                  uint64_t epoch, void* out, void* count,

@@ -5,61 +5,432 @@
 // builds a per-byte row-id map (scatter + cumsum over every output byte) and
 // then gathers every byte through it.
 //
-// Bound on the H100: HBM bytes, about twice the selected bytes (read once,
-// written once) plus 12 bytes of offsets and indices per row: a 52 MB batch
-// moves about 0.1 GB, some 30 us at 3.35 TB/s.
+// Bound on the H100: HBM bytes, the taken bytes read once and written once
+// plus 16 bytes of indices, offsets and new offsets a row: A's half batch
+// (26 MB taken) needs 16 us at 3.35 TB/s, a join's 131,072 read names
+// (4.8 MB) 3.5 us. A call is two launches and one host read of the total,
+// which sizes the output: no per-byte map, no torch op between them.
 //
-// Design: the wrapper computes the output offsets as an exclusive scan of
-// the selected row lengths (torch.cumsum). Here one warp copies one output
-// row: lane j moves bytes j, j+32, ... of values[src_start : src_start+len]
-// to out[dst_start : dst_start+len], so each warp's loads and stores are 32
-// neighbouring bytes. No per-byte row-id map is built, which is the point
-// of the kernel. Warps stride over rows, so any row count fits the grid.
-// Zero-length rows copy nothing; m == 0 is not launched.
+// gather_offsets_kernel: a single pass with a decoupled look-back
+//   (lookback.cuh). A block takes a tile of kTile = 1,024 taken rows by
+//   ticket, 4 a thread; each thread reads its rows' indices and their
+//   source offset pairs, and a warp scan and a scan of the warp totals, in
+//   int64, give each row its place in the tile. The tile publishes its byte
+//   count, warp 0 looks back for the bytes of the tiles before it and
+//   publishes the tile's inclusive prefix; each row then writes its new
+//   offset and its source start (a scratch array the copy reads), and marks
+//   each copy block whose first output byte it holds (block_row, for the
+//   first `marks` blocks). The last tile writes the total as int64. Status
+//   words saturate at 2^32 - 1, so a total of 2^31 bytes or more is seen
+//   (and refused by the wrapper) and never wraps.
+// gather_copy_kernel: the output in 16-byte words, balanced over bytes,
+//   not rows, so 37-byte names and 680-byte sequences run alike. A block
+//   takes kBlockBytes = 4 KB of output; the marks name the rows holding its
+//   first byte and the next block's (past the marks, and for the last
+//   block, a 32-way search of the new offsets by one warp finds them), and
+//   the block stages those rows' new offsets and source starts in shared
+//   memory (past kStage rows it reads them in place). Each thread then
+//   takes one word (neighbouring threads, neighbouring words), finds the
+//   row of its first byte by a binary search of the staged offsets and,
+//   when the word lies inside the row, assembles it from the two aligned
+//   16-byte source words that cover it, funnel-shifted by the source's
+//   offset from 16-byte alignment (as map_bytes.cu's load16, here without
+//   a branch; source and destination alignments differ by row), into one
+//   aligned 16-byte store. A word across one row edge is two runs, the end
+//   of one row and the start of the next, the second loaded from as many
+//   bytes before its start as the first run holds, so that both line up
+//   with the output and a byte mask joins them (join), both loads issued
+//   together. A word across more edges (rows under 16 bytes), near the end
+//   of values or at the output's end takes its runs one by one (edge_word;
+//   byte loads within 16 bytes of the end of values). Only aligned words
+//   that hold a byte of values are read.
+// The kernels allocate nothing and do not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
-constexpr int64_t kMaxBlocks = 132 * 64;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerThread = 4;
+constexpr int kTile = kThreads * kRowsPerThread;
+constexpr int kWordsPerThread = 1;
+constexpr int64_t kBlockBytes = 16 * kThreads * kWordsPerThread;
+constexpr int kStage = 2048;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void gather_var_kernel(const int32_t* __restrict__ src_offsets,
-                                  const uint8_t* __restrict__ src_values,
-                                  const int32_t* __restrict__ indices,
-                                  const int32_t* __restrict__ dst_offsets,
-                                  int64_t m,
-                                  uint8_t* __restrict__ dst_values) {
+__global__ void __launch_bounds__(kThreads)
+gather_offsets_kernel(const int32_t* __restrict__ src_offsets,
+                      const int32_t* __restrict__ indices, int64_t m,
+                      unsigned long long* __restrict__ status,
+                      unsigned long long* __restrict__ ticket,
+                      unsigned long long ticket_base,
+                      unsigned long long epoch, int64_t n_tiles,
+                      int32_t* __restrict__ new_off,
+                      int32_t* __restrict__ starts,
+                      int32_t* __restrict__ block_row, int64_t marks,
+                      int64_t* __restrict__ total) {
+  __shared__ int64_t warp_sums[kWarps];
+  __shared__ int64_t prefix_s;
   const int lane = threadIdx.x & 31;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads +
-                        threadIdx.x) >> 5;
-  const int64_t nwarps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t r = warp; r < m; r += nwarps) {
-    const int32_t s = indices[r];
-    const int32_t start = src_offsets[s];
-    const int32_t len = src_offsets[s + 1] - start;
-    const int32_t dst = dst_offsets[r];
-    for (int32_t j = lane; j < len; j += 32) {
-      dst_values[dst + j] = src_values[start + j];
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = lookback::ticket(ticket, ticket_base);
+  const int64_t row0 = tile * kTile + threadIdx.x * kRowsPerThread;
+  int32_t start[kRowsPerThread];
+  int64_t len[kRowsPerThread];
+  int64_t mine = 0;
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    start[j] = 0;
+    len[j] = 0;
+    if (row0 + j < m) {
+      const int32_t s = indices[row0 + j];
+      start[j] = src_offsets[s];
+      len[j] = static_cast<int64_t>(src_offsets[s + 1]) - start[j];
+    }
+    mine += len[j];
+  }
+  int64_t incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int64_t before = 0, tile_bytes = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int64_t s = warp_sums[w];
+    before += w < warp ? s : 0;
+    tile_bytes += s;
+  }
+  if (threadIdx.x == 0) {
+    lookback::publish(status, tile,
+                      lookback::word(epoch, tile == 0 ? lookback::kPrefix
+                                                      : lookback::kAggregate,
+                                     tile_bytes));
+  }
+  if (warp == 0) {
+    const int64_t prefix = lookback::exclusive_prefix(status, tile, 1, 0,
+                                                      epoch, 32, lane, kFull);
+    if (lane == 0) {
+      if (tile > 0) {
+        lookback::publish(status, tile,
+                          lookback::word(epoch, lookback::kPrefix,
+                                         prefix + tile_bytes));
+      }
+      prefix_s = prefix;
+    }
+  }
+  __syncthreads();
+  const int64_t prefix = prefix_s;
+  int64_t run = prefix + before + incl - mine;
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    if (row0 + j >= m) break;
+    // the copy blocks whose first byte lies in this row
+    for (int64_t b = (run + kBlockBytes - 1) / kBlockBytes;
+         b < marks && b * kBlockBytes < run + len[j]; ++b) {
+      block_row[b] = static_cast<int32_t>(row0 + j);
+    }
+    run += len[j];
+    new_off[row0 + j + 1] = static_cast<int32_t>(run);
+    starts[row0 + j] = start[j];
+  }
+  if (tile == 0 && threadIdx.x == 0) new_off[0] = 0;
+  if (tile == n_tiles - 1 && threadIdx.x == 0) *total = prefix + tile_bytes;
+}
+
+// The row holding output byte p, by the 32 lanes of a warp: the last row r
+// with new_off[r] <= p (a non-empty row, since new_off[m] > p).
+__device__ __forceinline__ int64_t warp_find_row(const int32_t* new_off,
+                                                 int64_t m, int64_t p,
+                                                 int lane) {
+  int64_t lo = 0, hi = m;  // new_off[lo] <= p < new_off[hi]
+  while (hi - lo > 32) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t probe = lo + lane * step;
+    const unsigned le =
+        __ballot_sync(kFull, probe < hi && new_off[probe] <= p);
+    lo += (31 - __clz(le)) * step;
+    hi = min(lo + step, hi);
+  }
+  const unsigned le =
+      __ballot_sync(kFull, lo + lane < hi && new_off[lo + lane] <= p);
+  return lo + 31 - __clz(le);
+}
+
+// The last i in [0, hi) with off[i] <= p, given off[0] <= p < off[hi]: a
+// binary search by halving steps, without a branch.
+__device__ __forceinline__ int find_row(const int32_t* off, int hi,
+                                        int64_t p) {
+  int lo = 0;
+  for (int step = hi > 1 ? 1 << (31 - __clz(hi - 1)) : 0; step > 0;
+       step >>= 1) {
+    if (lo + step < hi && off[lo + step] <= p) lo += step;
+  }
+  return lo;
+}
+
+// The 16 bytes at src, all inside one row, without a branch: from the
+// aligned 16-byte word that holds src and the next one, which holds src[15]
+// unless src is aligned (then the same word is read twice), shifted into
+// place by 8, 4 and then 0-3 bytes.
+__device__ __forceinline__ uint4 load16(const uint8_t* src) {
+  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const uint4* base = reinterpret_cast<const uint4*>(src - shift);
+  const uint4 lo = base[0];
+  const uint4 hi = base[shift != 0];
+  const unsigned a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const bool by8 = shift & 8, by4 = shift & 4;
+  unsigned b[6], c[5];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) b[j] = by8 ? a[j + 2] : a[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) c[j] = by4 ? b[j + 1] : b[j];
+  const unsigned r8 = 8u * (shift & 3);
+  return make_uint4(__funnelshift_r(c[0], c[1], r8),
+                    __funnelshift_r(c[1], c[2], r8),
+                    __funnelshift_r(c[2], c[3], r8),
+                    __funnelshift_r(c[3], c[4], r8));
+}
+
+// Word idx of a (0 below 0).
+__device__ __forceinline__ unsigned pick(const unsigned (&a)[4], int idx) {
+  return idx == 0 ? a[0] : idx == 1 ? a[1] : idx == 2 ? a[2]
+                                            : idx == 3 ? a[3] : 0u;
+}
+
+// The low k bytes of v (1 <= k <= 16), moved up by `at` bytes (0 <= at <
+// 16); the bytes moved past 16 are dropped.
+__device__ __forceinline__ uint4 place(uint4 v, int k, int at) {
+  unsigned a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = k - 4 * j;
+    a[j] &= b >= 4 ? 0xffffffffu : b <= 0 ? 0u : (1u << (8 * b)) - 1u;
+  }
+  const int q = at >> 2;
+  const unsigned r8 = 8u * (at & 3);
+  return make_uint4(__funnelshift_l(pick(a, -1 - q), pick(a, -q), r8),
+                    __funnelshift_l(pick(a, -q), pick(a, 1 - q), r8),
+                    __funnelshift_l(pick(a, 1 - q), pick(a, 2 - q), r8),
+                    __funnelshift_l(pick(a, 2 - q), pick(a, 3 - q), r8));
+}
+
+// The low k bytes of a (1 <= k <= 16) and the rest of b's.
+__device__ __forceinline__ uint4 join(uint4 a, uint4 b, int k) {
+  unsigned m[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = k - 4 * j;
+    m[j] = n >= 4 ? 0xffffffffu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+  }
+  return make_uint4((a.x & m[0]) | (b.x & ~m[0]),
+                    (a.y & m[1]) | (b.y & ~m[1]),
+                    (a.z & m[2]) | (b.z & ~m[2]),
+                    (a.w & m[3]) | (b.w & ~m[3]));
+}
+
+// The k bytes at src (k <= 16), byte by byte.
+__device__ __forceinline__ uint4 load_bytes(const uint8_t* src, int k) {
+  unsigned a[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (t < k) a[t >> 2] |= static_cast<unsigned>(src[t]) << (8 * (t & 3));
+  }
+  return make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+// The k bytes at values[s]: load16 when the 16 bytes from s lie inside
+// values (of n_values bytes), else byte by byte.
+__device__ __forceinline__ uint4 load_run(const uint8_t* __restrict__ values,
+                                          int64_t n_values, int64_t s,
+                                          int k) {
+  return s + 16 <= n_values ? load16(values + s) : load_bytes(values + s, k);
+}
+
+// A word the copy does not take in two runs: its bytes row by row from the
+// staged row i holding byte p, one run at a time (load_run), each moved
+// into place; the output's last word is stored bytewise.
+__device__ __forceinline__ void edge_word(const uint8_t* __restrict__ values,
+                                          int64_t n_values, const int32_t* off,
+                                          const int32_t* src, int i,
+                                          int64_t p, int64_t last,
+                                          uint8_t* __restrict__ out) {
+  const int n = static_cast<int>(min(static_cast<int64_t>(16), last + 1 - p));
+  int64_t row_start = off[i];
+  int64_t row_end = off[i + 1];
+  uint4 acc = make_uint4(0, 0, 0, 0);
+  for (int filled = 0; filled < n;) {
+    while (p + filled >= row_end) {
+      ++i;
+      row_start = row_end;
+      row_end = off[i + 1];
+    }
+    const int k = static_cast<int>(min(static_cast<int64_t>(n - filled),
+                                       row_end - (p + filled)));
+    const uint4 w = place(load_run(values, n_values,
+                                   src[i] + (p + filled - row_start), k),
+                          k, filled);
+    acc = make_uint4(acc.x | w.x, acc.y | w.y, acc.z | w.z, acc.w | w.w);
+    filled += k;
+  }
+  if (n == 16) {
+    *reinterpret_cast<uint4*>(out + p) = acc;
+    return;
+  }
+  const unsigned a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+  for (int t = 0; t < 15; ++t) {
+    if (t < n) out[p + t] = static_cast<uint8_t>(a[t >> 2] >> (8 * (t & 3)));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_copy_kernel(const uint8_t* __restrict__ values, int64_t n_values,
+                   const int32_t* __restrict__ new_off,
+                   const int32_t* __restrict__ starts,
+                   const int32_t* __restrict__ block_row, int64_t marks,
+                   int64_t m, int64_t total, uint8_t* __restrict__ out) {
+  __shared__ int32_t staged_off[kStage + 1];
+  __shared__ int32_t staged_start[kStage];
+  __shared__ int64_t rows_s[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t block = blockIdx.x;
+  const int64_t first = block * kBlockBytes;
+  const int64_t last = min(first + kBlockBytes, total) - 1;
+  // the rows holding the block's first byte and the next block's: marked
+  // by the offsets pass, else searched (the last block: its last byte's)
+  const bool find_first = block >= marks;
+  const bool find_last = block + 1 >= marks || last + 1 == total;
+  if (threadIdx.x == 0) {
+    if (!find_first) rows_s[0] = block_row[block];
+    if (!find_last) rows_s[1] = block_row[block + 1];
+  }
+  if (warp == 0 && find_first) {
+    const int64_t r = warp_find_row(new_off, m, first, lane);
+    if (lane == 0) rows_s[0] = r;
+  }
+  if (warp == 1 && find_last) {
+    const int64_t r = warp_find_row(new_off, m, last, lane);
+    if (lane == 0) rows_s[1] = r;
+  }
+  __syncthreads();
+  const int64_t r0 = rows_s[0];
+  const int64_t rows = rows_s[1] - r0 + 1;
+  const int32_t* off = new_off + r0;
+  const int32_t* src = starts + r0;
+  if (rows <= kStage) {
+    for (int i = threadIdx.x; i <= rows; i += kThreads) {
+      staged_off[i] = off[i];
+      if (i < rows) staged_start[i] = src[i];
+    }
+    __syncthreads();
+    off = staged_off;
+    src = staged_start;
+  }
+  // each word as up to two runs of source bytes: the whole word inside a
+  // row (k1 = 16), or the end of one row and the start of the next; words
+  // of more rows, near the end of values and the output's last go slow
+  int64_t p[kWordsPerThread], s1[kWordsPerThread], s2[kWordsPerThread];
+  int row[kWordsPerThread], k1[kWordsPerThread], k2[kWordsPerThread];
+  bool fast[kWordsPerThread];
+#pragma unroll
+  for (int k = 0; k < kWordsPerThread; ++k) {
+    p[k] = first + 16 * (k * kThreads + threadIdx.x);
+    fast[k] = false;
+    row[k] = k1[k] = k2[k] = 0;
+    s1[k] = s2[k] = 0;
+    if (p[k] + 16 > last + 1) continue;
+    int i = find_row(off, static_cast<int>(rows), p[k]);
+    row[k] = i;
+    int64_t row_end = off[i + 1];
+    k1[k] = static_cast<int>(min(static_cast<int64_t>(16), row_end - p[k]));
+    s1[k] = src[i] + (p[k] - off[i]);
+    if (k1[k] < 16) {
+      while (p[k] + k1[k] >= row_end) row_end = off[++i + 1];
+      k2[k] = static_cast<int>(
+          min(static_cast<int64_t>(16 - k1[k]), row_end - (p[k] + k1[k])));
+      s2[k] = src[i] + (p[k] + k1[k] - off[i]);
+    }
+    // the second run is loaded from k1 bytes before it, so that both
+    // words line up with the output and a byte mask joins them
+    s2[k] -= k1[k];
+    fast[k] = k1[k] + k2[k] == 16 && s1[k] + 16 <= n_values &&
+              (k2[k] == 0 || s2[k] >= 0);
+  }
+  // every word's loads, issued together
+  uint4 v1[kWordsPerThread], v2[kWordsPerThread];
+#pragma unroll
+  for (int k = 0; k < kWordsPerThread; ++k) {
+    v1[k] = v2[k] = make_uint4(0, 0, 0, 0);
+    if (fast[k]) {
+      v1[k] = load16(values + s1[k]);
+      if (k2[k] > 0) v2[k] = load16(values + s2[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kWordsPerThread; ++k) {
+    if (fast[k]) {
+      *reinterpret_cast<uint4*>(out + p[k]) = join(v1[k], v2[k], k1[k]);
+    } else if (p[k] <= last) {
+      edge_word(values, n_values, off, src,
+                p[k] + 16 > last + 1 ? find_row(off, static_cast<int>(rows),
+                                                p[k])
+                                     : row[k],
+                p[k], last, out);
     }
   }
 }
 
 }  // namespace
 
-extern "C" int exon_gather_var(const void* src_offsets, const void* src_values,
-                               const void* indices, const void* dst_offsets,
-                               int64_t m, void* dst_values, void* stream) {
-  int64_t blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  gather_var_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+// Pass 1: indices int32 [m] (m > 0) into src_offsets int32; status holds at
+// least ceil(m / kTile) words of the workspace and ticket its counter;
+// ticket_base is the number of tiles launched on them before and epoch this
+// call's number, 1 to 2^30 - 1. Writes new_off int32 [m + 1], starts int32
+// [m], block_row int32 [marks] (the row holding each copy block's first
+// byte, for the blocks that start before the total) and total int64 [1]
+// (2^32 - 1 or more when it saturated).
+extern "C" int exon_gather_var_offsets(const void* src_offsets,
+                                       const void* indices, int64_t m,
+                                       void* status, void* ticket,
+                                       uint64_t ticket_base, uint64_t epoch,
+                                       void* new_off, void* starts,
+                                       void* block_row, int64_t marks,
+                                       void* total, void* stream) {
+  const int64_t n_tiles = (m + kTile - 1) / kTile;
+  gather_offsets_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src_offsets),
-      static_cast<const uint8_t*>(src_values),
-      static_cast<const int32_t*>(indices),
-      static_cast<const int32_t*>(dst_offsets), m,
-      static_cast<uint8_t*>(dst_values));
+      static_cast<const int32_t*>(indices), m,
+      static_cast<unsigned long long*>(status),
+      static_cast<unsigned long long*>(ticket), ticket_base, epoch, n_tiles,
+      static_cast<int32_t*>(new_off), static_cast<int32_t*>(starts),
+      static_cast<int32_t*>(block_row), marks, static_cast<int64_t*>(total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2, after pass 1 on the same stream: the total output bytes (0 <
+// total < 2^31) into out, 16-byte aligned; values holds n_values bytes.
+extern "C" int exon_gather_var_copy(const void* values, int64_t n_values,
+                                    const void* new_off,
+                                    const void* starts, const void* block_row,
+                                    int64_t marks, int64_t m, int64_t total,
+                                    void* out, void* stream) {
+  const int64_t blocks = (total + kBlockBytes - 1) / kBlockBytes;
+  gather_copy_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(values), n_values,
+      static_cast<const int32_t*>(new_off),
+      static_cast<const int32_t*>(starts),
+      static_cast<const int32_t*>(block_row), marks, m, total,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

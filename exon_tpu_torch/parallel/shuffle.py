@@ -1,7 +1,7 @@
 """The hash-partition shuffle between the shards of a mesh.
 
 Counterpart of exon_tpu/parallel/shuffle.py. ``partition_ids`` (:39) and
-``bucketize`` (:53) run on the bucket_pack kernel, which also fuses them:
+``bucketize`` (:51) run on the bucket_pack kernel, which also fuses them:
 each shard's rows go to ``[n_shards, bucket_cap]`` buckets by destination,
 with their true counts, so that an overflow is always seen, never silent.
 The exchange that ``lax.all_to_all`` does there (``hash_partition_shuffle``
@@ -35,7 +35,7 @@ from .mesh import Mesh
 def bucketize(dest: torch.Tensor, mask: torch.Tensor, cols: list,
               n_parts: int, bucket_cap: int) -> tuple:
     """Scatter rows into per-destination buckets [n_parts, bucket_cap]
-    (shuffle.py:53). Returns (bucketed columns, counts int32 [n_parts]):
+    (shuffle.py:51). Returns (bucketed columns, counts int32 [n_parts]):
     the counts are the true totals before rows past ``bucket_cap`` drop."""
     out, counts, _dest, _rank = bucket_pack(dest.to(torch.int32), mask,
                                             cols, n_parts, bucket_cap,

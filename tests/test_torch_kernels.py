@@ -416,6 +416,217 @@ def test_gather_var_kernel_matches_twin(card):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# gather_var's two passes (offsets: tiles of 1,024 taken rows and a
+# look-back; copy: 4 KB of 16-byte output words a block, a row search a
+# word, funnel-shifted source words) and bucket_pack's two (rank: a look-back a destination;
+# move: the scatter and the zeros), at the shapes of
+# test_torch_redesign_k1b_k13.py, whose twins meet exon_tpu there
+
+
+def _assert_gather_matches_twin(offs, vals, idx):
+    got = kg.gather_var(offs, vals, idx)
+    want = kg.gather_var_plain(offs, vals, idx)
+    assert got[0].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", ["0_1_15_16_17", "short", "long",
+                                  "past_the_marks", "empty"])
+def test_gather_var_tile_edges_match_twin(card, lens):
+    """1 and 1,023 to 3 x 1,024 + 15 taken rows (the offsets pass's
+    tiles), of lengths 0, 1, 15, 16 and 17, up to 60, up to 2,000, 10-40 KB
+    (more 4 KB copy blocks than the m + 1 the offsets pass marks) or all 0,
+    from offsets past 0, from a values view one byte in and from one that
+    ends with the last row, unsorted with repeats; m = 0 launches
+    nothing."""
+    rng = np.random.default_rng(len(lens))
+    n = 5000
+    pick = {"0_1_15_16_17": lambda: rng.choice([0, 1, 15, 16, 17], n),
+            "short": lambda: rng.integers(0, 60, n),
+            "long": lambda: rng.integers(0, 2000, n),
+            "past_the_marks": lambda: rng.integers(10_000, 40_000, n),
+            "empty": lambda: np.zeros(n, np.int64)}[lens]
+    offs = np.concatenate([[0], np.cumsum(pick())]) + 37
+    base = torch.from_numpy(rng.integers(0, 256, int(offs[-1]) + 8)
+                            .astype(np.uint8)).to(card)
+    o = torch.from_numpy(offs.astype(np.int32)).to(card)
+    for m in (1, kg.TILE - 1, kg.TILE, kg.TILE + 1, 3 * kg.TILE + 15):
+        idx = torch.from_numpy(rng.integers(0, n, m).astype(np.int32))
+        # values one byte in, and ending with the last row (byte loads
+        # within 16 bytes of the end)
+        for vals in (base, base[1:], base[:int(offs[-1])]):
+            before = kg.launches
+            _assert_gather_matches_twin(o, vals, idx.to(card))
+            assert kg.launches == before + 1
+    before = kg.launches
+    new_off, out = kg.gather_var(o, base, torch.zeros(0, dtype=torch.int32,
+                                                      device=card))
+    assert kg.launches == before and new_off.tolist() == [0]
+    assert out.shape == (0,)
+
+
+@pytest.mark.cuda
+def test_gather_var_every_alignment_matches_twin(card):
+    """Each taken long row at every source residue 0-15 from a 16-byte
+    boundary and every destination residue 0-15 (a pad row of the length
+    that brings the output there before it): 256 pairs in one call, again
+    from values views 1-15 bytes in, and from views that end with the last
+    long row."""
+    rng = np.random.default_rng(16)
+    lens = list(range(16)) + [16 * 6 + s for s in range(16)]
+    # source rows 2j + 1: 16 pads of lengths 0-15, then 16 long rows, the
+    # one of residue s starting at s past a 16-byte boundary; rows 2j are
+    # the fillers between them
+    starts, at = [], 0
+    for i, length in enumerate(lens):
+        if i >= 16:
+            at += (i - 16 - at) % 16
+        starts.append(at)
+        at += length
+    offs = np.zeros(2 * len(lens) + 1, np.int64)
+    offs[1::2] = starts
+    offs[2::2] = np.asarray(starts) + np.asarray(lens)
+    idx, out_len = [], 0
+    for s in range(16):
+        for t in range(16):
+            pad = (t - out_len) % 16
+            idx += [2 * pad + 1, 2 * (16 + s) + 1]
+            assert (starts[16 + s]) % 16 == s
+            out_len += pad + lens[16 + s]
+    base = torch.from_numpy(rng.integers(0, 256, at + 32).astype(np.uint8))
+    base = base.to(card)
+    assert base.data_ptr() % 16 == 0
+    o = torch.from_numpy(offs.astype(np.int32)).to(card)
+    idx = torch.from_numpy(np.asarray(idx, np.int32)).to(card)
+    for shift in range(16):
+        _assert_gather_matches_twin(o, base[shift:shift + at + 16], idx)
+        _assert_gather_matches_twin(o, base[shift:shift + at], idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeats", [2048, 5000])
+def test_gather_var_refuses_2_31_output_bytes_on_card(card, repeats):
+    """One 1 MiB row taken 2,048 times (2^31 bytes) or 5,000 times (past
+    2^32, where the status words saturate): ValueError after the offsets
+    pass, with nothing of the output's size allocated."""
+    row = 1 << 20
+    offs = torch.tensor([0, row], dtype=torch.int32, device=card)
+    vals = torch.zeros(row, dtype=torch.uint8, device=card)
+    idx = torch.zeros(repeats, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    with pytest.raises(ValueError, match="exceed int32"):
+        kg.gather_var(offs, vals, idx)
+    assert torch.cuda.max_memory_allocated(card) - base < 1 << 26
+
+
+@pytest.mark.cuda
+def test_gather_var_past_the_resident_blocks_matches_twin(card):
+    """50 M taken rows of 0-3 bytes: 48,829 offset tiles, several times the
+    blocks the card holds at once."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(50)
+    n = 1_000_000
+    lens = torch.randint(0, 4, (n,), device=card, generator=gen)
+    offs = torch.zeros(n + 1, dtype=torch.int32, device=card)
+    offs[1:] = torch.cumsum(lens, 0)
+    vals = torch.randint(0, 256, (int(offs[-1]),), device=card,
+                         generator=gen).to(torch.uint8)
+    idx = torch.randint(0, n, (50_000_000,), device=card, generator=gen,
+                        dtype=torch.int32)
+    _assert_gather_matches_twin(offs, vals, idx)
+
+
+@pytest.mark.cuda
+def test_single_pass_scans_back_to_back_match_twins(card):
+    """200 calls of compact_mask, gather_var and bucket_pack in turn,
+    queued on one stream before any is read (they share its status words
+    and ticket counter), then 100 more alternating between two streams: a
+    word or ticket left by an earlier call would show as a wrong output."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    rng = np.random.default_rng(300)
+    cases = []
+    for i in range(300):
+        n = int(rng.integers(1, 60_000))
+        if i % 3 == 0:
+            cases.append(("compact", torch.from_numpy(
+                rng.random(n) < rng.random()).to(card)))
+        elif i % 3 == 1:
+            offs, vals = _var(rng, n, card)
+            cases.append(("gather", offs, vals, torch.from_numpy(
+                rng.integers(0, n, int(rng.integers(0, 9000)))
+                .astype(np.int32)).to(card)))
+        else:
+            keys = torch.from_numpy(rng.integers(-2**40, 2**40, n)).to(card)
+            parts = int(rng.choice([1, 8, 33]))
+            cases.append(("bucket", keys, keys, parts,
+                          int(rng.integers(0, 2 * n // parts + 2))))
+
+    def run(case):
+        if case[0] == "compact":
+            return kc.compact_mask(case[1])
+        if case[0] == "gather":
+            return kg.gather_var(*case[1:])
+        _k, keys, col, parts, cap = case
+        return kb.bucket_pack(keys, None, [col], parts, cap)
+
+    def twin(case):
+        if case[0] == "compact":
+            return kc.compact_mask_plain(case[1])
+        if case[0] == "gather":
+            return kg.gather_var_plain(*case[1:])
+        _k, keys, col, parts, cap = case
+        return kb.bucket_pack_plain(keys, None, [col], parts, cap)
+
+    torch.cuda.synchronize()
+    outs = [run(c) for c in cases[:200]]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for i, c in enumerate(cases[200:]):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(run(c))
+    torch.cuda.synchronize()
+    for c, got in zip(cases, outs):
+        want = twin(c)
+        if c[0] == "bucket":
+            got = got[0] + list(got[1:])
+            want = want[0] + list(want[1:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), c[0]
+
+
+@pytest.mark.cuda
+def test_gather_var_and_bucket_pack_launches_a_call(card):
+    """gather_var: its offsets and copy kernels and the one copy of the
+    total to the host; bucket_pack with 17 columns: its rank and move
+    kernels, and nothing else (no fill, cumsum or index_select)."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    rng = np.random.default_rng(4)
+    offs, vals = _var(rng, 50_000, card)
+    idx = torch.from_numpy(rng.integers(0, 50_000, 40_000)
+                           .astype(np.int32)).to(card)
+    seen = _cuda_kernels(lambda: kg.gather_var(offs, vals, idx), 5)
+    kernels_seen = {k: c for k, c in seen.items() if "Memcpy" not in k}
+    assert len(kernels_seen) == 2, seen
+    assert all(4 <= c <= 5 for c in kernels_seen.values()), seen
+    assert any("gather_offsets_kernel" in k for k in kernels_seen)
+    assert any("gather_copy_kernel" in k for k in kernels_seen)
+    assert len(seen) <= 3, seen
+    n = 60_000
+    keys = torch.from_numpy(rng.integers(-2**40, 2**40, n)).to(card)
+    cols = [torch.from_numpy(c).to(card)
+            for c in _bucket_inputs(rng, n, True)[2]]
+    cols = (cols * 3)[: kb.MAX_COLS]
+    seen = _cuda_kernels(lambda: kb.bucket_pack(keys, None, cols, 8,
+                                                16_384), 5)
+    assert len(seen) == 2 and all(4 <= c <= 5 for c in seen.values()), seen
+    assert any("bucket_rank_kernel" in k for k in seen)
+    assert any("bucket_move_kernel" in k for k in seen)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern,ci", [("%KK%", False), ("A%", False),
                                         ("%A_C%", False), ("", False),
@@ -1680,6 +1891,58 @@ def test_bucket_pack_kernel_matches_twin(card, n, n_parts, cap, hashed,
         assert torch.equal(g.cpu(), w)
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [1, 8, 33, 100, 3000, 19285])
+@pytest.mark.parametrize("n", [2047, 2048, 2049, 3 * 2048 + 15])
+def test_bucket_pack_tile_edges_match_twin(card, n, n_parts):
+    """Each row count around the rank pass's 2,048-row tile, to 1 to 19,285
+    destinations (past 1,228 the counters take more than 48 KB of shared
+    memory; at 19,285 one warp a tile), at capacity 0, 1, the largest
+    count and one less, masked, with every column width and 17 columns."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    rng = np.random.default_rng(n + n_parts)
+    route, mask, cols = _bucket_inputs(rng, n, True)
+    host = [torch.from_numpy(c) for c in (cols * 3)[: kb.MAX_COLS]]
+    m = torch.from_numpy(mask)
+    r = torch.from_numpy(route)
+    counts = kb.bucket_pack_plain(r, m, [], n_parts, 0)[1]
+    largest = int(counts.max())
+    for cap in (0, 1, largest, max(largest - 1, 0)):
+        want = kb.bucket_pack_plain(r, m, host, n_parts, cap)
+        got = kb.bucket_pack(r.to(card), m.to(card),
+                             [c.to(card) for c in host], n_parts, cap)
+        for g, w in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_bucket_pack_refuses_destinations_past_its_shared_memory(card):
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    keys = torch.arange(10, device=card)
+    with pytest.raises(ValueError, match="destinations exceed"):
+        kb.bucket_pack(keys, None, [keys], kb.MAX_PARTS + 1, 4)
+
+
+@pytest.mark.cuda
+def test_bucket_pack_past_the_resident_blocks_matches_twin(card):
+    """50 M rows to 8 destinations: 24,415 rank tiles, several times the
+    blocks the card holds at once, each waiting on the tiles before it."""
+    from exon_tpu_torch.kernels import bucket_pack as kb
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(51)
+    n = 50_000_000
+    keys = torch.randint(-2**62, 2**62, (n,), device=card, generator=gen)
+    mask = torch.rand(n, device=card, generator=gen) < 0.9
+    vals = torch.arange(n, dtype=torch.int32, device=card)
+    got = kb.bucket_pack(keys, mask, [vals], 8, n // 8)
+    want = kb.bucket_pack_plain(keys, mask, [vals], 8, n // 8)
+    for g, w in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

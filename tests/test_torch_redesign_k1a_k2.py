@@ -36,6 +36,7 @@ from exon_tpu.ops import strings as jstrings
 from exon_tpu.sql.frontend import MemTable as JMemTable
 import exon_tpu_torch as T
 from exon_tpu_torch.config import new_exon_config as t_config
+from exon_tpu_torch.kernels import _lookback
 from exon_tpu_torch.kernels import compact_mask as kc
 from exon_tpu_torch.kernels import map_bytes as kmb
 from exon_tpu_torch.ops import layout as tlayout
@@ -73,24 +74,25 @@ def test_mask_to_indices_matches_jax(n, kind):
 
 
 def test_compact_workspace_grows_and_clears_on_epoch_wrap(monkeypatch):
-    """The wrapper's status words per (device, stream): a call needing more
+    """The status words per (device, stream), kept by kernels/_lookback.py
+    for compact_mask (and bucket_pack and gather_var): a call needing more
     tiles gets a larger, cleared workspace, numbered from epoch 0 and ticket
     0; at the last epoch the words are cleared and the count restarts."""
-    monkeypatch.setattr(kc, "_workspaces", {})
+    monkeypatch.setattr(_lookback, "_workspaces", {})
     cpu = torch.device("cpu")
-    ws = kc._workspace(cpu, 7, 3)
+    ws = _lookback.workspace(cpu, 7, 3)
     assert ws.capacity == 3 and ws.words.shape == (4,)
     assert ws.ticket == ws.status + 8 * 3
     ws.epoch, ws.tickets = 5, 9
-    assert kc._workspace(cpu, 7, 2) is ws        # enough tiles: kept
-    assert kc._workspace(cpu, 8, 2) is not ws    # another stream
-    grown = kc._workspace(cpu, 7, 4)
+    assert _lookback.workspace(cpu, 7, 2) is ws        # enough tiles: kept
+    assert _lookback.workspace(cpu, 8, 2) is not ws    # another stream
+    grown = _lookback.workspace(cpu, 7, 4)
     assert grown is not ws and grown.capacity == 6
     assert (grown.epoch, grown.tickets) == (0, 0)
     assert not bool(grown.words.any())
     grown.words.fill_(-1)
-    grown.epoch = kc._EPOCH_LIMIT
-    assert kc._workspace(cpu, 7, 1) is grown
+    grown.epoch = _lookback.EPOCH_LIMIT
+    assert _lookback.workspace(cpu, 7, 1) is grown
     assert grown.epoch == 0 and not bool(grown.words.any())
 
 
