@@ -5,8 +5,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
-``gather_var,bucket_pack`` (any of them) runs phases 1-2 and those cases
-alone; ``--tree DIR`` imports exon_tpu_torch and
+``gather_var,bucket_pack,gather_spans,sw_score`` (any of them) runs phases
+1-2 and those cases alone, each taken apart into device time, launches
+and host time (sw_score also read from its SASS); ``--tree DIR`` imports
+exon_tpu_torch and
 benchlib from another checkout (an earlier commit, unpacked), so that two
 versions are timed in one run on one card.
 
@@ -38,8 +40,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    the adapter on the first FASTQ chunk the scan decodes (about 377,000
    reads of 150 bp; F's WHERE), on that chunk's reads that score >= 11
    (F's SELECT, printed apart) and read i against read i + 1, bounded by
-   its int32 operations (8 per DP cell, the fewest with Hopper's DPX
-   instructions, over the card's INT32 rate); count_bytes on one
+   its int32 operations (5.5 per DP cell, sw_score.cu's design with
+   Hopper's DPX instructions, over the card's INT32 rate); gather_spans
+   also on a CRLF copy of A's first 16 MiB; count_bytes on one
    131,072-read BAM batch (G) and on the FASTQ chunk (H's filter);
    polya_tail on the chunk's GC-rich reads and map_bytes on their trimmed
    forms (H's projection), both also on the whole chunk, printed apart.
@@ -215,13 +218,19 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM integer rate: 132 SMs x 64 INT32 units x 1.98 GHz boost (NVIDIA
 # H100 whitepaper; the clock that gives its 67 TFLOP/s float32)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# The fewest int32 instructions a Smith-Waterman DP cell needs on sm_90a:
-# per gap term a subtract and a DPX add-max (__viaddmax_s32), the match
-# score from a query profile and its diagonal add, one DPX clamped 3-way
-# max (__vimax3_s32_relu) and one max for the running best. sw_score.cu
-# issues 13 (no DPX, a compare and select per match). The data sheet gives
-# no separate DPX rate, so these count at the INT32 rate.
-SW_OPS_PER_CELL = 8
+# The int32 instructions a Smith-Waterman DP cell takes on sm_90a, in
+# sw_score.cu's design (its header): with every H, E and F of a row byte
+# kept plus its column, the row gap is one DPX add-max (__viaddmax_s32),
+# the query gap a subtract and one, the cell's H a clamped 3-way max
+# (__vimax3_s32) and one add-max of the profile's score, and the column's
+# best a 3-way max per two cells: 5.5. The score comes from a query profile
+# in shared memory, on the load pipe. The data sheet gives no separate DPX
+# rate, so these count at the INT32 rate.
+SW_OPS_PER_CELL = 5.5
+
+# the profiler splits of the focused cases (_print_split) run only under
+# --kernels, so the full smoke keeps its time
+SPLITS = False
 
 KERNELS = {
     "compact_mask": ("exon_tpu/ops/layout.py:75", "compact_mask.cu"),
@@ -1119,25 +1128,60 @@ def check_text_records(torch, chunk, nl, ends_in_newline) -> tuple[dict,
                      f"{int(got.is_hdr.sum())} headers"}, got
 
 
-def check_gather_spans(torch, chunk, lines) -> dict:
-    from exon_tpu_torch.kernels import gather_spans as k
+def _crlf_copy(torch, chunk, n_bytes: int = 16 << 20):
+    """The first n_bytes of a FASTA chunk, cut after a newline, with every
+    line ended by CRLF, on the card, and its lines (text_records)."""
+    from exon_tpu_torch.kernels import line_index, text_records
+
+    head = chunk[:n_bytes].cpu().numpy()
+    head = head[:int(np.flatnonzero(head == 10)[-1]) + 1]
+    text = np.insert(head, np.flatnonzero(head == 10), 13)
+    crlf = torch.from_numpy(text).cuda()
+    nl = line_index.line_index(crlf)
+    return crlf, text_records.text_records(crlf, nl, nl.shape[0], False,
+                                           True)
+
+
+def _spans_case(torch, k, label: str, text, lines) -> dict:
+    """gather_spans on a chunk's sequence column (one span a line, a
+    header's empty, '\r' dropped) against its twin, exact, timed beside its
+    bound; taken apart (_print_split) under --kernels."""
     from exon_tpu_torch.ops.device_text import lengths_to_offsets
 
-    # Query A's sequence column: one span per line, a header's empty
     dst = lengths_to_offsets(lines.body)
     stops = torch.where(lines.is_hdr, lines.start, lines.end)
     total = int(dst[-1])
-    args = (chunk, lines.start, stops, dst[:-1], total, (13,))
-    _exact("gather_spans", k.gather_spans(*args), k.gather_spans_plain(*args))
+    args = (text, lines.start, stops, dst[:-1], total, (13,))
+    _exact(label, k.gather_spans(*args), k.gather_spans_plain(*args))
     m = lines.start.shape[0]
     span_bytes = int((stops - lines.start).sum())
-    return {"max_abs_err": 0.0,
-            "ms": median_ms(lambda: k.gather_spans(*args), torch),
-            "plain_ms": median_ms(lambda: k.gather_spans_plain(*args), torch),
-            "library_ms": None,
-            # starts, stops, offsets and the spans' bytes in; kept bytes out
-            "bytes": 12 * m + span_bytes + total,
-            "shape": f"{m} spans, {span_bytes} bytes in, {total} out"}
+    r = {"max_abs_err": 0.0,
+         "ms": median_ms(lambda: k.gather_spans(*args), torch),
+         "plain_ms": median_ms(lambda: k.gather_spans_plain(*args), torch),
+         "library_ms": None,
+         # starts, stops, offsets and the spans' bytes in; kept bytes out
+         "bytes": 12 * m + span_bytes + total,
+         "shape": f"{m} spans, {span_bytes} bytes in, {total} out"}
+    _print_case(label, r)
+    # a yardstick for the copy: as many bytes copied whole (copy_), the
+    # least a gather that reads and writes each byte once could hope for
+    flat = torch.empty(total, dtype=torch.uint8, device="cuda")
+    print(f"    a plain copy of {total} bytes (torch copy_): "
+          f"{median_ms(lambda: flat.copy_(text[:total]), torch):.4f} ms")
+    if SPLITS:
+        _print_split(torch, label, lambda: k.gather_spans(*args))
+    return r
+
+
+def check_gather_spans(torch, chunk, lines) -> dict:
+    from exon_tpu_torch.kernels import gather_spans as k
+
+    # Query A's sequence column (the kernels line); then a CRLF copy of the
+    # chunk's first 16 MiB, so that every line's span carries a drop
+    r = _spans_case(torch, k, "gather_spans at A's chunk", chunk, lines)
+    _spans_case(torch, k, "gather_spans at a CRLF copy of A's first 16 MiB",
+                *_crlf_copy(torch, chunk))
+    return r
 
 
 def _fasta_ids(n: int) -> np.ndarray:
@@ -1288,7 +1332,7 @@ def _first_column(read, name: str):
     return col.offsets, col.values
 
 
-def _sw_case(torch, offs, vals) -> dict:
+def _sw_case(torch, offs, vals, label: str) -> dict:
     from exon_tpu_torch.kernels import sw_score as k
 
     q = torch.tensor(list(SW_QUERY), dtype=torch.uint8, device="cuda")
@@ -1296,24 +1340,30 @@ def _sw_case(torch, offs, vals) -> dict:
     _exact("sw_score", k.sw_score(offs, vals, q), k.sw_score_plain(offs, vals,
                                                                    q))
     cells = total * len(SW_QUERY)
-    return {"max_abs_err": 0.0, "library_ms": None,
-            "ms": median_ms(lambda: k.sw_score(offs, vals, q), torch),
-            "plain_ms": median_ms(lambda: k.sw_score_plain(offs, vals, q),
-                                  torch),
-            # offsets, the reads and the query in, an int32 score out
-            "bytes": 4 * (n + 1) + total + len(SW_QUERY) + 4 * n,
-            "ops": SW_OPS_PER_CELL * cells,
-            "shape": f"{n} reads, {total} bytes, a {len(SW_QUERY)}-byte query, "
-                     f"{cells} cells"}
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         "ms": median_ms(lambda: k.sw_score(offs, vals, q), torch),
+         "plain_ms": median_ms(lambda: k.sw_score_plain(offs, vals, q),
+                               torch),
+         # offsets, the reads and the query in, an int32 score out
+         "bytes": 4 * (n + 1) + total + len(SW_QUERY) + 4 * n,
+         "ops": SW_OPS_PER_CELL * cells,
+         "shape": f"{n} reads, {total} bytes, a {len(SW_QUERY)}-byte query, "
+                  f"{cells} cells"}
+    _print_case(label, r)
+    if SPLITS:
+        _print_split(torch, label, lambda: k.sw_score(offs, vals, q))
+    return r
 
 
 def check_sw(torch, chunk, kept) -> dict:
     from exon_tpu_torch.kernels import sw_score as k
 
     # Query F's WHERE: each read of the first FASTQ chunk against the
-    # adapter; its SELECT: the reads of that chunk that scored >= 11; then
-    # the pairwise form, read i of the chunk against read i + 1
-    _print_case("sw_score SELECT", _sw_case(torch, *kept))
+    # adapter (the kernels line); its SELECT: the reads of that chunk that
+    # scored >= 11; then the pairwise form, read i of the chunk against
+    # read i + 1
+    r = _sw_case(torch, *chunk, "sw_score F's WHERE")
+    _sw_case(torch, *kept, "sw_score F's SELECT")
     offs, vals = chunk
     n = offs.shape[0] - 1
     a_offs, b_offs = offs[:-1].contiguous(), (offs[1:] - offs[1]).contiguous()
@@ -1328,7 +1378,132 @@ def check_sw(torch, chunk, kept) -> dict:
     print(f"  sw_score pairwise ({n - 1} read pairs, {pair_cells} cells): "
           f"kernel {pair_ms:.4f} ms, twin {pair_plain:.4f} ms (median of 3), "
           f"bound {ops_ms(SW_OPS_PER_CELL * pair_cells):.4f} ms by operations")
-    return _sw_case(torch, offs, vals)
+    if SPLITS:
+        _print_split(torch, "sw_score pairwise",
+                     lambda: k.sw_score_pairwise(*pair))
+    return r
+
+
+def _sass_functions(lib: str) -> dict:
+    """cuobjdump's SASS of the library, as {function name: [(opcode,
+    branch target or None, label or None)]}; {} where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, cur, label = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*(\.L_\w+):", line)
+        if m:
+            label = m.group(1)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m is None or cur is None:
+            continue
+        body = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+        op = body.split()[0] if body else ""
+        target = None
+        if op.split(".")[0] == "BRA":
+            t = re.search(r"\(?(\.L_\w+)\)?|0x([0-9a-f]+)", body)
+            if t:
+                target = t.group(1) or int(t.group(2), 16)
+        cur.append((int(m.group(1), 16), op, target, label,
+                    m.group(2).startswith("@")))
+        label = None
+    return funcs
+
+
+def _hot_loop(ins: list):
+    """The innermost loop with the most instructions: (its first and last
+    index, the indices of conditional forward branches inside it that share
+    one target inside it, that target's index)."""
+    at_label = {lab: i for i, (_a, _o, _t, lab, _p) in enumerate(ins) if lab}
+    at_addr = {a: i for i, (a, _o, _t, _l, _p) in enumerate(ins)}
+
+    def index_of(target):
+        return at_label.get(target) if isinstance(target, str) else \
+            at_addr.get(target)
+
+    loops = []
+    for i, (_a, op, target, _l, _p) in enumerate(ins):
+        j = index_of(target) if target is not None else None
+        if j is not None and j <= i:
+            loops.append((j, i))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in loops)]
+    if not inner:
+        return None
+    top, end = max(inner, key=lambda lp: lp[1] - lp[0])
+    exits: dict = {}
+    for i in range(top, end + 1):
+        _a, op, target, _l, pred = ins[i]
+        j = index_of(target) if target is not None else None
+        if pred and j is not None and i < j <= end:
+            exits.setdefault(j, []).append(i)
+    target, guards = max(exits.items(), key=lambda kv: len(kv[1]),
+                         default=(None, []))
+    return top, end, (guards if len(guards) >= 8 else []), target
+
+
+def print_sw_sass() -> None:
+    """sw_score's column loop read from the SASS of the built library
+    (cuobjdump): for each sw_score kernel, the instructions of its hottest
+    innermost loop (two row bytes of W cells each, W the pass width in its
+    name; an earlier checkout's sw_score_kernel, read under --tree, walks
+    one row byte of 32 cells, each behind a test of the query's length),
+    the DPX instructions among them, and the instructions a cell;
+    where cells are guarded, those a column executes at Query F's 13-byte
+    query (up to the guard that ends the column, and the column's tail)."""
+    import re
+    from collections import Counter
+
+    from exon_tpu_torch.kernels import _build
+
+    funcs = _sass_functions(str(_build.build()))
+    if not funcs:
+        print("  sw_score SASS: cuobjdump not found: not measured")
+        return
+    q = len(SW_QUERY)
+    for name, ins in sorted(funcs.items()):
+        if "sw_" not in name:
+            continue
+        loop = _hot_loop(ins)
+        if loop is None:
+            print(f"  sw_score SASS {name}: no loop found")
+            continue
+        top, end, guards, target = loop
+        n = end - top + 1
+        ops = Counter(op.split(".")[0] for _a, op, _t, _l, _p in
+                      ins[top:end + 1])
+        dpx = sum(v for k, v in ops.items() if k.startswith("VI"))
+        # cells a loop iteration: the kernels templated on the pass width W
+        # walk two row bytes an iteration; an earlier checkout's
+        # sw_score_kernel one row byte of 32 guarded cells
+        w = re.search(r"ILi(\d+)E", name)
+        cells = 2 * int(w.group(1)) if w else 32
+        line = (f"  sw_score SASS {name}: column loop {n} instructions, "
+                f"{dpx} DPX, {cells} cells: {n / cells:.2f} a cell")
+        if guards:
+            g = q - (cells - len(guards))  # the guard that ends a column
+            run = (guards[g] - top + 1 + end - target + 1) if \
+                0 <= g < len(guards) else None
+            line += (f"; {len(guards)} guarded cells, a {q}-byte query "
+                     f"runs {run} a column: {run / q:.2f} a cell"
+                     if run else f"; {len(guards)} guarded cells")
+        elif w and q <= int(w.group(1)) < 2 * q:  # the width taken for q
+            line += f"; at a {q}-byte query {n / (2 * q):.2f} a real cell"
+        top_ops = ", ".join(f"{k} {v}" for k, v in ops.most_common(8))
+        print(f"{line} ({top_ops})")
 
 
 def check_count_bytes(torch, bam_col, fq_col) -> dict:
@@ -3870,10 +4045,39 @@ def check_gather_alone(torch) -> None:
                  template_names(N_TEMPLATES, BAM_SEED)[:N_ROWS])
 
 
-# the cases a run with --kernels can take alone: phase 3's of six kernels
+def check_gather_spans_alone(torch) -> None:
+    """gather_spans' cases of phase 3: A's chunk and its CRLF copy."""
+    from exon_tpu_torch.kernels import line_index, text_records
+
+    chunk, ends_in_newline = _fasta_chunk(torch)
+    nl = line_index.line_index(chunk)
+    check_gather_spans(torch, chunk, text_records.text_records(
+        chunk, nl, nl.shape[0] + (0 if ends_in_newline else 1), False, True))
+
+
+def check_sw_alone(torch) -> None:
+    """sw_score's cases of phase 3 (F's WHERE and SELECT, the pairwise
+    form) on the first batch of F's own scan and filter, and its column
+    loop's instructions from the SASS."""
+    import exon_tpu_torch as T
+    from benchlib.fastq_fixture import make_fastq
+
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    score = T.FunctionCall("alignment_score", [T.col("sequence"),
+                                               T.lit(SW_QUERY.decode())])
+    check_sw(torch, _first_column(lambda s: s.read_fastq(fq_path),
+                                  "sequence"),
+             _first_column(lambda s: s.read_fastq(fq_path).filter(
+                 score >= 11), "sequence"))
+    print_sw_sass()
+
+
+# the cases a run with --kernels can take alone: phase 3's of eight kernels
 # (each at the shapes its redesign was measured at), and phase 5's of Q's
 # aggregate (hash_aggregate on Q's path)
 FOCUS = {
+    "gather_spans": check_gather_spans_alone,
+    "sw_score": check_sw_alone,
     "gather_var": check_gather_alone,
     "bucket_pack": check_bucket_pack_alone,
     "hash_aggregate": lambda torch: check_hash(
@@ -3910,6 +4114,8 @@ def main() -> int:
         fail(f"exon_tpu_torch is not in {root}")
     sys.path.insert(0, root)
     if args.kernels:
+        global SPLITS
+        SPLITS = True
         name, card = phase_device(torch)
         phase_build()
         phase_focus(torch, args.kernels.split(","))

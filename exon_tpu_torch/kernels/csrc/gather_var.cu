@@ -23,32 +23,32 @@
 //   first `marks` blocks). The last tile writes the total as int64. Status
 //   words saturate at 2^32 - 1, so a total of 2^31 bytes or more is seen
 //   (and refused by the wrapper) and never wraps.
-// gather_copy_kernel: the output in 16-byte words, balanced over bytes,
-//   not rows, so 37-byte names and 680-byte sequences run alike. A block
-//   takes kBlockBytes = 4 KB of output; the marks name the rows holding its
-//   first byte and the next block's (past the marks, and for the last
-//   block, a 32-way search of the new offsets by one warp finds them), and
-//   the block stages those rows' new offsets and source starts in shared
-//   memory (past kStage rows it reads them in place). Each thread then
-//   takes one word (neighbouring threads, neighbouring words), finds the
-//   row of its first byte by a binary search of the staged offsets and,
-//   when the word lies inside the row, assembles it from the two aligned
-//   16-byte source words that cover it, funnel-shifted by the source's
-//   offset from 16-byte alignment (as map_bytes.cu's load16, here without
-//   a branch; source and destination alignments differ by row), into one
-//   aligned 16-byte store. A word across one row edge is two runs, the end
-//   of one row and the start of the next, the second loaded from as many
-//   bytes before its start as the first run holds, so that both line up
-//   with the output and a byte mask joins them (join), both loads issued
-//   together. A word across more edges (rows under 16 bytes), near the end
-//   of values or at the output's end takes its runs one by one (edge_word;
-//   byte loads within 16 bytes of the end of values). Only aligned words
-//   that hold a byte of values are read.
+// gather_copy_kernel: the output in 16-byte words, balanced over bytes, not
+//   rows, so 37-byte names and 680-byte sequences run alike. A block takes
+//   kBlockBytes = 4 KB of output; the marks name the rows holding its first
+//   byte and the next block's (past the marks, and for the last block, a
+//   32-way search of the new offsets by one warp finds them), and the block
+//   stages those rows' new offsets and source starts in shared memory (past
+//   kStage rows it reads them in place). Each thread then takes one word
+//   (neighbouring threads, neighbouring words), finds the row of its first
+//   byte by a binary search of the staged offsets and, when the word lies
+//   inside the row, assembles it from the two aligned 16-byte source words
+//   that cover it, funnel-shifted by the source's offset from 16-byte
+//   alignment (copy16.cuh's load16, shared with gather_spans.cu; source and
+//   destination alignments differ by row), into one aligned 16-byte store. A
+//   word across one row edge is two runs, the end of one row and the start of
+//   the next, the second loaded from as many bytes before its start as the
+//   first run holds, so that both line up with the output and a byte mask
+//   joins them (join), both loads issued together. A word across more edges
+//   (rows under 16 bytes), near the end of values or at the output's end takes
+//   its runs one by one (edge_word; byte loads within 16 bytes of the end of
+//   values). Only aligned words that hold a byte of values are read.
 // The kernels allocate nothing and do not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "copy16.cuh"
 #include "lookback.cuh"
 
 namespace {
@@ -60,7 +60,7 @@ constexpr int kTile = kThreads * kRowsPerThread;
 constexpr int kWordsPerThread = 1;
 constexpr int64_t kBlockBytes = 16 * kThreads * kWordsPerThread;
 constexpr int kStage = 2048;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace copy16;
 
 __global__ void __launch_bounds__(kThreads)
 gather_offsets_kernel(const int32_t* __restrict__ src_offsets,
@@ -145,115 +145,6 @@ gather_offsets_kernel(const int32_t* __restrict__ src_offsets,
   if (tile == n_tiles - 1 && threadIdx.x == 0) *total = prefix + tile_bytes;
 }
 
-// The row holding output byte p, by the 32 lanes of a warp: the last row r
-// with new_off[r] <= p (a non-empty row, since new_off[m] > p).
-__device__ __forceinline__ int64_t warp_find_row(const int32_t* new_off,
-                                                 int64_t m, int64_t p,
-                                                 int lane) {
-  int64_t lo = 0, hi = m;  // new_off[lo] <= p < new_off[hi]
-  while (hi - lo > 32) {
-    const int64_t step = (hi - lo + 31) / 32;
-    const int64_t probe = lo + lane * step;
-    const unsigned le =
-        __ballot_sync(kFull, probe < hi && new_off[probe] <= p);
-    lo += (31 - __clz(le)) * step;
-    hi = min(lo + step, hi);
-  }
-  const unsigned le =
-      __ballot_sync(kFull, lo + lane < hi && new_off[lo + lane] <= p);
-  return lo + 31 - __clz(le);
-}
-
-// The last i in [0, hi) with off[i] <= p, given off[0] <= p < off[hi]: a
-// binary search by halving steps, without a branch.
-__device__ __forceinline__ int find_row(const int32_t* off, int hi,
-                                        int64_t p) {
-  int lo = 0;
-  for (int step = hi > 1 ? 1 << (31 - __clz(hi - 1)) : 0; step > 0;
-       step >>= 1) {
-    if (lo + step < hi && off[lo + step] <= p) lo += step;
-  }
-  return lo;
-}
-
-// The 16 bytes at src, all inside one row, without a branch: from the
-// aligned 16-byte word that holds src and the next one, which holds src[15]
-// unless src is aligned (then the same word is read twice), shifted into
-// place by 8, 4 and then 0-3 bytes.
-__device__ __forceinline__ uint4 load16(const uint8_t* src) {
-  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-  const uint4* base = reinterpret_cast<const uint4*>(src - shift);
-  const uint4 lo = base[0];
-  const uint4 hi = base[shift != 0];
-  const unsigned a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  const bool by8 = shift & 8, by4 = shift & 4;
-  unsigned b[6], c[5];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) b[j] = by8 ? a[j + 2] : a[j];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) c[j] = by4 ? b[j + 1] : b[j];
-  const unsigned r8 = 8u * (shift & 3);
-  return make_uint4(__funnelshift_r(c[0], c[1], r8),
-                    __funnelshift_r(c[1], c[2], r8),
-                    __funnelshift_r(c[2], c[3], r8),
-                    __funnelshift_r(c[3], c[4], r8));
-}
-
-// Word idx of a (0 below 0).
-__device__ __forceinline__ unsigned pick(const unsigned (&a)[4], int idx) {
-  return idx == 0 ? a[0] : idx == 1 ? a[1] : idx == 2 ? a[2]
-                                            : idx == 3 ? a[3] : 0u;
-}
-
-// The low k bytes of v (1 <= k <= 16), moved up by `at` bytes (0 <= at <
-// 16); the bytes moved past 16 are dropped.
-__device__ __forceinline__ uint4 place(uint4 v, int k, int at) {
-  unsigned a[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int b = k - 4 * j;
-    a[j] &= b >= 4 ? 0xffffffffu : b <= 0 ? 0u : (1u << (8 * b)) - 1u;
-  }
-  const int q = at >> 2;
-  const unsigned r8 = 8u * (at & 3);
-  return make_uint4(__funnelshift_l(pick(a, -1 - q), pick(a, -q), r8),
-                    __funnelshift_l(pick(a, -q), pick(a, 1 - q), r8),
-                    __funnelshift_l(pick(a, 1 - q), pick(a, 2 - q), r8),
-                    __funnelshift_l(pick(a, 2 - q), pick(a, 3 - q), r8));
-}
-
-// The low k bytes of a (1 <= k <= 16) and the rest of b's.
-__device__ __forceinline__ uint4 join(uint4 a, uint4 b, int k) {
-  unsigned m[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = k - 4 * j;
-    m[j] = n >= 4 ? 0xffffffffu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
-  }
-  return make_uint4((a.x & m[0]) | (b.x & ~m[0]),
-                    (a.y & m[1]) | (b.y & ~m[1]),
-                    (a.z & m[2]) | (b.z & ~m[2]),
-                    (a.w & m[3]) | (b.w & ~m[3]));
-}
-
-// The k bytes at src (k <= 16), byte by byte.
-__device__ __forceinline__ uint4 load_bytes(const uint8_t* src, int k) {
-  unsigned a[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    if (t < k) a[t >> 2] |= static_cast<unsigned>(src[t]) << (8 * (t & 3));
-  }
-  return make_uint4(a[0], a[1], a[2], a[3]);
-}
-
-// The k bytes at values[s]: load16 when the 16 bytes from s lie inside
-// values (of n_values bytes), else byte by byte.
-__device__ __forceinline__ uint4 load_run(const uint8_t* __restrict__ values,
-                                          int64_t n_values, int64_t s,
-                                          int k) {
-  return s + 16 <= n_values ? load16(values + s) : load_bytes(values + s, k);
-}
-
 // A word the copy does not take in two runs: its bytes row by row from the
 // staged row i holding byte p, one run at a time (load_run), each moved
 // into place; the output's last word is stored bytewise.
@@ -284,11 +175,7 @@ __device__ __forceinline__ void edge_word(const uint8_t* __restrict__ values,
     *reinterpret_cast<uint4*>(out + p) = acc;
     return;
   }
-  const unsigned a[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-  for (int t = 0; t < 15; ++t) {
-    if (t < n) out[p + t] = static_cast<uint8_t>(a[t >> 2] >> (8 * (t & 3)));
-  }
+  store_bytes(out + p, acc, n);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -21,6 +21,7 @@ from . import _build
 launches = 0
 
 CR = 13
+TILE = 1024  # output bytes a warp of the copy takes (kTileBytes)
 
 
 def _drops(drop: tuple) -> tuple[int, int]:
@@ -76,8 +77,16 @@ def gather_spans(src: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     m = starts.shape[0]
     if m == 0 or total == 0:
         return out
+    if src.shape[0] >= 2**31 or total >= 2**31:
+        raise ValueError("gather_spans: the kernel takes fewer than 2^31 "
+                         "source and output bytes")
+    # the span holding each tile's first byte, and the output's last byte's,
+    # written by the first launch
+    marks = torch.empty((total + TILE - 1) // TILE + 1, dtype=torch.int32,
+                        device=src.device)
     _build.check(_build.library().exon_gather_spans(
-        src.data_ptr(), starts.data_ptr(), stops.data_ptr(), dst.data_ptr(),
-        m, a, b, out.data_ptr(), _build.stream_of(src)), "gather_spans")
+        src.data_ptr(), src.shape[0], starts.data_ptr(), stops.data_ptr(),
+        dst.data_ptr(), m, total, a, b, marks.data_ptr(), out.data_ptr(),
+        _build.stream_of(src)), "gather_spans")
     launches += 1
     return out

@@ -23,7 +23,9 @@ from . import _build
 launches = 0
 
 NEG = -(1 << 20)  # exon_tpu/ops/alignment.py:29
-PASS_BYTES = 32   # query bytes per pass of the kernel (K in sw_score.cu)
+# query bytes per pass of the kernel's widest width (W in sw_score.cu); the
+# kernel takes 8, 16 or 32, the least that holds the longest query
+PASS_BYTES = 32
 TWIN_CELLS = 1 << 22  # rows x padded width of one block of the twin
 
 
@@ -140,7 +142,7 @@ def _launch(a_offsets, a_values, b_offsets, b_values, qlen: int,
     b_values = b_values.contiguous()
     _build.check(_build.library().exon_sw_score(
         a_values.data_ptr(), a_offsets.data_ptr(), n, b_values.data_ptr(),
-        b_ptr, qlen, edge.data_ptr(), out.data_ptr(),
+        b_ptr, qlen, max_b, edge.data_ptr(), out.data_ptr(),
         _build.stream_of(a_values)), "sw_score")
     launches += 1
     return out

@@ -447,7 +447,7 @@ class DistributedAggregateExec(AggregateExec):
         if self.mesh.n_processes > 1:
             every = allgather_pickled(partials)
             partials = self._merge_partials(every[1:], every[0])
-        return self._finalize_ungrouped(partials)
+        return self._finalize_ungrouped(partials, self.mesh.devices[0])
 
 
 # ---------------------------------------------------------------------------

@@ -144,6 +144,18 @@ class ProjectExec(PhysicalPlan):
             yield Batch(self.out_schema, cols, b.length, b.device)
 
 
+def plan_device(plan: PhysicalPlan) -> Optional[torch.device]:
+    """The device a plan's leaves put their batches on: the first scan's
+    or VALUES' ``device`` below it; None when no leaf names one."""
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, (ScanExec, ValuesExec)):
+            return torch.device(p.device)
+        stack.extend(reversed(p.children()))
+    return None
+
+
 def _to_column(v, batch: Batch):
     """An evaluated expression as a column (exon_tpu/plan/physical.py:168):
     a Python scalar fills every row, a string repeats its bytes."""
@@ -342,6 +354,7 @@ class AggregateExec(PhysicalPlan):
                 col, at = host.columns[at], at + 1
             cols.append(_holistic_column(call, col, gid, len(first), f.dtype))
         out = Batch(self.out_schema, cols, len(first))
+        device = device or plan_device(self.input)
         return out if device is None else out.to_device(device)
 
     def _mask(self, b: Batch) -> torch.Tensor:
@@ -380,10 +393,13 @@ class AggregateExec(PhysicalPlan):
             # batch lengths during ingest (exon_tpu/plan/physical.py:323)
             total = sum(hb.length for hb in self.input.source())
             return self._finalize_ungrouped(
-                [(total, total)] * len(self.agg_calls))
-        device_parts = [self._ungrouped_partials(b, self._mask(b))
-                        for b in self.input.batches()]
-        return self._finalize_ungrouped(self._merge_partials(device_parts))
+                [(total, total)] * len(self.agg_calls), self.input.device)
+        device, device_parts = None, []
+        for b in self.input.batches():
+            device = b.device
+            device_parts.append(self._ungrouped_partials(b, self._mask(b)))
+        return self._finalize_ungrouped(self._merge_partials(device_parts),
+                                        device or plan_device(self.input))
 
     def _ungrouped_partials(self, b: Batch, mask) -> list:
         """Per call, the batch's partial as 0-d device tensors."""
@@ -420,7 +436,10 @@ class AggregateExec(PhysicalPlan):
                 ((0.0, 0.0, 0) if call.fn in VAR_FNS else (0, 0))
                 for p, call in zip(partials, self.agg_calls)]
 
-    def _finalize_ungrouped(self, partials: list) -> Batch:
+    def _finalize_ungrouped(self, partials: list, device) -> Batch:
+        """The one result row, moved to ``device`` (the input's) as the
+        grouped and holistic results are; a host batch only when no device
+        is known."""
         cols = []
         for p, call, f in zip(partials, self.agg_calls,
                               self.out_schema.all_fields):
@@ -436,7 +455,8 @@ class AggregateExec(PhysicalPlan):
             cols.append(fixed_column(np.asarray([0 if out is None else out],
                                                 dtype=npdt),
                                      np.asarray([out is not None])))
-        return Batch(self.out_schema, cols, 1)
+        out = Batch(self.out_schema, cols, 1)
+        return out if device is None else out.to_device(device)
 
     # -- grouped ------------------------------------------------------------
 

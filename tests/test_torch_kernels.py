@@ -1176,6 +1176,180 @@ def test_sw_score_kernel_aligns_rows_past_2048_bytes(card):
                                     device=card))
 
 
+# -- gather_spans' and sw_score's Hopper designs ------------------------------
+# gather_spans: tiles of 16 KB of output, 16-byte words, plain spans (drops
+# only at their ends, trimmed) copied by aligned loads, masked spans (a drop
+# inside) placed by rank in shared memory. sw_score: pass widths 8, 16 and
+# 32 picked from the longest query, padding past the query's end, a query
+# profile. These builders are shared with test_torch_redesign_k8c_k9.py,
+# which holds the twins to exon_tpu on the same cases.
+
+SPAN_CASES = ["lengths_0_1_15_16_17", "one_mib_span", "every_alignment",
+              "crlf", "gt_inside_name", "cr_inside_line", "starts_descending",
+              "plain_and_masked_in_one_word", "total_zero"]
+SPAN_DROPS = [(), (13,), (13, 62)]
+
+
+def span_case(case: str) -> tuple:
+    """(src uint8, starts, stops int32) of a gather_spans case, numpy."""
+    rng = np.random.default_rng(len(case) * 31 + 7)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+
+    def text(n):
+        return letters[rng.integers(0, len(letters), n)]
+
+    pieces, starts, stops, at = [], [], [], 0
+
+    def span(body: bytes, gap: int = 1):
+        nonlocal at
+        b = np.frombuffer(body, np.uint8) if isinstance(body, bytes) else body
+        pieces.append(b)
+        pieces.append(np.full(gap, 10, np.uint8))
+        starts.append(at)
+        stops.append(at + len(b))
+        at += len(b) + gap
+
+    if case == "lengths_0_1_15_16_17":
+        for n in rng.choice([0, 1, 15, 16, 17], 3000):
+            span(text(n), int(rng.integers(0, 3)))
+    elif case == "one_mib_span":
+        big = text(1 << 20)
+        big[rng.integers(0, 1 << 20, 5)] = 13   # masked where 13 drops
+        span(text(40))
+        span(big)
+        span(text(17))
+    elif case == "every_alignment":
+        # each (source, destination) alignment mod 16: a pad span sets the
+        # output's, a gap the source's, then a 40-byte span
+        out_at = 0
+        for sa in range(16):
+            for da in range(16):
+                span(text((da - out_at) % 16), 0)
+                out_at += (da - out_at) % 16
+                pad = (sa - at) % 16
+                pieces.append(np.full(pad, 10, np.uint8))
+                at += pad
+                span(text(40), 0)
+                out_at += 40
+    elif case == "crlf":
+        for n in rng.integers(0, 70, 2000):
+            span(np.concatenate([text(n), [13]]).astype(np.uint8))
+    elif case == "gt_inside_name":
+        for i in range(1500):
+            name = b">sp|P%05d|N%d" % (i, i) + (b">x" if i % 7 == 0 else b"")
+            span(name)
+    elif case == "cr_inside_line":
+        for n in rng.integers(1, 90, 2000):
+            line = text(int(n))
+            if rng.random() < 0.1:
+                line[rng.integers(0, n)] = 13
+            span(line)
+    elif case == "starts_descending":
+        src = text(50_000)
+        src[rng.integers(0, 50_000, 300)] = 13
+        st = np.sort(rng.integers(0, 49_000, 2000))[::-1]
+        return src, st.astype(np.int32), \
+            (st + rng.integers(0, 900, 2000)).astype(np.int32)
+    elif case == "plain_and_masked_in_one_word":
+        for i in range(1000):
+            span(text(7), 0)
+            m = text(9)
+            m[4] = 13
+            span(m, 0)
+    elif case == "total_zero":
+        for n in rng.integers(0, 5, 500):
+            span(np.full(n, 13, np.uint8), 1)
+    src = np.concatenate(pieces) if pieces else np.zeros(0, np.uint8)
+    return (src.astype(np.uint8), np.asarray(starts, np.int32),
+            np.asarray(stops, np.int32))
+
+
+def span_args(src, starts, stops, drop: tuple, device) -> tuple:
+    """gather_spans' arguments: dst the exclusive scan of the kept lengths
+    (the total for drop 13 alone is 0 in total_zero only)."""
+    dropped = np.isin(src, np.asarray(drop, np.uint8)) if drop else \
+        np.zeros(len(src), bool)
+    kept_before = np.concatenate([[0], np.cumsum(~dropped)])
+    kept = kept_before[stops] - kept_before[starts]
+    dst = np.concatenate([[0], np.cumsum(kept)[:-1]]).astype(np.int32)
+    return (torch.from_numpy(src.copy()).to(device),
+            torch.from_numpy(starts.copy()).to(device),
+            torch.from_numpy(stops.copy()).to(device),
+            torch.from_numpy(dst).to(device), int(kept.sum()), drop)
+
+
+SW_QLENS = [1, 7, 8, 9, 13, 16, 17, 31, 32, 33, 64]
+
+
+def sw_rows(seed: int, n: int = 300, max_len: int = 300) -> tuple:
+    """Seeded DNA rows of 0-max_len bytes, every tenth empty, and a validity
+    with about 8 % NULL (a NULL row's bytes are dropped, as a scan leaves
+    them): (offsets int32, values uint8, validity bool), numpy."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    valid = rng.random(n) >= 0.08
+    lens = np.where(valid, rng.integers(0, max_len + 1, n), 0)
+    lens[::10] = 0
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    vals = letters[rng.integers(0, 4, int(offs[-1]))]
+    return offs, vals, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPAN_CASES)
+@pytest.mark.parametrize("drop", SPAN_DROPS)
+def test_gather_spans_design_cases_match_twin(card, case, drop):
+    args = span_args(*span_case(case), drop, card)
+    got = kgs.gather_spans(*args)
+    assert got.shape[0] == args[4]
+    assert torch.equal(got, kgs.gather_spans_plain(*args))
+
+
+@pytest.mark.cuda
+def test_gather_spans_on_views_at_every_offset_match_twin(card):
+    # the source as a view at offsets 0-15 into its storage, so that the
+    # same spans meet every alignment of the 16-byte loads, and a chunk
+    # that ends right after its last span
+    src, starts, stops = span_case("crlf")
+    for off in range(16):
+        base = torch.zeros(len(src) + off, dtype=torch.uint8, device=card)
+        base[off:] = torch.from_numpy(src).to(card)
+        args = span_args(src, starts, stops, (13,), card)
+        args = (base[off:],) + args[1:]
+        assert torch.equal(kgs.gather_spans(*args),
+                           kgs.gather_spans_plain(*args))
+    last = int(stops.max())
+    args = span_args(src[:last], starts, stops, (13,), card)
+    assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qlen", SW_QLENS)
+def test_sw_score_every_width_matches_twin(card, qlen):
+    # widths 8 (1, 7, 8), 16 (9, 13, 16), 32 (17, 31, 32) and passes of 32
+    # through the edge buffer (33, 64)
+    offs, vals, _valid = sw_rows(100 + qlen)
+    q = np.frombuffer(b"ACGT", np.uint8)[
+        np.random.default_rng(qlen).integers(0, 4, qlen)]
+    args = (torch.from_numpy(offs).to(card), torch.from_numpy(vals).to(card),
+            torch.from_numpy(q.copy()).to(card))
+    assert torch.equal(ksw.sw_score(*args), ksw.sw_score_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_partner", [8, 16, 32, 64])
+def test_sw_score_pairwise_every_width_matches_twin(card, max_partner):
+    # partners of 0 to max_partner bytes: each width, empty partners, rows
+    # of one pass beside rows of several
+    offs, vals, _valid = sw_rows(200 + max_partner)
+    b_offs, b_vals, _ = sw_rows(300 + max_partner, max_len=max_partner)
+    args = [torch.from_numpy(x).to(card) for x in (offs, vals, b_offs,
+                                                  b_vals)]
+    assert torch.equal(ksw.sw_score_pairwise(*args),
+                       ksw.sw_score_pairwise_plain(*args))
+
+
 @pytest.mark.cuda
 def test_count_map_and_polya_kernels_match_twins(card):
     offs, vals = _seqs(np.random.default_rng(21), 20_000, card)
@@ -1738,6 +1912,26 @@ def test_windows_and_set_operations_on_the_card_match_the_cpu(card,
         want = T.ExonSession(device="cpu").sql(sql.format(g=gff))
         assert host_rows(got.collect_host()) == host_rows(
             want.collect_host()), sql
+
+
+@pytest.mark.cuda
+def test_f35_rollup_under_order_by_on_the_card(card, tmp_path):
+    """F35: a ROLLUP's ungrouped branch lands on the card, so the sort above
+    the union takes it; the result equals the CPU run, and an ungrouped
+    aggregate's columns lie on the card."""
+    import exon_tpu_torch as T
+    from benchlib.gff_fixture import make_gff
+
+    gff = make_gff(5000, 3, path=str(tmp_path / "t.gff"))
+    sql = (f"SELECT seqname, strand, COUNT(*) AS n, SUM(start) AS s FROM "
+           f"gff_scan('{gff}') GROUP BY ROLLUP(seqname, strand) ORDER BY "
+           "seqname, strand")
+    got = T.ExonSession(device="cuda").sql(sql).collect_arrow()
+    assert got.equals(T.ExonSession(device="cpu").sql(sql).collect_arrow())
+    df = T.ExonSession(device="cuda").sql(
+        f"SELECT COUNT(*) AS n, MAX(start) AS m FROM gff_scan('{gff}')")
+    (batch,) = list(df._execute(df.logical_plan()).batches())
+    assert all(c.values.device.type == "cuda" for c in batch.columns)
 
 
 # ---------------------------------------------------------------------------
