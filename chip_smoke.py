@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
-``gather_var,bucket_pack,gather_spans,sw_score`` (any of them) runs phases
-1-2 and those cases alone, each taken apart into device time, launches
-and host time (sw_score also read from its SASS); ``--tree DIR`` imports
+``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index`` (any
+of them) runs phases 1-2 and those cases alone, each taken apart into
+device time, launches and host time (sw_score also read from its SASS;
+line_index also at the first FASTQ chunk); ``--tree DIR`` imports
 exon_tpu_torch and
 benchlib from another checkout (an earlier commit, unpacked), so that two
 versions are timed in one run on one card.
@@ -63,7 +64,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    compact_mask is) and its word-start mode on J's trimmed descriptions (initcap); polya_tail's
    leading space run on J's descriptions (trim) and trailing 'N' run on
    K's cut reads of the first FASTQ chunk (rtrim); like_match's position
-   mode on K's strpos over that chunk; translate (on no query's path) at
+   mode on K's strpos and E's adapter LIKE over that chunk; translate (on no query's path) at
    J's shape, beside table[values]. Batch.to_device is timed beside its
    bound over the host link. The window kernels (K10) run at Query L's
    shape, the panel's 1,008,303 rows concatenated on the card:
@@ -612,6 +613,9 @@ def check_like(torch, offs, vals) -> dict:
         print(f"  like {pattern!r} ci={ci}: {times[pattern][2]} rows match, "
               f"kernel {times[pattern][0]:.4f} ms, twin "
               f"{times[pattern][1]:.4f} ms")
+        if SPLITS:
+            _print_split(torch, f"like {pattern!r}",
+                         lambda: k.like_match(offs, vals, chunks, ci))
     return {"max_abs_err": 0.0, "ms": times["%KK%"][0],
             "plain_ms": times["%KK%"][1], "library_ms": None,
             # offsets in, each row's bytes up to its first KK, a bool out
@@ -1091,19 +1095,26 @@ def _fasta_chunk(torch):
     return torch.from_numpy(chunk).cuda(), data[hi - 1] == ord("\n")
 
 
-def check_line_index(torch, chunk) -> tuple[dict, object]:
+def check_line_index(torch, chunk, label: str = "line_index at A's chunk"
+                     ) -> tuple[dict, object]:
+    """line_index against its twin, exact, beside ``nonzero(chunk == 10)``
+    and its bound; taken apart (_print_split) under --kernels."""
     from exon_tpu_torch.kernels import line_index as k
 
     got = k.line_index(chunk)
     _exact("line_index", got, k.line_index_plain(chunk))
     n, lines = chunk.shape[0], got.shape[0]
-    return {"max_abs_err": 0.0,
-            "ms": median_ms(lambda: k.line_index(chunk), torch),
-            "plain_ms": median_ms(lambda: k.line_index_plain(chunk), torch),
-            "library_ms": median_ms(lambda: torch.nonzero(chunk == 10),
-                                    torch),
-            "bytes": n + 4 * lines,  # the chunk in, a position per newline
-            "shape": f"{n} bytes, {lines} newlines"}, got
+    r = {"max_abs_err": 0.0,
+         "ms": median_ms(lambda: k.line_index(chunk), torch),
+         "plain_ms": median_ms(lambda: k.line_index_plain(chunk), torch),
+         "library_ms": median_ms(lambda: torch.nonzero(chunk == 10), torch),
+         "bytes": n + 4 * lines,  # the chunk in, a position per newline
+         "shape": f"{n} bytes, {lines} newlines"}
+    _print_case(label, r)
+    print(f"    library (nonzero(chunk == 10)) {r['library_ms']:.4f} ms")
+    if SPLITS:
+        _print_split(torch, label, lambda: k.line_index(chunk))
+    return r, got
 
 
 def check_text_records(torch, chunk, nl, ends_in_newline) -> tuple[dict,
@@ -1696,13 +1707,12 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     FASTQ chunk (rtrim), and, since neither class occurs in those rows,
     both runs at the same shapes on classes that do: 'sp|' leading J's
     ids, {A, C} at either end of K's reads, and ACGT, of which every read
-    is made, at both; like_match's position mode on K's strpos over that
-    chunk. Each bound counts what the function must move: its inputs'
+    is made, at both; like_match's position mode on K's strpos and E's
+    adapter LIKE over that chunk (check_like_fastq). Each bound counts what the function must move: its inputs'
     offsets, validity and the bytes it reads, its output's bytes and
     offsets."""
     from exon_tpu_torch import datatypes as dt
     from exon_tpu_torch.batch import FixedColumn
-    from exon_tpu_torch.kernels import like_match as kl
     from exon_tpu_torch.kernels import map_bytes as km
     from exon_tpu_torch.kernels import polya_tail as kp
     from exon_tpu_torch.kernels import span_concat as ks
@@ -1777,14 +1787,8 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     # K over the first FASTQ chunk
     fq = fq_batch.column("sequence")
     m = fq_batch.length
-    adapter = tuple(ADAPTER.strip("%").encode())
-    pos = kl.like_find(fq.offsets, fq.values, adapter)
+    pos = check_like_fastq(torch, fq_batch)
     lens = _lens(fq)
-    need = int(torch.where(pos >= 0, pos.long() + len(adapter), lens).sum())
-    _case(torch, "like_match K strpos (position mode)",
-          lambda: kl.like_find(fq.offsets, fq.values, adapter),
-          lambda: kl.like_find_plain(fq.offsets, fq.values, adapter, False),
-          4 * (m + 1) + need + 4 * m, f"{m} reads, {need} bytes read")
     cut = S.fn_left(fq_batch, fq, FixedColumn(
         torch.where(pos >= 0, pos.long(), lens), fq.validity))
     _class_runs(torch, "K rtrim 'N'", cut, b"N", False, m, "cut reads")
@@ -1820,6 +1824,41 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
           # each read's bytes once answer both ends
           4 * (m + 1) + total + 8 * m, f"{m} reads, {total} bytes")
     return res
+
+
+def check_like_fastq(torch, fq_batch):
+    """like_match on the reads of the first FASTQ chunk: its position mode
+    at K's strpos and E's adapter LIKE, each against its twin, exact,
+    beside its bound (the offsets, each read up to the end of its first
+    adapter or all of it, the output); taken apart (_print_split) under
+    --kernels. Returns the strpos positions."""
+    from exon_tpu_torch.kernels import like_match as kl
+    from exon_tpu_torch.ops.strings import tokenize_like
+
+    fq = fq_batch.column("sequence")
+    m = fq_batch.length
+    adapter = tuple(ADAPTER.strip("%").encode())
+    chunks = tokenize_like(ADAPTER)
+    pos = kl.like_find(fq.offsets, fq.values, adapter)
+    lens = _lens(fq)
+    need = int(torch.where(pos >= 0, pos.long() + len(adapter), lens).sum())
+
+    def find():
+        return kl.like_find(fq.offsets, fq.values, adapter)
+
+    def like():
+        return kl.like_match(fq.offsets, fq.values, chunks, False)
+
+    _case(torch, "like_match K strpos (position mode)", find,
+          lambda: kl.like_find_plain(fq.offsets, fq.values, adapter, False),
+          4 * (m + 1) + need + 4 * m, f"{m} reads, {need} bytes read")
+    _case(torch, "like_match E adapter LIKE", like,
+          lambda: kl.like_match_plain(fq.offsets, fq.values, chunks, False),
+          4 * (m + 1) + need + m, f"{m} reads, {need} bytes read")
+    if SPLITS:
+        _print_split(torch, "like_match K strpos", find)
+        _print_split(torch, "like_match E adapter LIKE", like)
+    return pos
 
 
 def _class_runs(torch, label: str, col, members: bytes, from_start: bool,
@@ -4055,6 +4094,40 @@ def check_gather_spans_alone(torch) -> None:
         chunk, nl, nl.shape[0] + (0 if ends_in_newline else 1), False, True))
 
 
+def check_like_alone(torch) -> None:
+    """like_match's cases of phase 3: the five patterns on phase 3's
+    131,072 rows (A's '%KK%' first), then K's strpos and E's adapter LIKE
+    on the first batch of the FASTQ scan."""
+    from benchlib.fastq_fixture import make_fastq
+
+    offs, vals = _var_column(np.random.default_rng(1234), N_ROWS, torch)
+    check_like(torch, offs, vals)
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    check_like_fastq(torch, _first_batch(
+        lambda s: s.read_fastq(fq_path).select("sequence")))
+
+
+def _fastq_chunk(torch):
+    """The first device chunk of the FASTQ scan (E's, K's and O's decode),
+    as formats/fastq.py cuts it, on the card."""
+    from benchlib.fastq_fixture import make_fastq
+    from exon_tpu_torch.formats import fastq
+    from exon_tpu_torch.io import read_file
+
+    data = read_file(make_fastq(FASTQ_READS, FASTQ_SEED))
+    chunk, _nl, _ends = next(fastq._chunks(np.frombuffer(data, np.uint8),
+                                           "cuda", fastq.DEFAULT_CHUNK))
+    return chunk
+
+
+def check_line_index_alone(torch) -> None:
+    """line_index at A's first chunk (phase 3's case) and at the first
+    FASTQ chunk."""
+    check_line_index(torch, _fasta_chunk(torch)[0])
+    check_line_index(torch, _fastq_chunk(torch),
+                     "line_index at the first FASTQ chunk")
+
+
 def check_sw_alone(torch) -> None:
     """sw_score's cases of phase 3 (F's WHERE and SELECT, the pairwise
     form) on the first batch of F's own scan and filter, and its column
@@ -4072,10 +4145,12 @@ def check_sw_alone(torch) -> None:
     print_sw_sass()
 
 
-# the cases a run with --kernels can take alone: phase 3's of eight kernels
+# the cases a run with --kernels can take alone: phase 3's of ten kernels
 # (each at the shapes its redesign was measured at), and phase 5's of Q's
 # aggregate (hash_aggregate on Q's path)
 FOCUS = {
+    "like_match": check_like_alone,
+    "line_index": check_line_index_alone,
     "gather_spans": check_gather_spans_alone,
     "sw_score": check_sw_alone,
     "gather_var": check_gather_alone,

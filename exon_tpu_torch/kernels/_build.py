@@ -44,8 +44,8 @@ SIGNATURES = {
                                 _P, _I64, _P, _P],
     "exon_gather_var_copy": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _P,
                              _P],
-    "exon_like_match": [_P, _P, _I64, _P, _P, _P],
-    "exon_like_find": [_P, _P, _I64, _P, _P, _P],
+    "exon_like_match": [_P, _P, _I64, _P, _I32, _P, _I32, _P, _P],
+    "exon_like_find": [_P, _P, _I64, _P, _I32, _P, _I32, _P, _P],
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                             _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P],
@@ -54,8 +54,7 @@ SIGNATURES = {
     "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],
     "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
-    "exon_line_count": [_P, _I64, _P, _P],
-    "exon_line_scatter": [_P, _I64, _P, _P, _P],
+    "exon_line_index": [_P, _I64, _P, _P, _U64, _U64, _P, _I64, _P, _P],
     "exon_text_records": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P],
     "exon_gather_spans": [_P, _I64, _P, _P, _P, _I64, _I64, _I32, _I32, _P,

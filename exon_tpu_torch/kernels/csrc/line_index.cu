@@ -6,132 +6,196 @@
 // cummax over every byte. Here the line table is the newline positions
 // alone: 4 bytes per line instead of a bool and an int32 per byte.
 //
-// Bound on the H100: HBM bytes. The function reads the n chunk bytes and
-// writes 4 bytes per newline: a 128 MiB chunk of 60-byte FASTA lines moves
-// about 0.14 GB, some 42 us at 3.35 TB/s (the kernel reads the chunk twice).
+// Bound on the H100: HBM bytes. The function reads the n chunk bytes once
+// and writes 4 bytes per newline: a 128 MiB chunk of 60-byte FASTA lines
+// moves about 0.14 GB, some 43 us at 3.35 TB/s.
 //
-// Design: 256 threads per block and 16 bytes per thread (one 16-byte load),
-// so a block covers 4096 bytes.
-//   pass 1 (exon_line_count): each thread counts the newlines of its 16
-//     bytes (__vcmpeq4 over four words); the block sums them into
-//     block_counts[block].
-//   between the passes the wrapper scans the block counts (torch.cumsum).
-//   pass 2 (exon_line_scatter): each thread rebuilds its 16-bit newline
-//     mask, the block takes an exclusive scan of its threads' counts (warp
-//     shuffles, then the 8 warp totals in shared memory), and each thread
-//     writes the positions of its newlines from block offset + its rank.
-//     Only the matches are written.
-// The last partial 16 bytes are read byte by byte. The wrapper passes a
-// 16-byte-aligned chunk and launches nothing for an empty one.
+// Design: one launch, a single pass with a decoupled look-back (Merrill and
+// Garland, 2016) on the status words of lookback.cuh, as compact_mask.cu.
+//   A block takes a tile of kTile = 16 KB by ticket. Each of its 256
+//     threads loads 4 aligned 16-byte words of the tile, word j at
+//     j * 4 KB + 16 * thread, so each warp load is 512 contiguous bytes, and
+//     makes one bit a byte that is '\n' (bytes16.cuh eq16). The partial last
+//     word of the chunk is read byte by byte.
+//   The block scans the counts of its 1,024 words in order: the 4 counts of
+//     a thread as 16-bit fields of one 64-bit word, a warp scan of those,
+//     then the 8 warp totals.
+//   Thread 0 publishes the tile's count (lookback.cuh kAggregate) and warp 0
+//     looks back for the tile's prefix and publishes its inclusive one; the
+//     threads meanwhile stage the tile's positions in shared memory in order
+//     (up to kStage of them), and the block writes them to out[prefix, ...)
+//     as one coalesced run. A tile of more than kStage newlines (lines under
+//     4 bytes) writes from its registers instead.
+//   Nothing is written at or past `cap`; the last tile writes the count.
+//     The wrapper sizes `out` at n / 16 + 1 positions, reads the count, and
+//     launches once more into an exact buffer when it exceeds that.
+// The kernel reads a 16-byte-aligned chunk (the wrapper copies an unaligned
+// one), allocates nothing and does not synchronise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bytes16.cuh"
+#include "lookback.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBytesPerThread = 16;
-constexpr int64_t kBlockBytes = int64_t{kThreads} * kBytesPerThread;
+constexpr int kWords = 4;  // 16-byte words a thread
+constexpr int64_t kTile = int64_t{kThreads} * kWords * 16;
+constexpr int kStage = 4096;  // positions a tile stages in shared memory
+constexpr unsigned kFull = 0xffffffffu;
+
+// byte offset of the thread's word j in a tile
+__device__ __forceinline__ int64_t word_at(int j) {
+  return (int64_t{j} * kThreads + threadIdx.x) * 16;
+}
+
+// The thread's whole words of tile `tile` (zero where a word is partial or
+// past n: newline_mask reads those bytes one by one).
+__device__ __forceinline__ void load_words(const uint8_t* __restrict__ src,
+                                           int64_t n, int64_t tile,
+                                           uint4 (&w)[kWords]) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const int64_t base = tile * kTile + word_at(j);
+    w[j] = base + 16 <= n ? *reinterpret_cast<const uint4*>(src + base)
+                          : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
 
 // one bit per byte of src[base, base + 16) that is '\n'
-__device__ __forceinline__ unsigned newline_mask(const uint8_t* __restrict__ src,
-                                                 int64_t base, int64_t n) {
+__device__ __forceinline__ unsigned newline_mask(
+    const uint8_t* __restrict__ src, int64_t base, int64_t n,
+    const uint4& w) {
+  if (base + 16 <= n) return bytes16::eq16(w, bytes16::splat('\n'));
   unsigned mask = 0;
-  if (base + kBytesPerThread <= n) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src + base);
-    const unsigned words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      // 0xff in each byte lane equal to '\n'; keep one bit per lane
-      const unsigned eq = __vcmpeq4(words[w], 0x0a0a0a0au);
-      const unsigned bits = (eq & 1u) | ((eq >> 7) & 2u) | ((eq >> 14) & 4u) |
-                            ((eq >> 21) & 8u);
-      mask |= bits << (4 * w);
-    }
-  } else {
-    for (int b = 0; b < kBytesPerThread && base + b < n; ++b) {
-      if (src[base + b] == '\n') mask |= 1u << b;
-    }
+  for (int b = 0; b < 16 && base + b < n; ++b) {
+    if (src[base + b] == '\n') mask |= 1u << b;
   }
   return mask;
 }
 
-__global__ void line_count_kernel(const uint8_t* __restrict__ src, int64_t n,
-                                  int32_t* __restrict__ block_counts) {
-  __shared__ int warp_counts[kWarps];
-  const int64_t base =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) *
-      kBytesPerThread;
-  int c = __popc(newline_mask(src, base, n));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-    block_counts[blockIdx.x] = total;
-  }
+__device__ __forceinline__ int field(unsigned long long packed, int j) {
+  return static_cast<int>((packed >> (16 * j)) & 0xffffull);
 }
 
-__global__ void line_scatter_kernel(const uint8_t* __restrict__ src, int64_t n,
-                                    const int32_t* __restrict__ block_offsets,
-                                    int32_t* __restrict__ out) {
-  __shared__ int warp_offsets[kWarps];
+__global__ void __launch_bounds__(kThreads)
+line_index_kernel(const uint8_t* __restrict__ src, int64_t n,
+                  unsigned long long* __restrict__ status,
+                  unsigned long long* __restrict__ ticket,
+                  unsigned long long ticket_base, unsigned long long epoch,
+                  int64_t n_tiles, int32_t* __restrict__ out, int64_t cap,
+                  int32_t* __restrict__ count) {
+  __shared__ int32_t staged[kStage];
+  __shared__ unsigned long long warp_sums[kWarps];
+  __shared__ int64_t prefix_s;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t base =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) *
-      kBytesPerThread;
-  unsigned mask = newline_mask(src, base, n);
-  const int c = __popc(mask);
-  int incl = c;
+  const int64_t tile = lookback::ticket(ticket, ticket_base);
+  uint4 words[kWords];
+  load_words(src, n, tile, words);
+  const int64_t start = tile * kTile;
+  unsigned masks[kWords];
+  unsigned long long packed = 0;  // the words' counts, 16 bits each
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
+  for (int j = 0; j < kWords; ++j) {
+    masks[j] = newline_mask(src, start + word_at(j), n, words[j]);
+    packed |= static_cast<unsigned long long>(__popc(masks[j])) << (16 * j);
   }
-  if (lane == 31) warp_offsets[warp] = incl;
+  // word (j, thread)'s rank in the tile: the counts of the words j' < j of
+  // every thread, then of word j of the threads before it
+  unsigned long long incl = packed;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
+  unsigned long long before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned long long s = warp_sums[w];
+    before += w < warp ? s : 0ull;
+    total += s;
+  }
+  const unsigned long long excl = before + incl - packed;
+  int tile_count = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) tile_count += field(total, j);
   if (threadIdx.x == 0) {
+    lookback::publish(status, tile,
+                      lookback::word(epoch, tile == 0 ? lookback::kPrefix
+                                                      : lookback::kAggregate,
+                                     tile_count));
+  }
+  const bool stage = tile_count <= kStage;
+  if (stage) {
     int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = warp_offsets[w];
-      warp_offsets[w] = run;
-      run += t;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      int at = run + field(excl, j);
+      const int32_t base = static_cast<int32_t>(start + word_at(j));
+      for (unsigned m = masks[j]; m; m &= m - 1) {
+        staged[at++] = base + __ffs(m) - 1;
+      }
+      run += field(total, j);
+    }
+  }
+  if (warp == 0) {
+    const int64_t prefix = lookback::exclusive_prefix(status, tile, 1, 0,
+                                                      epoch, 32, lane, kFull);
+    if (lane == 0) {
+      if (tile > 0) {
+        lookback::publish(status, tile,
+                          lookback::word(epoch, lookback::kPrefix,
+                                         prefix + tile_count));
+      }
+      prefix_s = prefix;
     }
   }
   __syncthreads();
-  int64_t rank = static_cast<int64_t>(block_offsets[blockIdx.x]) +
-                 warp_offsets[warp] + (incl - c);
-  while (mask != 0u) {
-    const int b = __ffs(mask) - 1;
-    out[rank++] = static_cast<int32_t>(base + b);
-    mask &= mask - 1u;
+  const int64_t prefix = prefix_s;
+  if (stage) {
+    for (int k = threadIdx.x; k < tile_count && prefix + k < cap;
+         k += kThreads) {
+      out[prefix + k] = staged[k];
+    }
+  } else {
+    int64_t run = prefix;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      int64_t at = run + field(excl, j);
+      const int64_t base = start + word_at(j);
+      for (unsigned m = masks[j]; m && at < cap; m &= m - 1) {
+        out[at++] = static_cast<int32_t>(base + __ffs(m) - 1);
+      }
+      run += field(total, j);
+    }
   }
-}
-
-inline unsigned num_blocks(int64_t n) {
-  return static_cast<unsigned>((n + kBlockBytes - 1) / kBlockBytes);
+  if (tile == n_tiles - 1 && threadIdx.x == 0) {
+    *count = static_cast<int32_t>(prefix + tile_count);
+  }
 }
 
 }  // namespace
 
-extern "C" int exon_line_count(const void* src, int64_t n, void* block_counts,
-                               void* stream) {
-  line_count_kernel<<<num_blocks(n), kThreads, 0,
+// status holds at least ceil(n / kTile) words of the workspace and ticket
+// its counter; ticket_base is the number of tiles launched on them before
+// and epoch this call's number, 1 to 2^30 - 1. src is 16-byte aligned, n > 0
+// and < 2^31; out holds cap positions and count one int32.
+extern "C" int exon_line_index(const void* src, int64_t n, void* status,
+                               void* ticket, uint64_t ticket_base,
+                               uint64_t epoch, void* out, int64_t cap,
+                               void* count, void* stream) {
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  line_index_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), n, static_cast<int32_t*>(block_counts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int exon_line_scatter(const void* src, int64_t n,
-                                 const void* block_offsets, void* out,
-                                 void* stream) {
-  line_scatter_kernel<<<num_blocks(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), n,
-      static_cast<const int32_t*>(block_offsets), static_cast<int32_t*>(out));
+      static_cast<unsigned long long*>(status),
+      static_cast<unsigned long long*>(ticket), ticket_base, epoch, n_tiles,
+      static_cast<int32_t*>(out), cap, static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }

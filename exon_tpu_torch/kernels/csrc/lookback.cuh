@@ -1,7 +1,7 @@
 // lookback.cuh: the status words of a single-pass scan with a decoupled
 // look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
-// Decoupled Look-back", 2016), shared by compact_mask.cu, bucket_pack.cu
-// and gather_var.cu.
+// Decoupled Look-back", 2016), shared by compact_mask.cu, bucket_pack.cu,
+// gather_var.cu and line_index.cu.
 //
 // A block takes its tile's number from an atomic ticket rather than
 // blockIdx, so a tile only ever waits on tiles whose blocks already run and

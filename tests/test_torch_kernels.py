@@ -1296,6 +1296,124 @@ def sw_rows(seed: int, n: int = 300, max_len: int = 300) -> tuple:
     return offs, vals, valid
 
 
+# like_match (K2a, K2) and line_index (K8a) at their Hopper designs' shapes.
+# like_match: a group of 4-32 lanes a row, the row in aligned 16-byte words,
+# a chunk's first 17 tokens as bit masks over a two-word window, longer
+# chunks checked with byte loads; the pattern by value (INLINE_WORDS int32
+# words) or from a device copy. line_index: one single-pass launch over 16 KB
+# tiles into n / 16 + 1 positions, once more into an exact buffer past that.
+# These cases are shared with test_torch_redesign_k2_k8a.py, which holds
+# the twins to exon_tpu on the same cases.
+
+LIKE_CASES = ["rows_0_600", "needle_at_every_offset", "offsets_past_zero",
+              "ilike", "overlaps"]
+# the TruSeq adapter and the bases after it: chunks of 1-33 bytes are its
+# prefixes
+X33 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+LIKE_PATTERNS = (
+    [f"%{X33[:k].decode()}%" for k in (1, 2, 13, 16, 17, 18, 33)]
+    + ["%C%C", "%AA%AA", "AA%AA", f"{X33[:13].decode()}%", "%GAGC",
+       # '_' at a word's edges: inside a 16- and a 17-token window, past it
+       "%AGATC_GAAGAGCAC_%", f"%A{'_' * 15}G%", f"%{'_' * 16}A%",
+       "%A_A%G_C%", "_%_",
+       # a head before the first search, and a tail after the last
+       "A%GA%", "AG%A_C%T"])
+
+
+def like_case(case: str) -> tuple:
+    """(offsets int32, values uint8) of a like_match case, numpy."""
+    rng = np.random.default_rng(len(case) * 13 + 5)
+    letters = np.frombuffer(b"ACGTacgtNn" if case == "ilike" else b"ACGT",
+                            np.uint8)
+
+    def text(n):
+        return letters[rng.integers(0, len(letters), n)].tobytes()
+
+    head, rows, tail = b"", [], b""
+    if case in ("rows_0_600", "offsets_past_zero", "ilike"):
+        n = 300 if case == "rows_0_600" else 120
+        for i in range(n):
+            row = text(int(rng.integers(0, 601)))
+            if i % 10 == 0:
+                row = b""
+            elif rng.random() < 0.35:
+                at = int(rng.integers(0, len(row) + 1))
+                cut = X33[:int(rng.integers(1, 34))]
+                if case == "ilike":
+                    cut = bytes(c | 32 if rng.random() < 0.5 else c
+                                for c in cut)
+                row = row[:at] + cut + row[at:]
+            rows.append(row)
+        if case == "rows_0_600":
+            rows.insert(150, text(35_000) + X33 + text(35_000))
+        if case == "offsets_past_zero":
+            # 'x' before the first row: exon_tpu's contains counts those
+            # bytes into row 0 (F37, test_torch_redesign_k2_k8a.py)
+            head, tail = b"x" * 37, text(11)
+    elif case == "needle_at_every_offset":
+        # the 33-byte needle at every byte of a 16-byte word, rows starting
+        # at every alignment too: row (a, b) starts at a mod 16 of the
+        # buffer and holds X33 at b mod 16
+        at = 0
+        for a in range(16):
+            for b in range(16):
+                lead = text((a - at) % 16)
+                rows.append(lead)
+                at += len(lead)
+                pos = (b - at) % 16 + 16
+                row = text(pos) + X33 + text(int(rng.integers(0, 20)))
+                rows.append(row)
+                at += len(row)
+    elif case == "overlaps":
+        for _ in range(600):
+            rows.append(bytes(rng.choice(list(b"ACx"), int(rng.integers(0, 7)))))
+        rows += [b"AAA", b"AAAA", b"AA", b"C", b"CC", b"ACAC", b"AAxAA"]
+    lens = [len(r) for r in rows]
+    offs = (len(head) + np.concatenate([[0], np.cumsum(lens)])).astype(np.int32)
+    vals = np.frombuffer(head + b"".join(rows) + tail, np.uint8).copy()
+    return offs, vals
+
+
+def like_patterns(case: str) -> list:
+    """(pattern, case_insensitive) of a case: ILIKE with lower-case
+    patterns on the mixed-case rows, LIKE elsewhere."""
+    if case == "ilike":
+        return [(p.lower(), True) for p in LIKE_PATTERNS]
+    return [(p, False) for p in LIKE_PATTERNS]
+
+
+STRPOS_NEEDLES = [X33[:k] for k in (1, 2, 13, 16, 17, 18, 33)] + [b""]
+
+LINE_CASES = ["short_lines", "crlf", "no_final_newline", "tile_edges"]
+LINE_EDGES = [0, 1, 15, 16, 17, 4095, 4096, 4097, 16383, 16384, 16385,
+              3 * 16384 + 15]
+
+
+def line_case(case: str) -> list:
+    """The texts (uint8 arrays) of a line_index case, numpy."""
+    rng = np.random.default_rng(len(case) * 7 + 3)
+
+    def lines(n_bytes: int, mean: int, end: bytes = b"\n") -> bytes:
+        out = bytearray()
+        while len(out) < n_bytes:
+            out += b"A" * int(rng.integers(0, 2 * mean)) + end
+        return bytes(out[:n_bytes])
+
+    if case == "short_lines":
+        # runs of bare '\n' between short lines: under 16 bytes a line
+        texts = [np.where(rng.random(50_000) < 0.6, 10, 65).astype(np.uint8),
+                 np.full(20_000, 10, np.uint8),
+                 np.frombuffer(lines(40_000, 4), np.uint8)]
+    elif case == "crlf":
+        texts = [np.frombuffer(lines(60_000, 60, b"\r\n"), np.uint8)]
+    elif case == "no_final_newline":
+        texts = [np.frombuffer(lines(30_000, 60) + b"ACGT", np.uint8)]
+    else:
+        full = np.frombuffer(lines(max(LINE_EDGES), 55), np.uint8)
+        texts = [full[:n] for n in LINE_EDGES]
+    return [np.ascontiguousarray(t) for t in texts]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SPAN_CASES)
 @pytest.mark.parametrize("drop", SPAN_DROPS)
@@ -1348,6 +1466,162 @@ def test_sw_score_pairwise_every_width_matches_twin(card, max_partner):
                                                   b_vals)]
     assert torch.equal(ksw.sw_score_pairwise(*args),
                        ksw.sw_score_pairwise_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [4, 8, 16, 32, None])
+@pytest.mark.parametrize("case", LIKE_CASES)
+def test_like_match_design_cases_match_twin(card, case, group, monkeypatch):
+    # every group width (None: the wrapper's own pick from the shapes)
+    if group is not None:
+        monkeypatch.setattr(kl, "group_width", lambda n, nbytes: group)
+    offs, vals = (torch.from_numpy(x).to(card) for x in like_case(case))
+    for pattern, ci in like_patterns(case):
+        chunks = tokenize_like(pattern)
+        assert torch.equal(kl.like_match(offs, vals, chunks, ci),
+                           kl.like_match_plain(offs, vals, chunks, ci)), \
+            pattern
+    for needle in STRPOS_NEEDLES:
+        for ci in (False, True):
+            assert torch.equal(
+                kl.like_find(offs, vals, tuple(needle), ci),
+                kl.like_find_plain(offs, vals, tuple(needle), ci)), needle
+
+
+def _long_pattern(seed: int) -> str:
+    """A pattern past INLINE_WORDS words, so the kernel reads a device copy:
+    chunks of 40-300 tokens taken from one row of the rows_0_600 case, so
+    that the row matches."""
+    offs, vals = like_case("rows_0_600")
+    row = vals[offs[150]:offs[151]].tobytes().decode()
+    rng = np.random.default_rng(seed)
+    parts = [row[a:a + int(rng.integers(100, 300))]
+             for a in 20_000 * np.arange(3) + rng.integers(0, 10_000, 3)]
+    pattern = "%" + "%".join(parts) + "%"
+    assert len(kl.encode_pattern(tokenize_like(pattern), False)) > \
+        kl.INLINE_WORDS
+    return pattern
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [4, 32])
+def test_like_match_long_pattern_from_a_device_copy(card, group, monkeypatch):
+    monkeypatch.setattr(kl, "group_width", lambda n, nbytes: group)
+    offs, vals = (torch.from_numpy(x).to(card)
+                  for x in like_case("rows_0_600"))
+    for pattern in (_long_pattern(1), "X" + _long_pattern(2)):
+        chunks = tokenize_like(pattern)
+        got = kl.like_match(offs, vals, chunks, False)
+        assert torch.equal(got, kl.like_match_plain(offs, vals, chunks, False))
+    assert bool(kl.like_match(offs, vals, tokenize_like(_long_pattern(1)),
+                              False)[150])
+    # a first use on another stream, then a use on the default one: each
+    # launch waits for the copy
+    chunks = tokenize_like(_long_pattern(4))
+    with torch.cuda.stream(torch.cuda.Stream()):
+        side = kl.like_match(offs, vals, chunks, False)
+    torch.cuda.synchronize()
+    assert torch.equal(side, kl.like_match(offs, vals, chunks, False))
+    assert torch.equal(side, kl.like_match_plain(offs, vals, chunks, False))
+
+
+@pytest.mark.cuda
+def test_like_match_refuses_one_lane_a_row_for_a_search(card, monkeypatch):
+    # a lone lane takes anchored chunks alone; the kernel has no search for
+    # it, so the launch is refused rather than answering wrongly
+    offs, vals = (torch.from_numpy(x).to(card) for x in like_case("overlaps"))
+    monkeypatch.setattr(kl, "_searches", lambda chunks: False)
+    for pattern in ("AA%AA", "C%", "%C"):
+        chunks = tokenize_like(pattern)
+        assert torch.equal(kl.like_match(offs, vals, chunks, False),
+                           kl.like_match_plain(offs, vals, chunks, False))
+    with pytest.raises(RuntimeError, match="like_match failed to launch"):
+        kl.like_match(offs, vals, tokenize_like("%C%C"), False)
+
+
+@pytest.mark.cuda
+def test_like_match_and_like_find_do_not_synchronise(card):
+    """No upload that drains the stream and no host read: every call,
+    a first use of a long pattern too, runs under sync debug mode
+    "error"."""
+    offs, vals = (torch.from_numpy(x).to(card)
+                  for x in like_case("rows_0_600"))
+    kl.like_match(offs, vals, tokenize_like("%KK%"), False)  # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [kl.like_match(offs, vals, tokenize_like(p), ci)
+                for p, ci in like_patterns("rows_0_600")
+                + [(_long_pattern(3), False)]]
+        outs.append(kl.like_find(offs, vals, tuple(X33[:13])))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[-1], kl.like_find_plain(offs, vals,
+                                                    tuple(X33[:13]), False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LINE_CASES)
+def test_line_index_design_cases_match_twin(card, case):
+    for text in line_case(case):
+        t = torch.from_numpy(text).to(card)
+        for part in (t, t[1:]):  # and an unaligned view
+            before = kli.launches
+            got = kli.line_index(part)
+            want = kli.line_index_plain(part)
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+            past_cap = want.shape[0] > part.shape[0] // 16 + 1
+            assert kli.launches - before == (2 if past_cap else 1) or \
+                part.shape[0] == 0
+
+
+@pytest.mark.cuda
+def test_line_index_blocks_looping_over_tiles_match_twin(card):
+    """Texts of far more 16 KB tiles than the grid has blocks, so each block
+    takes several (loading the next while it finishes one): 60-byte lines,
+    lines past the first buffer's cap, an unaligned view; each call between
+    compact_mask calls on the same status words and ticket counter."""
+    rng = np.random.default_rng(17)
+    texts = [np.where(rng.random(40 << 20) < 1 / 60, 10, 65),
+             np.where(rng.random(20 << 20) < 0.3, 10, 65)]
+    texts = [torch.from_numpy(t.astype(np.uint8)).to(card) for t in texts]
+    texts.append(texts[0][5:])
+    masks = [torch.from_numpy(rng.random(n) < 0.5).to(card)
+             for n in (70_000, 5, 300_000)]
+    for text, mask in zip(texts, masks):
+        before = kc.compact_mask(mask)
+        got = kli.line_index(text)
+        after = kc.compact_mask(mask)
+        assert torch.equal(got, kli.line_index_plain(text))
+        want = kc.compact_mask_plain(mask)
+        for out in (before, after):
+            assert torch.equal(out[0], want[0])
+            assert int(out[1]) == int(want[1])
+
+
+@pytest.mark.cuda
+def test_line_index_is_one_launch_a_call(card):
+    """One line_index_kernel a call and the count's copy to the host (no
+    count pass, zeros or cumsum); a second launch only past the cap."""
+    def kernels_of(run):
+        # the profiler now and then records no CUDA activity at all in a
+        # window (not even the count's copy); such a window is taken again
+        for _ in range(3):
+            seen = _cuda_kernels(run, 5)
+            if seen:
+                break
+        return seen, {k: c for k, c in seen.items() if "Memcpy" not in k}
+
+    text = torch.from_numpy(line_case("crlf")[0]).to(card)
+    seen, kernels_seen = kernels_of(lambda: kli.line_index(text))
+    assert len(kernels_seen) == 1, seen
+    assert "line_index_kernel" in next(iter(kernels_seen))
+    assert 4 <= next(iter(kernels_seen.values())) <= 5, seen
+    dense = torch.from_numpy(line_case("short_lines")[1]).to(card)
+    seen, kernels_seen = kernels_of(lambda: kli.line_index(dense))
+    assert len(kernels_seen) == 1, seen
+    assert 9 <= next(iter(kernels_seen.values())) <= 10, seen
 
 
 @pytest.mark.cuda

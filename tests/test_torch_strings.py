@@ -78,6 +78,11 @@ def test_like_twin_empty_column():
 
 
 def test_encode_pattern_layout():
+    # [chunks, ci, a record a chunk (token start, count, filter start,
+    # count), tokens (upper-cased under ILIKE), filter entries value |
+    # offsets << 8]
     chunks = tstr.tokenize_like("a_%bc%")
     assert kl.encode_pattern(chunks, True) == \
-        [3, 1, 0, 2, 4, 4, ord("a"), -1, ord("b"), ord("c")]
+        [3, 1, 14, 2, 18, 1, 16, 2, 19, 2, 18, 0, 21, 0,
+         ord("A"), -1, ord("B"), ord("C"),
+         ord("A") | 1 << 8, ord("B") | 1 << 8, ord("C") | 2 << 8]
