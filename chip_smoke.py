@@ -5,13 +5,18 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
-``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index`` (any
-of them) runs phases 1-2 and those cases alone, each taken apart into
-device time, launches and host time (sw_score also read from its SASS;
-line_index also at the first FASTQ chunk); ``--tree DIR`` imports
-exon_tpu_torch and
-benchlib from another checkout (an earlier commit, unpacked), so that two
-versions are timed in one run on one card.
+``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
+``text_records,format_int,slice_var,take_list`` (any of them) runs phases
+1-2 and those cases alone, each taken apart into device time, launches and
+host time (sw_score also read from its SASS; line_index also at the first
+FASTQ chunk; text_records at A's chunk, at the first FASTQ chunk with and
+without want_hdr, and at two long-line chunks made from a seed: 128 MiB of
+long-read FASTQ records of 1-100 kb, in both modes, and four unwrapped
+32 MiB FASTA records; format_int at one 131,072-row batch of GFF starts
+and at all 3.4 M; slice_var at J's substr and take_list at N's list take);
+``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
+earlier commit, unpacked), so that two versions are timed in one run on one
+card.
 
 Phases, each printed on its own lines; any failure exits non-zero:
 
@@ -20,7 +25,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 2. Build: compile the CUDA kernels from exon_tpu_torch/kernels/csrc.
 3. Kernels vs twins: each kernel runs at the main path's shapes on inputs
    made from a numpy seed (the device-decode kernels on the first 128 MiB
-   chunk of Query A's FASTA file) and is compared with its plain PyTorch
+   chunk of Query A's FASTA file; text_records also, printed apart, on the
+   first FASTQ chunk in FASTQ mode) and is compared with its plain PyTorch
    twin run on the same card; median times of 20 CUDA-event-timed runs of
    each, of one PyTorch call that computes the same function where there is
    one, and the least time the card could take (bytes moved / 3.35 TB/s).
@@ -65,7 +71,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    leading space run on J's descriptions (trim) and trailing 'N' run on
    K's cut reads of the first FASTQ chunk (rtrim); like_match's position
    mode on K's strpos and E's adapter LIKE over that chunk; translate (on no query's path) at
-   J's shape, beside table[values]. Batch.to_device is timed beside its
+   J's shape, beside table[values]; K12's _slice_var at J's substr(id, 4),
+   apart from gather_spans' own case. Batch.to_device is timed beside its
    bound over the host link. The window kernels (K10) run at Query L's
    shape, the panel's 1,008,303 rows concatenated on the card:
    window_bounds on the sorted key matrices of (chrom, pos) and (chrom,
@@ -76,7 +83,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    N, O and P: map_bytes' widen mode (to int8 DNA codes and to int64 Phred
    scores) and narrow mode (the scores back to text) on the first FASTQ
    chunk of O's scan, beside table[values]; map_lookup on the attribute
-   maps of N's first 131,072-row batch; list_bins' peak mode on P's 30,000
+   maps of N's first 131,072-row batch and the list branch of take_column
+   on those maps at the rows N's WHERE keeps; list_bins' peak mode on P's 30,000
    spectra and its bins mode on the spectra that pass P's filter, beside
    one index_add_ (bins at relative 1e-12, the twin adding in atomic
    order), at 1,900 bins and, printed apart, at 30,000 (past a block's
@@ -1117,26 +1125,139 @@ def check_line_index(torch, chunk, label: str = "line_index at A's chunk"
     return r, got
 
 
-def check_text_records(torch, chunk, nl, ends_in_newline) -> tuple[dict,
-                                                                    object]:
+LINE_FIELDS = ("start", "end", "is_hdr", "body", "split", "name_len",
+               "desc_len", "bad")
+
+
+def _text_records_case(torch, label: str, chunk, nl, n_lines: int,
+                       fastq: bool, want_hdr: bool) -> tuple[dict, object]:
+    """text_records against its twin, exact on every field, timed beside
+    its bound; taken apart (_print_split) under --kernels. The bound reads
+    the chunk (without want_hdr only a header line's first byte) and the
+    newlines, and writes per line start, end, body and the header flag,
+    with want_hdr split, name and description lengths, and ``bad``."""
     from exon_tpu_torch.kernels import text_records as k
 
-    n_lines = nl.shape[0] + (0 if ends_in_newline else 1)
-    args = (chunk, nl, n_lines, False, True)
+    args = (chunk, nl, n_lines, fastq, want_hdr)
     got, want = k.text_records(*args), k.text_records_plain(*args)
-    for field in ("start", "end", "is_hdr", "body", "split", "name_len",
-                  "desc_len", "bad"):
-        _exact(f"text_records {field}", getattr(got, field),
-               getattr(want, field))
-    return {"max_abs_err": 0.0,
-            "ms": median_ms(lambda: k.text_records(*args), torch),
-            "plain_ms": median_ms(lambda: k.text_records_plain(*args), torch),
-            "library_ms": None,
-            # the chunk and the newlines in; per line start, end, header
-            # flag, body, split, name and description lengths out
-            "bytes": chunk.shape[0] + 4 * nl.shape[0] + 25 * n_lines + 4,
-            "shape": f"{chunk.shape[0]} bytes, {n_lines} lines, "
-                     f"{int(got.is_hdr.sum())} headers"}, got
+    for field in LINE_FIELDS[:4] + (LINE_FIELDS[4:] if want_hdr else
+                                    LINE_FIELDS[7:]):
+        _exact(f"{label} {field}", getattr(got, field), getattr(want, field))
+    n = chunk.shape[0]
+    n_hdr = int(got.is_hdr.sum())
+    hdr_bytes = int((got.end - got.start)[got.is_hdr].sum())
+    longest = int((got.end - got.start).max()) if n_lines else 0
+    read = n if want_hdr else n - hdr_bytes + n_hdr
+    r = {"max_abs_err": 0.0,
+         "ms": median_ms(lambda: k.text_records(*args), torch),
+         "plain_ms": median_ms(lambda: k.text_records_plain(*args), torch),
+         "library_ms": None,
+         "bytes": read + 4 * nl.shape[0] + (25 if want_hdr else 13) * n_lines
+         + 4,
+         "shape": f"{n} bytes, {n_lines} lines, {n_hdr} headers, longest "
+                  f"{longest}, {'FASTQ' if fastq else 'FASTA'}"
+                  f"{', want_hdr' if want_hdr else ''}"}
+    _print_case(label, r)
+    if SPLITS:
+        _print_split(torch, label, lambda: k.text_records(*args))
+    return r, got
+
+
+def check_text_records(torch, chunk, nl, ends_in_newline) -> tuple[dict,
+                                                                    object]:
+    n_lines = nl.shape[0] + (0 if ends_in_newline else 1)
+    return _text_records_case(torch, "text_records at A's chunk", chunk, nl,
+                              n_lines, False, True)
+
+
+def _long_read_fastq(n_bytes: int = 128 << 20, seed: int = 23) -> np.ndarray:
+    """Whole FASTQ records of long reads (ONT/PacBio-like) whose lengths
+    are log-uniform over 1-100 kb, up to ``n_bytes``, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(n_bytes, np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    at, i = 0, 0
+    while True:
+        m = int(np.exp(rng.uniform(np.log(1_000), np.log(100_000))))
+        head = b"@long_read_%d runid=%d ch=%d\n" % (i, seed, i % 512)
+        size = len(head) + 2 * m + 4
+        if at + size > n_bytes:
+            return out[:at]
+        out[at:at + len(head)] = np.frombuffer(head, np.uint8)
+        at += len(head)
+        out[at:at + m] = bases[rng.integers(0, 4, m, dtype=np.uint8)]
+        out[at + m:at + m + 3] = np.frombuffer(b"\n+\n", np.uint8)
+        at += m + 3
+        out[at:at + m] = rng.integers(33, 75, m, dtype=np.uint8)
+        out[at + m] = 10
+        at += m + 1
+        i += 1
+
+
+def _unwrapped_fasta(n_records: int = 4, length: int = 32 << 20,
+                     seed: int = 29) -> np.ndarray:
+    """``n_records`` unwrapped FASTA records (a chromosome a line) of
+    ``length`` bases each, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+    parts = []
+    for i in range(n_records):
+        parts.append(np.frombuffer(b">chr%d unwrapped assembly\n" % (i + 1),
+                                   np.uint8))
+        parts.append(bases[rng.integers(0, 5, length, dtype=np.uint8)])
+        parts.append(np.frombuffer(b"\n", np.uint8))
+    return np.concatenate(parts)
+
+
+def _gencode() -> str:
+    from benchlib.gencode_gff_fixture import make_gencode_gff
+
+    return make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
+
+
+def _gff_features() -> dict:
+    from benchlib.gff_fixture import gff_features
+
+    return gff_features(GFF_FEATURES, GFF_SEED)
+
+
+def check_text_records_fastq(torch) -> None:
+    """text_records at the first FASTQ chunk (FASTQ mode, want_hdr), the
+    decode of E, K and O, printed apart from A's case."""
+    from exon_tpu_torch.kernels import line_index
+
+    fq = _fastq_chunk(torch)
+    nl = line_index.line_index(fq)
+    _text_records_case(torch, "text_records at the first FASTQ chunk", fq,
+                       nl, nl.shape[0] + int(int(fq[-1]) != 10), True, True)
+
+
+def check_text_records_alone(torch) -> None:
+    """text_records at A's first chunk (phase 3's case, FASTA, want_hdr),
+    at the first FASTQ chunk with and without want_hdr, and at long-line
+    chunks made from a numpy seed: 128 MiB of long-read FASTQ records
+    (1-100 kb, log-uniform), in both modes, and four unwrapped 32 MiB
+    FASTA records."""
+    from exon_tpu_torch.kernels import line_index
+
+    chunk, ends_in_newline = _fasta_chunk(torch)
+    nl = line_index.line_index(chunk)
+    check_text_records(torch, chunk, nl, ends_in_newline)
+    del chunk, nl
+    cases = [("the first FASTQ chunk", _fastq_chunk(torch), True)]
+    cases.append(("128 MiB of long reads (1-100 kb)",
+                  torch.from_numpy(_long_read_fastq()).cuda(), True))
+    cases.append(("four unwrapped 32 MiB records",
+                  torch.from_numpy(_unwrapped_fasta()).cuda(), False))
+    for what, text, fastq in cases:
+        nl = line_index.line_index(text)
+        n_lines = nl.shape[0] + int(int(text[-1]) != 10)
+        for want_hdr in ((True, False) if fastq else (True,)):
+            _text_records_case(
+                torch, f"text_records at {what}"
+                f"{'' if want_hdr else ', no want_hdr'}", text, nl, n_lines,
+                fastq, want_hdr)
+        del text, nl
 
 
 def _crlf_copy(torch, chunk, n_bytes: int = 16 << 20):
@@ -1289,13 +1410,17 @@ def _format_int_case(torch, ints: np.ndarray) -> dict:
     if got[1].cpu().numpy().tobytes() != b"".join(ints.astype("S20").tolist()):
         fail("format_int: text differs from numpy's")
     n, total = len(ints), int(got[1].shape[0])
-    return {"max_abs_err": 0.0, "library_ms": None,
-            # values and validity in; offsets and text out
-            "bytes": 8 * n + n + 4 * (n + 1) + total,
-            "ms": median_ms(lambda: k.format_int(vals, valid), torch),
-            "plain_ms": median_ms(lambda: k.format_int_plain(vals, valid),
-                                  torch),
-            "shape": f"{n} int64, {total} bytes of text"}
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         # values and validity in; offsets and text out
+         "bytes": 8 * n + n + 4 * (n + 1) + total,
+         "ms": median_ms(lambda: k.format_int(vals, valid), torch),
+         "plain_ms": median_ms(lambda: k.format_int_plain(vals, valid),
+                               torch),
+         "shape": f"{n} int64, {total} bytes of text"}
+    if SPLITS:
+        _print_split(torch, f"format_int, {n} rows",
+                     lambda: k.format_int(vals, valid))
+    return r
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -1330,7 +1455,9 @@ def check_format_int(torch, feats) -> dict:
     # all 3.4 M starts
     _print_case("format_int whole file", _format_int_case(torch,
                                                           feats["start"]))
-    return _format_int_case(torch, feats["start"][:N_ROWS])
+    r = _format_int_case(torch, feats["start"][:N_ROWS])
+    _print_case("format_int batch", r)
+    return r
 
 
 def _first_column(read, name: str):
@@ -1697,6 +1824,88 @@ def check_map_table(torch, fa_batch):
     return right
 
 
+def _column_bytes(col) -> int:
+    """The bytes of every buffer of a column, its children's too."""
+    if hasattr(col, "children"):
+        return col.validity.numel() + sum(_column_bytes(c) for c in
+                                          col.children.values())
+    parts = [getattr(col, f, None) for f in ("offsets", "values",
+                                             "validity", "codes")]
+    nested = getattr(col, "child", None)
+    return sum(t.numel() * t.element_size() for t in parts
+               if t is not None) + (0 if nested is None else
+                                    _column_bytes(nested))
+
+
+def check_slice_var(torch, fa_batch) -> dict:
+    """K12's _slice_var at J's substr(id, 4) (the offsets by cumsum, the
+    byte total's read, the copy on gather_spans) against the same with
+    gather_spans' twin, exact; its bound reads the ids' offsets and
+    validity and the bytes kept, and writes those bytes and the offsets."""
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    b, idc = fa_batch, fa_batch.column("id")
+    n = b.length
+
+    def substr():
+        out = S.fn_substr(b, idc, 4)
+        return out.offsets, out.values
+
+    def twin():
+        with _swapped([("exon_tpu_torch.ops.sqlfuncs", "gather_spans")]):
+            return substr()
+
+    kept = int(substr()[0][-1])
+    return _case(torch, "K12 _slice_var J substr(id, 4)", substr, twin,
+                 4 * (n + 1) + n + kept + kept + 4 * (n + 1),
+                 f"{n} ids, {kept} bytes kept")
+
+
+def check_take_list(torch, gf: str) -> dict:
+    """The list branch of take_column at N's list take: the attribute maps
+    of the first 131,072-row batch of N's scan taken at the rows N's WHERE
+    keeps (FilterExec's take), against the same with expand_segments' and
+    gather_var's twins, exact on every buffer. Its bound reads the kept
+    rows' buffers and the indices and writes as many bytes."""
+    import exon_tpu_torch as T
+    from exon_tpu_torch.kernels import compact_mask
+    from exon_tpu_torch.ops import layout
+    from exon_tpu_torch.plan.expressions import as_bool_mask, eval_expr
+    from exon_tpu_torch.plan.physical import FilterExec
+
+    df = T.ExonSession(device="cuda").sql(
+        f"SELECT attributes FROM gff_scan('{gf}') WHERE type = 'gene' AND "
+        "attributes['level'][1] IN ('1', '2')")
+    filt = _find(df._execute(df.logical_plan()), FilterExec)
+    b = next(iter(filt.input.batches()))
+    idx, count = compact_mask.compact_mask(
+        as_bool_mask(eval_expr(filt.predicate, b), b))
+    idx = idx[:int(count)]
+    attrs = b.column("attributes")
+
+    def flat(col):
+        return tuple(t for t in (getattr(col, f, None) for f in (
+            "offsets", "values", "validity")) if t is not None) + sum(
+            (flat(c) for c in (list(col.children.values())
+                               if hasattr(col, "children") else
+                               [getattr(col, "child", None)])
+             if c is not None), ())
+
+    def take():
+        return flat(layout.take_column(attrs, idx))
+
+    def twin():
+        with _swapped([("exon_tpu_torch.ops.layout", "expand_segments"),
+                       ("exon_tpu_torch.ops.layout", "gather_var")]):
+            return take()
+
+    out = _column_bytes(layout.take_column(attrs, idx))
+    return _case(torch, "take_column list branch, N's filter", take, twin,
+                 idx.numel() * idx.element_size() + 2 * out,
+                 f"{b.length} attribute maps, {idx.numel()} kept, {out} "
+                 "bytes out")
+
+
 def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     """The K12 kernels at queries J's and K's shapes, each against its
     twin, bit for bit: span_concat on J's concat_ws (the kernels line) and
@@ -1724,6 +1933,7 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     idc, desc, seq = (b.column(c) for c in ("id", "description", "sequence"))
     n = b.length
     right = check_map_table(torch, b)
+    check_slice_var(torch, b)
     upper = torch.from_numpy(UPPER).cuda()
     lower = torch.from_numpy(LOWER).cuda()
     _class_runs(torch, "J trim", desc, b" ", True, n, "descriptions")
@@ -2057,6 +2267,7 @@ def check_list_kernels(torch, fq_path: str) -> dict:
             (klen == len(lit)).sum()) + 4 * n_maps,
         f"{n_maps} attribute maps, {n_ent} entries, key 'gene_type'")
     del attrs, keys, args
+    check_take_list(torch, gf)
     return {"map_lookup": r_lookup, "list_bins": check_list_bins(torch)}
 
 
@@ -2166,6 +2377,7 @@ def phase_kernels(torch) -> dict:
     n_ids = int(lines.is_hdr.sum())  # records in the chunk
     flags = lines.is_hdr  # decode_chunk's compact_mask operand
     del chunk, nl, lines
+    check_text_records_fastq(torch)
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
     names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
@@ -4149,6 +4361,12 @@ def check_sw_alone(torch) -> None:
 # (each at the shapes its redesign was measured at), and phase 5's of Q's
 # aggregate (hash_aggregate on Q's path)
 FOCUS = {
+    "text_records": check_text_records_alone,
+    "format_int": lambda torch: check_format_int(
+        torch, _gff_features()),
+    "slice_var": lambda torch: check_slice_var(torch,
+                                               _fasta_first_batch(torch)),
+    "take_list": lambda torch: check_take_list(torch, _gencode()),
     "like_match": check_like_alone,
     "line_index": check_line_index_alone,
     "gather_spans": check_gather_spans_alone,

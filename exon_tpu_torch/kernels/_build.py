@@ -56,13 +56,13 @@ SIGNATURES = {
     "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "exon_line_index": [_P, _I64, _P, _P, _U64, _U64, _P, _I64, _P, _P],
     "exon_text_records": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _U64, _P],
     "exon_gather_spans": [_P, _I64, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
                           _P, _P],
     "exon_string_cmp": [_P, _P, _P, _I64, _P, _I32, _I32, _P, _P],
     "exon_parse_number": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P],
-    "exon_format_int_lengths": [_P, _P, _I64, _P, _P],
-    "exon_format_int_write": [_P, _P, _P, _I64, _P, _P],
+    "exon_format_int_offsets": [_P, _P, _I64, _P, _P, _U64, _U64, _P, _P],
+    "exon_format_int_write": [_P, _P, _I64, _P, _P],
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P, _P],
     "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],

@@ -1,5 +1,5 @@
 // bytes16.cuh: byte compares over a 16-byte word in 32-bit lanes, shared
-// by like_match.cu and line_index.cu.
+// by like_match.cu, line_index.cu and text_records.cu.
 //
 // eq16 gives one bit a byte of a uint4 that equals a byte value (bit s for
 // the byte at offset s, little-endian), with the exact zero-byte test of

@@ -16,6 +16,15 @@ lengths of the name ``[start+1, split)`` and the description
 ``[split+1, end)``. The name drops '\\r' and, in FASTA, every '>' (as the JAX
 name mask does); the description drops '\\r'. ``bad`` counts FASTQ header
 lines that do not start with '@'.
+
+On the card a call is two launches of ``csrc/text_records.cu`` and no
+sync: a lane a line reads its 16-byte words (a header past ``LONG_AT``
+bytes is read by its warp), and body lines past ``LONG_AT`` bytes are
+counted by whole warps in 16 KB pieces in the second launch. Every output,
+with the pieces' list, lies in one int32 buffer, of which the fields are
+views; nothing is zeroed (the two counts the kernels add to are status
+words of ``_lookback``'s workspace, tagged with the call's epoch). A call
+counts one in ``launches``.
 """
 
 from __future__ import annotations
@@ -25,11 +34,15 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _lookback
 
 launches = 0
 
 CR, SPACE = 13, 32
+LONG_AT = 512        # kLongAt in csrc/text_records.cu: longer lines are
+                     # shared across warps
+_PIECE = 16384       # kPiece there
+_INT32_LIMIT = 1 << 31
 GT, AT = ord(">"), ord("@")
 
 
@@ -100,6 +113,19 @@ def text_records_plain(chunk: torch.Tensor, nl: torch.Tensor, n_lines: int,
     return out
 
 
+def _layout(n: int, n_lines: int, want_hdr: bool) -> tuple:
+    """Where the outputs lie in the call's one int32 buffer, by first word:
+    ``bad`` (after the 3, or with want_hdr 6, int32 fields of ``n_lines``
+    words each, and before the header flags, a byte a line) and the long
+    lines' pieces (int32 pairs); and the words in all."""
+    fields = 6 if want_hdr else 3
+    bad = fields * n_lines
+    pieces = bad + 1 + (n_lines + 3) // 4
+    pieces += pieces % 2  # 8-byte aligned for int2
+    cap = n // _PIECE + 2 * (n // LONG_AT) + 2
+    return bad, pieces, pieces + 2 * cap
+
+
 def text_records(chunk: torch.Tensor, nl: torch.Tensor, n_lines: int,
                  fastq: bool, want_hdr: bool) -> Lines:
     global launches
@@ -109,37 +135,48 @@ def text_records(chunk: torch.Tensor, nl: torch.Tensor, n_lines: int,
     if nl.dtype != torch.int32 or nl.dim() != 1 or nl.device != chunk.device:
         raise TypeError("text_records: nl must be 1-d int32 on the chunk's "
                         "device")
-    k = nl.shape[0]
-    if n_lines not in (k, k + 1) or (n_lines and chunk.shape[0] == 0):
+    k, n = nl.shape[0], chunk.shape[0]
+    if n_lines not in (k, k + 1) or (n_lines and n == 0):
         raise ValueError(f"text_records: {n_lines} lines for {k} newlines "
-                         f"in {chunk.shape[0]} bytes")
+                         f"in {n} bytes")
+    if n >= _INT32_LIMIT:
+        raise ValueError(f"text_records: {n} bytes exceed int32 positions")
     if not _build.on_cuda(chunk, "text_records"):
         return text_records_plain(chunk, nl, n_lines, fastq, want_hdr)
     chunk, nl = chunk.contiguous(), nl.contiguous()
     if chunk.data_ptr() % 16:
-        chunk = chunk.clone()  # the kernel reads 4-byte words
+        chunk = chunk.clone()  # the kernel reads 16-byte words
     dev = chunk.device
-
-    def i32():
-        return torch.empty(n_lines, dtype=torch.int32, device=dev)
-
-    out = Lines(i32(), i32(), torch.empty(n_lines, dtype=torch.uint8,
-                                          device=dev), i32(),
-                i32() if want_hdr else None, i32() if want_hdr else None,
-                i32() if want_hdr else None,
-                torch.zeros(1, dtype=torch.int32, device=dev))
+    bad, pieces, words = _layout(n, n_lines, want_hdr)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
     if n_lines:
-        def ptr(t):
-            return 0 if t is None else t.data_ptr()
+        # the pointers from the buffer's base; the views come after the
+        # launch, off its path
+        base = buf.data_ptr()
+        fields = [base + 4 * j * n_lines for j in range(6)]
+        hdr = fields[3:] if want_hdr else [0, 0, 0]
+        stream = _build.stream_of(chunk)
 
-        lib = _build.library()
-        _build.check(lib.exon_text_records(
-            chunk.data_ptr(), chunk.shape[0], nl.data_ptr(), k, n_lines,
-            int(fastq), _name_drop(fastq), out.start.data_ptr(),
-            out.end.data_ptr(), out.is_hdr.data_ptr(), out.body.data_ptr(),
-            ptr(out.split), ptr(out.name_len), ptr(out.desc_len),
-            out.bad.data_ptr(), _build.stream_of(chunk)), "text_records")
+        def launch(status, _ticket, _base, epoch):
+            # the two kernels; status words 0 and 1 count the long lines'
+            # pieces and the bad FASTQ headers (tagged with this epoch)
+            _build.check(_build.library().exon_text_records(
+                chunk.data_ptr(), n, nl.data_ptr(), k, n_lines, int(fastq),
+                _name_drop(fastq), fields[0], fields[1],
+                base + 4 * (bad + 1), fields[2], *hdr,
+                base + 4 * bad, base + 4 * pieces, status, epoch, stream),
+                "text_records")
+
+        _lookback.scan(dev, stream, 2, 0, launch)
         launches += 1
-    out.is_hdr = out.is_hdr.view(torch.bool)
-    out.bad = out.bad[0]
+
+    def field(j: int):
+        return buf[j * n_lines:(j + 1) * n_lines]
+
+    flags = buf[bad + 1:pieces].view(torch.uint8)[:n_lines].view(torch.bool)
+    out = Lines(field(0), field(1), flags, field(2),
+                *((field(3), field(4), field(5)) if want_hdr else
+                  (None, None, None)), buf[bad])
+    if n_lines == 0:
+        out.bad.zero_()
     return out

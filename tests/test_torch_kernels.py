@@ -1414,6 +1414,144 @@ def line_case(case: str) -> list:
     return [np.ascontiguousarray(t) for t in texts]
 
 
+# text_records: a lane a line over aligned 16-byte words, body lines past
+# ktr.LONG_AT bytes counted by whole warps in 16 KB pieces;
+# csrc/format_int.cu: a single-pass offsets scan over 1,024-row tiles, then
+# a write pass of 256-row blocks. These cases are shared with
+# test_torch_redesign_k8b_cast.py, which holds the twins to exon_tpu.
+
+RECORD_CASES = ["lines_0_600", "long_lines", "one_line", "crlf", "headers",
+                "empty_and_bad"]
+# the long-line threshold (512 bytes) and its doubles to 4,096, less one,
+# at and past each
+LONG_EDGES = [16 * 8 * g + d for g in (4, 8, 16, 32) for d in (-1, 0, 1)]
+
+
+def _bases(rng, n: int, alphabet: bytes = b"ACGT") -> bytes:
+    return np.frombuffer(alphabet, np.uint8)[
+        rng.integers(0, len(alphabet), n)].tobytes()
+
+
+def _fastq(rng, seqs, names=None) -> bytes:
+    out = []
+    for i, seq in enumerate(seqs):
+        name = b"@r%d len=%d" % (i, len(seq)) if names is None else names[i]
+        qual = bytes(33 + (b % 40) for b in seq)
+        out.append(name + b"\n" + seq + b"\n+\n" + qual + b"\n")
+    return b"".join(out)
+
+
+def record_case(case: str) -> list:
+    """The (text, fastq) pairs of a text_records case, numpy uint8 texts:
+    each runs in its mode, with and without want_hdr."""
+    rng = np.random.default_rng(len(case) * 11 + 7)
+    if case == "lines_0_600":
+        # lines of 0-600 bytes, starting at every offset mod 16
+        fa = []
+        for i in range(60):
+            fa.append(b">s%d desc %d" % (i, i) if i % 3 else b">s%d" % i)
+            fa += [_bases(rng, int(rng.integers(0, 601)))
+                   for _ in range(int(rng.integers(1, 6)))]
+        seqs = [_bases(rng, int(rng.integers(0, 601))) for _ in range(60)]
+        texts = [(b"\n".join(fa) + b"\n", False), (_fastq(rng, seqs), True)]
+    elif case == "long_lines":
+        # lines just under, at and past each width's threshold, one of
+        # 70,033 bytes, with '\r' scattered in them; and a long header
+        lens = LONG_EDGES + [70_033, 16_383, 16_385, 40_000]
+        seqs = []
+        for m in lens:
+            seq = bytearray(_bases(rng, m))
+            seq[::97] = b"\r" * len(seq[::97])
+            seqs.append(bytes(seq))
+        fa = []
+        for i, seq in enumerate(seqs):
+            fa += [b">long%d" % i, _bases(rng, int(rng.integers(0, 40))), seq]
+        head = b">" + _bases(rng, 9000) + b" " + _bases(rng, 300) + b"\r"
+        texts = [(b"\n".join([head] + fa) + b"\n", False),
+                 (_fastq(rng, seqs), True)]
+    elif case == "one_line":
+        # a chunk that is one line with no final newline
+        seq = bytearray(_bases(rng, 40_000))
+        seq[5::31] = b"\r" * len(seq[5::31])
+        texts = [(bytes(seq), False), (bytes(seq), True),
+                 (b">only a header\r", False), (b"@r1 one header", True),
+                 (b"ACGT", False), (b"\r", True)]
+    elif case == "crlf":
+        # CRLF text, and lines of bare '\r'
+        fa = []
+        for i in range(40):
+            fa.append(b">c%d crlf record" % i)
+            fa += [_bases(rng, int(rng.integers(0, 200))) for _ in range(3)]
+        fa += [b"", b"\r", b"\r\r\r", b"A\rC"]
+        crlf = b"\r\n".join(fa) + b"\r\n"
+        fq = _fastq(rng, [_bases(rng, int(rng.integers(0, 200)))
+                          for _ in range(30)]).replace(b"\n", b"\r\n")
+        texts = [(crlf, False), (fq, True),
+                 (b"\r\n\r\r\n\r\n\r", False),
+                 (b"@\r\n\r\n+\r\n\r\n", True)]
+    elif case == "headers":
+        # the first space at a word's first and last byte, no space, a
+        # space after '\r', '>' in FASTA names, a space right after the
+        # marker, a bare marker; each header at every offset mod 16
+        names = [b"ab\r cd", b"a>b>c desc", b"nospace", b" lead", b"",
+                 b"x\r\r y z", b">>> >", b"tail "]
+        fa, fq = [], []
+        at = 0
+        for lead in range(16):
+            pad = _bases(rng, (lead - at - 1) % 16)
+            fa.append(pad)
+            at += len(pad) + 1
+            for sp in (0, 15):
+                # a name that puts its space at offset sp of a word
+                name = _bases(rng, (sp - at - 1) % 16 + 16)
+                fa.append(b">" + name + b" desc\r")
+                at += len(fa[-1]) + 1
+            for name in names:
+                fa.append(b">" + name)
+                at += len(name) + 2
+        for name in names + [b"q" * k + b" d" for k in range(33)]:
+            fq.append(b"@" + name)
+        texts = [(b"\n".join(fa) + b"\n", False),
+                 (_fastq(rng, [_bases(rng, 5)] * len(fq), fq), True)]
+    else:  # empty_and_bad
+        fa = b"\n\n>a\n\nAC\n\n>b x\n\n\n"
+        fq = _fastq(rng, [b"AC", b"", b"G", b"TT"],
+                    [b"@ok", b"xbad", b"", b"@ok2 d"]) + b"\n\n\n\n"
+        texts = [(np.frombuffer(fa, np.uint8), False),
+                 (np.frombuffer(fq, np.uint8), True),
+                 (b"\n" * 100, True), (b"\n" * 100, False)]
+    return [(np.frombuffer(t, np.uint8).copy() if isinstance(t, bytes)
+             else t.copy(), fq) for t, fq in texts]
+
+
+def record_lines(text) -> tuple:
+    """(newline positions, line count) of a text, by the twin."""
+    nl = kli.line_index_plain(text)
+    n = text.shape[0]
+    return nl, nl.shape[0] + int(n > 0 and int(text[-1]) != 10)
+
+
+# format_int: each digit count's edges, 2^32 and INT64_MAX and MIN + 1 with
+# their negatives, NULL rows; row counts either side of a look-back tile
+# (1,024 rows) and of a write block (256)
+INT_EDGES = sorted({0, 1, 9, 10, 99, 100}
+                   | {10 ** k + d for k in range(1, 19) for d in (-1, 0, 1)}
+                   | {2 ** 32 - 1, 2 ** 32, 2 ** 32 + 1, 2 ** 63 - 1})
+INT_ROWS = [1, 255, 256, 257, 4095, 4096, 4097, 131_073]
+
+
+def int_case(n: int) -> tuple:
+    """(int64 values, validity) of n rows: the edges and their negatives,
+    then seeded values of every digit count; a NULL row in 13."""
+    rng = np.random.default_rng(n)
+    edges = np.asarray([v for e in INT_EDGES for v in (e, -e)], np.int64)
+    digits = rng.integers(1, 19, n)
+    rand = rng.integers(0, 10 ** digits.astype(np.int64), dtype=np.int64)
+    vals = np.concatenate([edges, rand * np.where(rng.random(n) < 0.3, -1, 1)
+                           ])[:n]
+    return vals, rng.random(n) >= 1 / 13
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SPAN_CASES)
 @pytest.mark.parametrize("drop", SPAN_DROPS)
@@ -1622,6 +1760,149 @@ def test_line_index_is_one_launch_a_call(card):
     seen, kernels_seen = kernels_of(lambda: kli.line_index(dense))
     assert len(kernels_seen) == 1, seen
     assert 9 <= next(iter(kernels_seen.values())) <= 10, seen
+
+
+def _assert_records_match_twin(text, fastq: bool, want_hdr: bool) -> None:
+    nl, n_lines = record_lines(text)
+    got = ktr.text_records(text, nl, n_lines, fastq, want_hdr)
+    want = ktr.text_records_plain(text, nl, n_lines, fastq, want_hdr)
+    for f in ("start", "end", "is_hdr", "body", "split", "name_len",
+              "desc_len", "bad"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        assert a is None or (a.dtype == b.dtype and torch.equal(a, b)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 15])
+@pytest.mark.parametrize("case", RECORD_CASES)
+def test_text_records_design_cases_match_twin(card, case, offset):
+    # the lines either side of the long-line threshold, from a chunk at
+    # each offset into its card buffer (16-byte aligned or copied to be)
+    for text, fastq in record_case(case):
+        buf = torch.zeros(len(text) + 16, dtype=torch.uint8, device=card)
+        t = buf[offset:offset + len(text)]
+        t.copy_(torch.from_numpy(text).to(card))
+        for want_hdr in (True, False):
+            _assert_records_match_twin(t, fastq, want_hdr)
+
+
+@pytest.mark.cuda
+def test_text_records_long_lines_shared_across_warps_match_twin(card):
+    """Several long lines, pieces across 16 KB boundaries, a chunk that is
+    one long line (with and without its newline), four unwrapped records,
+    and a long-read FASTQ chunk with '\r' in its lines."""
+    rng = np.random.default_rng(31)
+    lines = [_bases(rng, m) for m in (200_000, 16_384, 16_385, 50_001, 7)]
+    lines[1] = lines[1][:100] + b"\r" * 5000 + lines[1][5100:]
+    texts = [(b"\n".join(lines) + b"\n", False),
+             (lines[0], False), (lines[0] + b"\n", True),
+             (b"".join(b">chr%d x\n" % i + _bases(rng, 1 << 20, b"ACGTN")
+                       + b"\n" for i in range(4)), False),
+             (_fastq(rng, [_bases(rng, int(m)) + b"\r" for m in
+                           np.exp(rng.uniform(np.log(1000), np.log(100_000),
+                                              40))]), True)]
+    for text, fastq in texts:
+        t = torch.from_numpy(np.frombuffer(text, np.uint8).copy()).to(card)
+        for want_hdr in (True, False):
+            _assert_records_match_twin(t, fastq, want_hdr)
+
+
+@pytest.mark.cuda
+def test_text_records_counts_start_at_zero_each_call(card):
+    """The pieces' and bad headers' counts live in the look-back
+    workspace's status words: a call after one that added to them, and
+    after other scans on the same words, starts from zero."""
+    rng = np.random.default_rng(37)
+    bad = _fastq(rng, [b"AC"] * 9, [b"x%d" % i for i in range(9)])
+    long_fa = b">a\n" + _bases(rng, 90_000) + b"\r\n"
+    plain = record_case("lines_0_600")[1][0].tobytes()
+    mask = torch.from_numpy(rng.random(70_000) < 0.5).to(card)
+    for text, fastq in [(bad, True), (plain, True), (long_fa, False),
+                        (long_fa, False), (plain, True), (bad, True)]:
+        t = torch.from_numpy(np.frombuffer(text, np.uint8).copy()).to(card)
+        _assert_records_match_twin(t, fastq, True)
+        kc.compact_mask(mask)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    t = torch.from_numpy(np.frombuffer(bad, np.uint8).copy()).to(card)
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(6):
+        with torch.cuda.stream(streams[i % 2]):
+            nl, n_lines = record_lines(t)
+            outs.append(ktr.text_records(t, nl, n_lines, True, True).bad)
+    torch.cuda.synchronize()
+    assert [int(b) for b in outs] == [9] * 6
+
+
+@pytest.mark.cuda
+def test_text_records_is_two_launches_and_no_sync(card):
+    """Two kernels a call (the group pass and the long lines' pass), no
+    fill or copy beside them, and no sync: a call runs under sync debug
+    mode "error"."""
+    text = torch.from_numpy(record_case("long_lines")[0][0]).to(card)
+    nl, n_lines = record_lines(text)
+    ktr.text_records(text, nl, n_lines, False, True)  # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lines = ktr.text_records(text, nl, n_lines, False, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(lines.body, ktr.text_records_plain(
+        text, nl, n_lines, False, True).body)
+    for _ in range(3):
+        seen = _cuda_kernels(lambda: ktr.text_records(text, nl, n_lines,
+                                                      False, True), 5)
+        if seen:
+            break
+    assert len(seen) == 2, seen
+    assert any("text_lines_kernel" in k for k in seen), seen
+    assert any("text_long_lines_kernel" in k for k in seen), seen
+    assert all(4 <= c <= 5 for c in seen.values()), seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", INT_ROWS)
+def test_format_int_edge_rows_match_twin(card, n):
+    ints, valid = int_case(n)
+    for v, ok in ((ints, valid), (ints, np.zeros(n, bool)),
+                  (np.full(n, -2 ** 63, np.int64), valid)):
+        args = (torch.from_numpy(v).to(card), torch.from_numpy(ok).to(card))
+        got, want = kf.format_int(*args), kf.format_int_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1].shape[0] == int(got[0][-1])
+
+
+@pytest.mark.cuda
+def test_format_int_is_two_launches_and_one_read(card):
+    """The offsets pass and the write pass (no fill, cumsum or lengths
+    pass), and one host read, of the total, a call."""
+    import warnings
+
+    ints, valid = int_case(INT_ROWS[-1])
+    args = (torch.from_numpy(ints).to(card), torch.from_numpy(valid).to(card))
+    kf.format_int(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen_warnings:
+            warnings.simplefilter("always")
+            kf.format_int(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen_warnings if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in seen_warnings]
+    for _ in range(3):
+        seen = _cuda_kernels(lambda: kf.format_int(*args), 5)
+        if seen:
+            break
+    kernels_seen = {k: c for k, c in seen.items() if "Memcpy" not in k}
+    assert len(kernels_seen) == 2, seen
+    assert any("format_int_offsets_kernel" in k for k in kernels_seen), seen
+    assert any("format_int_write_kernel" in k for k in kernels_seen), seen
+    assert sum(c for k, c in seen.items() if "Memcpy" in k) <= 5, seen
 
 
 @pytest.mark.cuda
