@@ -6,14 +6,16 @@ Run from the repository root with no arguments:
 
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
 ``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
-``text_records,format_int,slice_var,take_list`` (any of them) runs phases
-1-2 and those cases alone, each taken apart into device time, launches and
-host time (sw_score also read from its SASS; line_index also at the first
-FASTQ chunk; text_records at A's chunk, at the first FASTQ chunk with and
-without want_hdr, and at two long-line chunks made from a seed: 128 MiB of
-long-read FASTQ records of 1-100 kb, in both modes, and four unwrapped
-32 MiB FASTA records; format_int at one 131,072-row batch of GFF starts
-and at all 3.4 M; slice_var at J's substr and take_list at N's list take);
+``text_records,format_int,slice_var,take_list,window_frame,``
+``expand_segments,joins`` (any of them) runs phases 1-2 and those cases alone,
+each taken apart into device time, launches and host time (window_frame at
+L's batch, all sixteen modes; expand_segments' chain at C's probe batch and
+the skewed one; joins: C's and D's joins and sorts alone, as phase 5; sw_score also read from its SASS; line_index also at the
+first FASTQ chunk; text_records at A's chunk, at the first FASTQ chunk with
+and without want_hdr, and at two long-line chunks made from a seed: 128 MiB
+of long-read FASTQ records of 1-100 kb, in both modes, and four unwrapped
+32 MiB FASTA records; format_int at one 131,072-row batch of GFF starts and
+at all 3.4 M; slice_var at J's substr and take_list at N's list take);
 ``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
 earlier commit, unpacked), so that two versions are timed in one run on one
 card.
@@ -78,7 +80,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    window_bounds on the sorted key matrices of (chrom, pos) and (chrom,
    qual DESC), window_frame in every mode (L's four calls, the rest of the
    rank family, lead with a default, sum, avg and the value picks over L's
-   ROWS frame, min over its RANGE frame through the sparse table).
+   ROWS frame, min over its RANGE frame through the sparse table; each
+   bound counts what the function must move, _frame_bytes).
+   expand_segments runs as its callers run it, from the counts to both
+   index arrays (the offsets pass, the total's read, the write pass), at
+   Query C's probe batch and at a skewed batch (one row of 2^22 slots among
+   131,071 of 0-2), beside repeat_interleave of the row numbers.
    The list kernels (K11b) and the map lookup run at the shapes of queries
    N, O and P: map_bytes' widen mode (to int8 DNA codes and to int64 Phred
    scores) and narrow mode (the scores back to text) on the first FASTQ
@@ -962,30 +969,72 @@ def _names_column(names: np.ndarray, torch):
             torch.from_numpy(vals).cuda())
 
 
-def check_expand(rng, torch) -> dict:
+def _expand_chain(k, plain: bool = False):
+    """The chain from the counts to both index arrays, as the callers run
+    it: the wrapper alone, or, on a tree whose wrapper takes the offsets and
+    the total (before expand_segments laid them out itself), torch's cumsum,
+    the total's read and the wrapper, as the callers ran them there."""
+    import inspect
+
+    f = k.expand_segments_plain if plain else k.expand_segments
+    if len(inspect.signature(f).parameters) == 3:
+        return f
+
+    def chain(lo, counts, n_build):
+        import torch
+
+        ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        total = int(ends[-1]) if ends.numel() else 0
+        return f(lo, counts, ends - counts, total, n_build)
+
+    return chain
+
+
+def _expand_case(torch, label: str, lo, counts, n_build: int) -> dict:
+    """expand_segments' chain from the counts against its twin, exact on
+    the index arrays (and the offsets, where the wrapper returns them),
+    beside repeat_interleave of the row numbers; under --kernels also taken
+    apart into its launches (_print_split)."""
     from exon_tpu_torch.kernels import expand_segments as k
 
-    # Query C: 131,072 reads per probe batch, ~1.27 gene slots per read
-    n_build = 60_991
-    counts = rng.poisson(1.27, N_ROWS).astype(np.int32)
-    ends = np.cumsum(counts)
-    lo = torch.from_numpy(rng.integers(0, n_build, N_ROWS).astype(np.int32))
-    args = (lo.cuda(), torch.from_numpy(counts).cuda(),
-            torch.from_numpy(ends - counts).cuda(), int(ends[-1]), n_build)
-    got, want = k.expand_segments(*args), k.expand_segments_plain(*args)
+    chain, twin = _expand_chain(k), _expand_chain(k, plain=True)
+    got, want = chain(lo, counts, n_build), twin(lo, counts, n_build)
     torch.cuda.synchronize()
-    _exact("expand_segments probe", got[0], want[0])
-    _exact("expand_segments build", got[1], want[1])
-    rows = torch.arange(N_ROWS, device="cuda")
-    return {"max_abs_err": 0.0,
-            "ms": median_ms(lambda: k.expand_segments(*args), torch),
-            "plain_ms": median_ms(lambda: k.expand_segments_plain(*args),
-                                  torch),
-            "library_ms": median_ms(
-                lambda: torch.repeat_interleave(rows, args[1]), torch),
-            # lo, counts, starts in; a probe and a build index per slot out
-            "bytes": 12 * N_ROWS + 8 * int(ends[-1]),
-            "shape": f"{N_ROWS} probe rows, {int(ends[-1])} slots"}
+    for name, g, w in zip(("probe", "build", "offsets"), got, want):
+        _exact(f"expand_segments {label} {name}", g, w)
+    n, total = lo.shape[0], int(counts.sum())
+    rows = torch.arange(n, device="cuda")
+    # counts and lo in, the offsets and both index arrays out
+    nbytes = 8 * n + 8 * (n + 1) + 8 * total
+    r = {"max_abs_err": 0.0,
+         "ms": median_ms(lambda: chain(lo, counts, n_build), torch),
+         "plain_ms": median_ms(lambda: twin(lo, counts, n_build), torch),
+         "library_ms": median_ms(
+             lambda: torch.repeat_interleave(rows, counts), torch),
+         "bytes": nbytes, "shape": f"{label}: {n} rows, {total} slots"}
+    print(f"  expand_segments chain, {r['shape']}: {r['ms']:.4f} ms, twin "
+          f"{r['plain_ms']:.4f} ms, repeat_interleave {r['library_ms']:.4f} "
+          f"ms, bound {bound_ms(nbytes):.4f} ms")
+    if SPLITS:
+        _print_split(torch, f"expand_segments chain, {label}",
+                     lambda: chain(lo, counts, n_build))
+    return r
+
+
+def check_expand(rng, torch) -> dict:
+    """expand_segments from the counts at Query C's probe batch (131,072
+    reads, ~1.27 gene slots a read), and a skewed batch: one row of 2^22
+    slots among 131,071 of 0-2."""
+    n_build = 60_991
+    lo = torch.from_numpy(rng.integers(0, n_build, N_ROWS).astype(
+        np.int32)).cuda()
+    counts = torch.from_numpy(rng.poisson(1.27, N_ROWS).astype(
+        np.int32)).cuda()
+    r = _expand_case(torch, "C's probe batch", lo, counts, n_build)
+    skew = rng.integers(0, 3, N_ROWS).astype(np.int32)
+    skew[N_ROWS // 2] = 1 << 22
+    _expand_case(torch, "skewed", lo, torch.from_numpy(skew).cuda(), n_build)
+    return r
 
 
 def check_row_hash(torch, names) -> dict:
@@ -2105,21 +2154,27 @@ def _panel_batch(vcf: str):
     return concat_batches(plan.schema(), list(plan.batches()), "cuda")
 
 
-def _frame_bytes(fn: str, n: int, values, frame, loop: bool) -> int:
-    """What window_frame must move for ``fn`` over n rows: perm and the
-    four bounds, the values (as the kernel reads them, 8 bytes) and their
-    validity, the prefix arrays the function reads and a RANGE key with
-    its validity, each once; the result and its validity written once. A
-    sparse-table lookup reads two words a row."""
-    nbytes = 8 * n + 16 * n + 9 * n
+def _frame_bytes(fn: str, n: int, values, frame) -> int:
+    """What window_frame must move for ``fn`` over n rows, each once: perm;
+    the bounds the function reads (rank: start and first peer; lag, ROWS
+    and RANGE frames: start and end; the default frame also the last peer);
+    the column in its own width and its validity (COUNT of a column: the
+    validity); a RANGE key and its validity; a prefix only where the
+    function needs one (COUNT of a column: the valid count; sum and avg:
+    it and the sum; dense_rank: the peer starts); the result (8 bytes) and
+    its validity written."""
+    bounds = {"row_number": 1, "rank": 2, "ntile": 2, "dense_rank": 1,
+              "percent_rank": 3, "cume_dist": 3, "lag": 2, "lead": 2}
+    nbytes = 8 * n + 9 * n
+    nbytes += 4 * n * bounds.get(fn, 2 if frame is not None else 3)
     if values is not None:
-        nbytes += 9 * n
-    if fn in ("count", "sum", "avg", "min", "max"):
-        nbytes += 8 * n                      # the valid count
-    if fn in ("sum", "avg", "dense_rank"):
-        nbytes += 8 * n                      # the sum, or the peer starts
-    if fn in ("min", "max") and not loop:
+        nbytes += (1 if fn == "count" else values.element_size() + 1) * n
+        if fn == "count":
+            nbytes += 8 * n
+    if fn in ("sum", "avg"):
         nbytes += 16 * n
+    if fn == "dense_rank":
+        nbytes += 8 * n
     if frame is not None and frame.key is not None:
         nbytes += (frame.key.element_size() + 1) * n
     return nbytes
@@ -2185,14 +2240,16 @@ def check_window_kernels(torch, batch) -> dict:
          for fn in ("row_number", "dense_rank", "percent_rank", "cume_dist",
                     "ntile")]
     for label, fn, (perm, bounds), (vals, ok), fr, off, d in cases:
-        loop = fn in ("min", "max") and fr is rows5
-        r = _case(torch, f"window_frame L {label}",
-                  lambda: kf.window_frame(fn, bounds, perm, vals, ok, fr,
-                                          off, d),
+        def call():
+            return kf.window_frame(fn, bounds, perm, vals, ok, fr, off, d)
+
+        r = _case(torch, f"window_frame L {label}", call,
                   lambda: kf.window_frame_plain(fn, bounds, perm, vals, ok,
                                                 fr, off, d),
-                  _frame_bytes(fn, n, vals, fr, loop), f"{n} rows, {label}")
+                  _frame_bytes(fn, n, vals, fr), f"{n} rows, {label}")
         res.setdefault("window_frame", r)
+        if SPLITS:
+            _print_split(torch, f"window_frame L {label}", call)
     return res
 
 
@@ -2429,10 +2486,7 @@ def phase_kernels(torch) -> dict:
     results["span_concat"] = check_sql_kernels(
         torch, _first_batch(lambda s: s.read_fasta(fa_path)),
         _first_batch(lambda s: s.read_fastq(fq_path).select("sequence")))
-    from benchlib.vcf_fixture import make_vcf
-
-    results.update(check_window_kernels(
-        torch, _panel_batch(make_vcf(VCF_RECORDS, VCF_SEED))))
+    results.update(check_window_kernels(torch, _l_batch()))
     results.update(check_list_kernels(torch, fq_path))
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = _bound(r)
@@ -4229,6 +4283,28 @@ def phase_focus(torch, names: list) -> None:
         FOCUS[k](torch)
 
 
+def _l_batch():
+    """Query L's window input: I_panel's scan of the VCF fixture,
+    concatenated on the card."""
+    from benchlib.vcf_fixture import make_vcf
+
+    return _panel_batch(make_vcf(VCF_RECORDS, VCF_SEED))
+
+
+def check_joins_alone(torch) -> None:
+    """Phase 5's joins and sorts of C and D alone, their inputs in memory,
+    on one device: JoinExec's probe, expand_segments' main caller (C's
+    inner join, D's left join)."""
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import make_bam
+    from benchlib.gff_fixture import make_gff
+
+    session = T.ExonSession(device="cuda")
+    bam, gf = make_bam(N_TEMPLATES, BAM_SEED), make_gff(GFF_FEATURES, GFF_SEED)
+    _join_and_sort_ms(_query_c(T, session, bam, gf), torch, "C")
+    _join_and_sort_ms(_query_d(T, session, bam), torch, "D")
+
+
 def check_q_aggregate(torch) -> None:
     """Phase 5's timing of Q's aggregate alone, on the device batches of
     Q's scan."""
@@ -4357,9 +4433,10 @@ def check_sw_alone(torch) -> None:
     print_sw_sass()
 
 
-# the cases a run with --kernels can take alone: phase 3's of ten kernels
-# (each at the shapes its redesign was measured at), and phase 5's of Q's
-# aggregate (hash_aggregate on Q's path)
+# the cases a run with --kernels can take alone: phase 3's of fourteen
+# kernels (each at the shapes its redesign was measured at), and phase 5's
+# of Q's aggregate (hash_aggregate on Q's path) and of C's and D's joins
+# (expand_segments on JoinExec's path)
 FOCUS = {
     "text_records": check_text_records_alone,
     "format_int": lambda torch: check_format_int(
@@ -4381,6 +4458,10 @@ FOCUS = {
         np.random.default_rng(1234), torch, _chunk_line_flags(torch)),
     "map_bytes": lambda torch: check_map_table(torch,
                                                _fasta_first_batch(torch)),
+    "window_frame": lambda torch: check_window_kernels(torch, _l_batch()),
+    "expand_segments": lambda torch: check_expand(
+        np.random.default_rng(1234), torch),
+    "joins": check_joins_alone,
 }
 
 

@@ -49,7 +49,8 @@ SIGNATURES = {
     "exon_hash_aggregate": [_I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                             _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P],
-    "exon_expand_segments": [_P, _P, _P, _I64, _I64, _P, _P, _P],
+    "exon_expand_offsets": [_P, _I64, _P, _P, _U64, _U64, _P, _P, _I64, _P],
+    "exon_expand_write": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
     "exon_row_hash": [_P, _P, _I64, _P, _P],
     "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],

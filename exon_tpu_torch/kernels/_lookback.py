@@ -1,9 +1,10 @@
 """The workspace of the single-pass scans (``csrc/lookback.cuh``).
 
-compact_mask, bucket_pack, gather_var, line_index and format_int each scan
-in one pass with a decoupled look-back: a tile publishes its sum in a status
-word and reads its predecessors' words. text_records keeps two counters in
-words 0 and 1 (a call of no tiles), where a word of an older epoch counts 0.
+compact_mask, bucket_pack, gather_var, line_index, format_int and
+expand_segments each scan in one pass with a decoupled look-back: a tile
+publishes its sum in a status word and reads its predecessors' words.
+text_records keeps two counters in words 0 and 1 (a call of no tiles),
+where a word of an older epoch counts 0.
 This module keeps the words per (device, stream), with the ticket counter
 after them, the number of tiles launched on them so far and the number of
 the last call (the epoch). Calls on one stream run in order, so each finds

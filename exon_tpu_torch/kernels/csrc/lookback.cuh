@@ -1,9 +1,9 @@
 // lookback.cuh: the status words of a single-pass scan with a decoupled
 // look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
 // Decoupled Look-back", 2016), shared by compact_mask.cu, bucket_pack.cu,
-// gather_var.cu, line_index.cu and format_int.cu. text_records.cu keeps
-// two counters in status words of this format (a word of an older epoch
-// counts 0).
+// gather_var.cu, line_index.cu, format_int.cu and expand_segments.cu.
+// text_records.cu keeps two counters in status words of this format (a
+// word of an older epoch counts 0).
 //
 // A block takes its tile's number from an atomic ticket rather than
 // blockIdx, so a tile only ever waits on tiles whose blocks already run and

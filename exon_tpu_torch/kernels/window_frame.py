@@ -8,31 +8,43 @@ order (:238-240). Kernel source: ``csrc/window_frame.cu``.
 
 ``window_frame(fn, bounds, perm, ...)`` takes the four bounds of
 ``window_bounds`` and ``perm`` (sorted row -> input row), and as the
-function needs: ``values``/``valid`` in input order (fixed-width; the
-wrapper gathers them into sorted order as 64-bit words: integers as int64,
-floats as float64), a ``Frame`` (None: the default frame, the partition's
-start to the row's last peer, which is the whole partition without ORDER
-BY), ``offset`` (the lag/lead shift, ntile's bucket count, nth_value's n)
-and ``default`` (lag/lead). It returns ``(values [n], validity [n])`` in
-input order: int64 for the rank family but percent_rank and cume_dist
-(float64) and for count; float64 for avg; the sum in int64 or float64; the
-widened value otherwise; 0 where the result is NULL. The caller casts to
+function needs: ``values``/``valid`` in input order (fixed-width), a
+``Frame`` (None: the default frame, the partition's start to the row's
+last peer, which is the whole partition without ORDER BY), ``offset`` (the
+lag/lead shift, ntile's bucket count, nth_value's n) and ``default``
+(lag/lead). It returns ``(values [n], validity [n])`` in input order:
+int64 for the rank family but percent_rank and cume_dist (float64) and for
+count; float64 for avg; the sum in int64 or float64; the value widened to
+int64 or float64 otherwise; 0 where the result is NULL. The caller casts to
 the result's field type.
 
-torch builds what the kernel reads besides the bounds (Lib): the sorted
-values, the inclusive prefix arrays (valid count, sum, dense-rank peer
-starts) and, for min/max over frames wider than ``LOOP_ROWS``, the sparse
-table of ``_window_aggregate`` (:342-364). So the kernel and the twin read
-the same prefix arrays and agree bit for bit, float sums included. The
-JAX package sums a float32 column in float32 prefixes; here every float
-sum is a float64 prefix (ROADMAP Queue 3, F22, as F13 for the grouped
-aggregate).
+On the card each call is one launch. The kernel reads the column in its
+own width through ``perm`` (a block stages it over its tile of sorted rows
+and a halo of ``LOOP_ROWS`` on each side in shared memory), counts a
+COUNT(*) frame as hi - lo + 1, finds RANGE bounds by a galloping search
+from the row, and loops over min/max frames of at most ``LOOP_ROWS`` rows,
+so Query L's four calls (COUNT(*) over a RANGE frame, lag, MAX over ROWS
+5/5, rank) run no torch op. torch builds the rest (Lib): the inclusive
+prefix arrays where the function needs one (COUNT of a column: the valid
+count; sum and avg: it and the sum; dense_rank: the peer starts) and, for
+min/max over frames wider than ``LOOP_ROWS``, the sparse table of
+``_window_aggregate`` (:342-364). The twin builds every array the JAX
+arithmetic reads (the sorted widened values, the prefixes, the table), and
+the kernel equals it bit for bit, float sums included. The bound on the
+H100 counts what the function must move: perm, the bounds it reads, the
+column in its own width and its validity, a RANGE key and its validity,
+the prefixes above, and the result and its validity (chip_smoke.py's
+``_frame_bytes``).
+
+The JAX package sums a float32 column in float32 prefixes; here every
+float sum is a float64 prefix (ROADMAP Queue 3, F22, as F13 for the
+grouped aggregate).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import struct
 from typing import Optional
 
 import torch
@@ -49,8 +61,10 @@ SHIFT_FNS = ("lag", "lead")
 # a min/max frame of at most this many rows is scanned, not looked up
 LOOP_ROWS = 64
 # modes, functions and frame kinds of csrc/window_frame.cu
-_MODE = {**{f: 0 for f in RANK_FNS}, **{f: 1 for f in SHIFT_FNS},
-         **{f: 2 for f in PICK_FNS}, **{f: 3 for f in AGG_FNS}}
+_RANK, _SHIFT, _PICK, _AGGREGATE = range(4)
+_MODE = {**{f: _RANK for f in RANK_FNS}, **{f: _SHIFT for f in SHIFT_FNS},
+         **{f: _PICK for f in PICK_FNS}, **{f: _AGGREGATE for f in AGG_FNS}}
+_FLOAT_FNS = ("percent_rank", "cume_dist", "avg")
 _FN = {**{f: i for i, f in enumerate(RANK_FNS)},
        **{f: i for i, f in enumerate(PICK_FNS)},
        **{f: i for i, f in enumerate(AGG_FNS)}, "lag": 0, "lead": 0}
@@ -71,18 +85,21 @@ class Frame:
     key_valid: Optional[torch.Tensor] = None
 
 
-class WindowFrameArgs(ctypes.Structure):
-    """The kernel's arguments, field for field as csrc/window_frame.cu
-    declares them."""
-
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "seg_start", "seg_end", "peer_first", "peer_last", "perm", "values",
-        "valid", "cnt", "sum", "dense", "table", "key", "key_valid", "out",
-        "out_valid")] + [(name, ctypes.c_int64) for name in (
-            "n", "offset", "lo_off", "hi_off", "default_word")] + [
-        (name, ctypes.c_int32) for name in (
-            "mode", "fn", "frame", "lo_unbounded", "hi_unbounded",
-            "value_kind", "key_kind", "levels", "loop", "has_default")]
+# the kernel's arguments, field for field as csrc/window_frame.cu's
+# WindowFrameArgs declares them: seg_start, seg_end, peer_first, peer_last,
+# perm, values, valid, cnt, sum, dense, table, key, key_valid, out,
+# out_valid; n, offset, lo_off, hi_off, default_word; mode, fn, frame,
+# lo_unbounded, hi_unbounded, column, is_float, key_kind, levels, loop,
+# has_default, stage
+_ARGS = struct.Struct("<15Q5q12i")
+_BOUND_NAMES = ("seg_start", "seg_end", "peer_first", "peer_last")
+# the column types the kernel reads in their own width (others are widened
+# by torch first)
+_COLUMN_KIND = {torch.int64: 0, torch.float64: 1, torch.float32: 2,
+                torch.int32: 3, torch.int16: 4, torch.int8: 5,
+                torch.uint8: 6, torch.bool: 6}
+# what a block stages in shared memory
+_STAGE_VALUES, _STAGE_KEYS = 1, 2
 
 
 @dataclasses.dataclass
@@ -101,7 +118,6 @@ class _Inputs:
     sum: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
     table: Optional[torch.Tensor] = None
-    loop: bool = False
 
 
 def _ident(fn: str, dtype: torch.dtype):
@@ -130,38 +146,73 @@ def _widen(values: torch.Tensor) -> torch.Tensor:
                      else torch.int64)
 
 
-def _prepare(fn: str, bounds: tuple, perm: torch.Tensor,
-             values: Optional[torch.Tensor], valid: Optional[torch.Tensor],
-             frame: Optional[Frame], offset: int, default,
-             kernel: bool = False) -> _Inputs:
+def _check(fn: str, bounds: tuple, perm: torch.Tensor, values, valid,
+           frame: Optional[Frame], offset: int) -> int:
+    """Raise on arguments neither path takes; returns the row shift
+    (lead's negated), ntile's bucket count (at least 1) or nth_value's n."""
     if fn not in _MODE:
         raise ValueError(f"window_frame: no mode for {fn!r}")
-    n = perm.shape[0]
-    for name, t in (("seg_start", bounds[0]), ("seg_end", bounds[1]),
-                    ("peer_first", bounds[2]), ("peer_last", bounds[3])):
-        if t.dtype != torch.int32 or t.shape != (n,):
-            raise TypeError(f"window_frame: {name} must be int32 [{n}]")
     if perm.dtype != torch.int64 or perm.dim() != 1:
         raise TypeError("window_frame: perm must be 1-d int64")
-    if fn == "ntile":
-        offset = max(int(offset), 1)
-    elif fn == "lead":
-        offset = -int(offset)
-    inp = _Inputs(fn, bounds, perm, None, None, frame, int(offset), None)
+    shape = perm.shape
+    for name, t in zip(_BOUND_NAMES, bounds):
+        if t.dtype != torch.int32 or t.shape != shape:
+            raise TypeError(f"window_frame: {name} must be int32 {shape}")
     if values is not None:
-        if values.shape != (n,) or valid is None or valid.shape != (n,):
-            raise TypeError(f"window_frame: values and validity of {n} rows")
+        if values.shape != shape or valid is None or valid.shape != shape:
+            raise TypeError(f"window_frame: values and validity of "
+                            f"{shape[0]} rows")
+    elif fn != "count" and _MODE[fn] != _RANK:
+        raise TypeError(f"window_frame: {fn} needs values")
+    if frame is not None and frame.kind == RANGE:
+        if frame.key is None or frame.key.dtype not in _KEY_KIND or \
+                frame.key.shape != shape or frame.key_valid is None:
+            raise TypeError("window_frame: a RANGE frame needs its sorted "
+                            "int64, float64 or float32 key and validity")
+    if fn == "ntile":
+        return max(int(offset), 1)
+    return -int(offset) if fn == "lead" else int(offset)
+
+
+def _default_word(default, dtype: torch.dtype):
+    """lag/lead's default in the values' own type first, then widened: a
+    0-d int64 or float64 tensor."""
+    return _widen(torch.tensor(default, dtype=dtype))
+
+
+def _dense(bounds: tuple) -> torch.Tensor:
+    """dense_rank's inclusive prefix count of peer-group starts."""
+    n = bounds[2].shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=bounds[2].device)
+    return torch.cumsum((bounds[2] == idx).to(torch.int64), 0)
+
+
+def _table_levels(frame: Optional[Frame], n: int) -> tuple:
+    """(width, levels): a ROWS frame's rows (None when unbounded or not
+    ROWS) and the sparse-table levels that cover it."""
+    width = None
+    if frame is not None and frame.kind == ROWS and \
+            frame.lo is not None and frame.hi is not None:
+        width = max(frame.hi - frame.lo + 1, 1)
+    levels = max(n, 1).bit_length() if width is None else \
+        min(width, max(n, 1)).bit_length()
+    return width, levels
+
+
+def _prepare(fn: str, bounds: tuple, perm: torch.Tensor,
+             values: Optional[torch.Tensor], valid: Optional[torch.Tensor],
+             frame: Optional[Frame], offset: int, default) -> _Inputs:
+    offset = _check(fn, bounds, perm, values, valid, frame, offset)
+    n = perm.shape[0]
+    inp = _Inputs(fn, bounds, perm, None, None, frame, offset, None)
+    if values is not None:
         if default is not None:
-            # lag/lead's default takes the values' own type first
-            inp.default = _widen(torch.tensor(default, dtype=values.dtype))
+            inp.default = _default_word(default, values.dtype)
         inp.values = _widen(values)[perm]
         inp.valid = valid[perm]
-    elif fn != "count" and _MODE[fn] != 0:
-        raise TypeError(f"window_frame: {fn} needs values")
     dev = perm.device
     if fn == "dense_rank":
-        idx = torch.arange(n, dtype=torch.int32, device=dev)
-        inp.dense = torch.cumsum((bounds[2] == idx).to(torch.int64), 0)
+        inp.dense = _dense(bounds)
     if fn in AGG_FNS:
         vv = inp.valid if inp.valid is not None else \
             torch.ones(n, dtype=torch.bool, device=dev)
@@ -172,20 +223,7 @@ def _prepare(fn: str, bounds: tuple, perm: torch.Tensor,
         if fn in ("min", "max"):
             x = torch.where(vv, inp.values, _ident(fn, inp.values.dtype))
             inp.values = x
-            width = None
-            if frame is not None and frame.kind == ROWS and \
-                    frame.lo is not None and frame.hi is not None:
-                width = max(frame.hi - frame.lo + 1, 1)
-            inp.loop = kernel and width is not None and width <= LOOP_ROWS
-            levels = max(n, 1).bit_length() if width is None else \
-                min(width, max(n, 1)).bit_length()
-            if not inp.loop:
-                inp.table = _sparse_table(x, fn, levels)
-    if frame is not None and frame.kind == RANGE:
-        if frame.key is None or frame.key.dtype not in _KEY_KIND or \
-                frame.key.shape != (n,) or frame.key_valid is None:
-            raise TypeError("window_frame: a RANGE frame needs its sorted "
-                            "int64, float64 or float32 key and validity")
+            inp.table = _sparse_table(x, fn, _table_levels(frame, n)[1])
     return inp
 
 
@@ -326,14 +364,6 @@ def _clz64(x: torch.Tensor) -> torch.Tensor:
     return 63 - bits
 
 
-def _out_dtype(inp: _Inputs) -> torch.dtype:
-    if inp.fn in ("percent_rank", "cume_dist", "avg"):
-        return torch.float64
-    if inp.fn in RANK_FNS or inp.fn == "count":
-        return torch.int64
-    return inp.values.dtype
-
-
 def window_frame_plain(fn: str, bounds: tuple, perm: torch.Tensor,
                        values=None, valid=None, frame=None, offset: int = 1,
                        default=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -343,65 +373,92 @@ def window_frame_plain(fn: str, bounds: tuple, perm: torch.Tensor,
                            default))
 
 
+def _staged_rows(frame: Optional[Frame]) -> bool:
+    """Whether every row a ROWS frame reads lies within LOOP_ROWS of the
+    row, inside the halo a block stages."""
+    return frame is not None and frame.kind == ROWS and \
+        frame.lo is not None and frame.hi is not None and \
+        abs(frame.lo) <= LOOP_ROWS and abs(frame.hi) <= LOOP_ROWS
+
+
 def window_frame(fn: str, bounds: tuple, perm: torch.Tensor, values=None,
                  valid=None, frame=None, offset: int = 1, default=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel, which reads the column in input order
+    through perm; COUNT of a column, sum, avg, dense_rank and min/max past
+    LOOP_ROWS first build their prefix arrays or sparse table with torch."""
     global launches
     if not _build.on_cuda(perm, "window_frame"):
         return window_frame_plain(fn, bounds, perm, values, valid, frame,
                                   offset, default)
-    inp = _prepare(fn, bounds, perm, values, valid, frame, offset, default,
-                   kernel=True)
-    for t in (*bounds, inp.values, inp.valid, inp.cnt, inp.sum, inp.dense,
-              inp.table, None if frame is None else frame.key,
-              None if frame is None else frame.key_valid):
-        if t is not None and t.device != perm.device:
+    offset = _check(fn, bounds, perm, values, valid, frame, offset)
+    n, mode = perm.shape[0], _MODE[fn]
+    ranged = frame is not None and frame.kind == RANGE
+    # the pointers' order of _ARGS: bounds, perm, values, valid, cnt, sum,
+    # dense, table, key, key_valid
+    tensors = [*bounds, perm, values, valid, None, None, None, None,
+               frame.key if ranged else None,
+               frame.key_valid if ranged else None]
+    dev = perm.get_device()
+    for t in tensors:
+        if t is not None and t.get_device() != dev:
             raise ValueError("window_frame: tensors on different devices")
-    n = perm.shape[0]
-    dtype = _out_dtype(inp)
+    column = is_float = default_word = stage = loop = levels = 0
+    if values is not None:
+        is_float = values.dtype.is_floating_point
+        if default is not None:
+            d = _default_word(default, values.dtype)
+            default_word = int(d.view(torch.int64) if is_float else d)
+        column = _COLUMN_KIND.get(values.dtype)
+        if column is None:
+            tensors[5] = _widen(values)
+            column = _COLUMN_KIND[tensors[5].dtype]
+    if fn == "dense_rank":
+        tensors[9] = _dense(bounds)
+    elif mode == _AGGREGATE and values is not None:
+        if fn in ("min", "max"):
+            width, levels = _table_levels(frame, n)
+            loop = width is not None and width <= LOOP_ROWS
+        if not loop:
+            # COUNT of a column, sum, avg and the wider min/max read the
+            # valid count; COUNT(*) and a looped min/max count in the kernel
+            vv = valid[perm]
+            tensors[7] = torch.cumsum(vv.to(torch.int64), 0)
+            if fn != "count":
+                x = _widen(values)[perm]
+            if fn in ("sum", "avg"):
+                tensors[8] = torch.cumsum(torch.where(vv, x, 0), 0)
+            elif fn != "count":
+                tensors[10] = _sparse_table(torch.where(
+                    vv, x, _ident(fn, x.dtype)), fn, levels)
+    if (mode == _SHIFT and abs(offset) <= LOOP_ROWS) or \
+            ((mode == _PICK or loop) and _staged_rows(frame)):
+        stage |= _STAGE_VALUES
+    if ranged and (frame.lo is not None or frame.hi is not None):
+        stage |= _STAGE_KEYS
     out = torch.empty(n, dtype=torch.int64, device=perm.device)
     out_ok = torch.empty(n, dtype=torch.bool, device=perm.device)
+    out_dtype = torch.float64 if fn in _FLOAT_FNS or (
+        is_float and mode != _RANK and fn != "count") else torch.int64
     if n == 0:
-        return out.view(dtype), out_ok
-    keep = []  # contiguous copies live until the launch is queued
-
-    def ptr(t):
-        if t is None:
-            return None
-        t = t.contiguous()
-        if t.dtype == torch.float64:
-            t = t.view(torch.int64)
-        keep.append(t)
-        return t.data_ptr()
-
+        return out.view(out_dtype), out_ok
+    ptrs = []
+    for k, t in enumerate(tensors):
+        if t is not None and not t.is_contiguous():
+            t = tensors[k] = t.contiguous()  # kept until the launch
+        ptrs.append(0 if t is None else t.data_ptr())
     fr = frame
-    args = WindowFrameArgs(
-        seg_start=ptr(bounds[0]), seg_end=ptr(bounds[1]),
-        peer_first=ptr(bounds[2]), peer_last=ptr(bounds[3]),
-        perm=ptr(perm), values=ptr(inp.values), valid=ptr(inp.valid),
-        cnt=ptr(inp.cnt), sum=ptr(inp.sum), dense=ptr(inp.dense),
-        table=ptr(inp.table),
-        key=ptr(fr.key if fr is not None and fr.kind == RANGE else None),
-        key_valid=ptr(fr.key_valid if fr is not None and fr.kind == RANGE
-                      else None),
-        out=out.data_ptr(), out_valid=out_ok.data_ptr(), n=n,
-        offset=inp.offset,
-        lo_off=0 if fr is None or fr.lo is None else fr.lo,
-        hi_off=0 if fr is None or fr.hi is None else fr.hi,
-        default_word=0 if inp.default is None else int(
-            inp.default.view(torch.int64) if inp.default.is_floating_point()
-            else inp.default),
-        mode=_MODE[fn], fn=_FN[fn],
-        frame=DEFAULT if fr is None else fr.kind,
-        lo_unbounded=int(fr is not None and fr.lo is None),
-        hi_unbounded=int(fr is not None and fr.hi is None),
-        value_kind=1 if inp.values is not None
-        and inp.values.dtype == torch.float64 else 0,
-        key_kind=_KEY_KIND[fr.key.dtype] if fr is not None
-        and fr.kind == RANGE else 0,
-        levels=0 if inp.table is None else inp.table.shape[0],
-        loop=int(inp.loop), has_default=int(inp.default is not None))
+    args = _ARGS.pack(
+        *ptrs, out.data_ptr(), out_ok.data_ptr(), n, offset,
+        0 if fr is None or fr.lo is None else fr.lo,
+        0 if fr is None or fr.hi is None else fr.hi, default_word,
+        mode, _FN[fn], DEFAULT if fr is None else fr.kind,
+        int(fr is not None and fr.lo is None),
+        int(fr is not None and fr.hi is None), column, int(is_float),
+        _KEY_KIND[fr.key.dtype] if ranged else 0,
+        0 if tensors[10] is None else tensors[10].shape[0], int(loop),
+        int(default is not None and values is not None), stage)
     _build.check(_build.library().exon_window_frame(
-        ctypes.byref(args), _build.stream_of(perm)), "window_frame")
+        args, _build.stream_of(perm)), "window_frame")
     launches += 1
-    return out.view(dtype), out_ok
+    return out.view(out_dtype), out_ok

@@ -23,8 +23,6 @@ from ..kernels.compact_mask import compact_mask
 from ..kernels.expand_segments import expand_segments
 from ..kernels.gather_var import gather_var
 
-_INT32_LIMIT = 1 << 31
-
 
 def mask_to_indices(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable compaction of a bool mask: (indices int32[n], count int32);
@@ -51,23 +49,16 @@ def take_var(col: VarColumn, indices: torch.Tensor) -> VarColumn:
 
 
 def take_list(col: ListColumn, indices: torch.Tensor) -> ListColumn:
-    """Rows ``indices`` of a list column: the new offsets from the taken
-    rows' lengths (one host read of their total), each element's source
-    index from expand_segments, and the child taken at those indices."""
+    """Rows ``indices`` of a list column: expand_segments lays out the
+    taken rows' lengths (the new offsets, one host read of their total)
+    and gives each element's source index, and the child is taken at
+    those indices. A total past int32 raises there."""
     idx = indices.long()
-    off = col.offsets.long()
+    off = col.offsets.to(torch.int32)
     starts = off[:-1].index_select(0, idx)
     lens = off[1:].index_select(0, idx) - starts
-    new_off = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
-                          device=col.offsets.device)
-    torch.cumsum(lens, 0, out=new_off[1:])
-    total = int(new_off[-1])
-    if total >= _INT32_LIMIT:
-        raise ValueError(f"take_list: {total} output elements exceed int32 "
-                         "offsets")
-    _rows, src = expand_segments(starts.to(torch.int32),
-                                 lens.to(torch.int32), new_off[:-1], total,
-                                 col.child.capacity)
+    _rows, src, new_off, _total = expand_segments(starts, lens,
+                                                  col.child.capacity)
     return ListColumn(take_column(col.child, src), new_off.to(torch.int32),
                       col.validity.index_select(0, idx))
 

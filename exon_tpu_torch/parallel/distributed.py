@@ -792,12 +792,10 @@ class DistributedPartitionedJoinExec(PhysicalPlan):
             lo = torch.searchsorted(rk, lk, side="left")
             cnt = (torch.searchsorted(rk, lk, side="right") - lo).to(
                 torch.int32)
-            ends = torch.cumsum(cnt, 0, dtype=torch.int64)
-            total = int(ends[-1]) if ends.numel() else 0
+            pi, bi, _offsets, total = expand_segments(lo.to(torch.int32),
+                                                      cnt, rk.shape[0])
             if total == 0:
                 continue
-            pi, bi = expand_segments(lo.to(torch.int32), cnt, ends - cnt,
-                                     total, rk.shape[0])
             li.append(lr[pi.long()].to(dev0))
             ri.append(rr[bi.long()].to(dev0))
         empty = torch.zeros(0, dtype=torch.int32, device=dev0)

@@ -154,14 +154,10 @@ class JoinExec(PhysicalPlan):
         counts = torch.where(valid, hi - lo, 0).to(torch.int32)
         # a left join emits every probe row at least once, unmatched
         out_counts = counts.clamp(min=1) if self.how == "left" else counts
-        ends = torch.cumsum(out_counts, 0, dtype=torch.int64)
-        starts = ends - out_counts
-        total = int(ends[-1])
+        probe_idx, build_idx, offsets, total = expand_segments(
+            lo.to(torch.int32), out_counts, build.batch.length)
         if total == 0:
             return None
-        probe_idx, build_idx = expand_segments(
-            lo.to(torch.int32), out_counts, starts, total,
-            build.batch.length)
         ok = self._verify(parts, cols, build, probe_idx, build_idx)
         ok &= counts[probe_idx.long()] > 0
         if self.filter is not None:
@@ -178,7 +174,8 @@ class JoinExec(PhysicalPlan):
             surv = torch.zeros(pb.length, dtype=torch.uint8,
                                device=ok.device).scatter_reduce(
                 0, pidx, ok.to(torch.uint8), "amax")
-            first = torch.arange(total, device=ok.device) == starts[pidx]
+            first = torch.arange(total, device=ok.device) == \
+                offsets[:-1][pidx]
             null_right = first & (surv[pidx] == 0)
             ok |= null_right
         sel, count = layout_ops.mask_to_indices(ok)

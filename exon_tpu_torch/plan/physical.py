@@ -1147,14 +1147,11 @@ class RepeatExec(PhysicalPlan):
             v = eval_expr(self.count_expr, b)
             cnt = _to_column(v, b).values.to(torch.int64)
             cnt = torch.where(_validity_of(v, b), cnt, 0).clamp(min=0)
-            total = int(cnt.sum())
-            if total == 0:
-                continue
-            starts = torch.cumsum(cnt, 0) - cnt
-            rows, _ = expand_segments(
+            rows, _bi, _offsets, total = expand_segments(
                 torch.zeros_like(cnt, dtype=torch.int32),
-                cnt.to(torch.int32), starts, total, 1)
-            yield layout_ops.take_batch(b, rows)
+                cnt.to(torch.int32), 1)
+            if total:
+                yield layout_ops.take_batch(b, rows)
 
 
 @dataclasses.dataclass

@@ -203,9 +203,10 @@ def test_expand_segments_twin_matches_jax():
     lo = rng.integers(0, 50, 300).astype(np.int32)
     ends = np.cumsum(counts)
     total = int(ends[-1])
-    probe, build = expand_segments(
-        torch.from_numpy(lo), torch.from_numpy(counts),
-        torch.from_numpy((ends - counts).astype(np.int64)), total, 50)
+    probe, build, offsets, got_total = expand_segments(
+        torch.from_numpy(lo), torch.from_numpy(counts), 50)
+    assert got_total == total
+    assert offsets.numpy().tolist() == [0] + ends.tolist()
     rid, intra, jtotal = j_expand_segments(jnp.asarray(counts), total)
     assert int(jtotal) == total
     assert probe.numpy().tolist() == np.asarray(rid).tolist()

@@ -81,8 +81,8 @@ def test_cpu_tensors_run_the_twins_without_launching():
     agg.add_batch(keys, torch.ones_like(keys, dtype=torch.uint8), mask,
                   [None], [mask], 0)
     assert agg.finalize().num_groups > 0
-    lo, counts, starts, total = _pairs(rng, 64, 10, "cpu")
-    ke.expand_segments(lo, counts, starts, total, 10)
+    lo, counts = _pairs(rng, 64, 10, "cpu")
+    ke.expand_segments(lo, counts, 10)
     kr.row_hash(offs, vals)
     ks.string_eq((offs, vals, mask), idx[: int(count)], (offs, vals, mask),
                  idx[: int(count)])
@@ -639,22 +639,65 @@ def test_like_match_kernel_matches_twin(card, pattern, ci):
 
 
 def _pairs(rng, n_probe, n_build, device):
-    """Match ranges of a join probe: lo, counts (some 0), their layout."""
+    """Match ranges of a join probe: lo and counts (some 0)."""
     counts = rng.integers(0, 4, n_probe).astype(np.int32)
     lo = rng.integers(0, n_build, n_probe).astype(np.int32)
-    ends = np.cumsum(counts)
     return (torch.from_numpy(lo).to(device),
-            torch.from_numpy(counts).to(device),
-            torch.from_numpy(ends - counts).to(device), int(ends[-1]))
+            torch.from_numpy(counts).to(device))
+
+
+def _expand_cases(rng, device):
+    """(label, lo, counts, n_build) for expand_segments: C's probe batch
+    and one of 1.5 M rows, empty and all-zero inputs, row counts around
+    the offsets tile, slots starting just before, at and after every
+    multiple of the slot tile, a row of 2^20 slots, one of 2^22 among
+    131,071 rows of 0-2 slots, batches where most rows have no slot or
+    long runs of rows have none (more rows than a write block stages), an
+    empty build side and counts not 16-byte aligned."""
+    S = ke.SLOT_TILE
+
+    def case(label, counts, n_build=900):
+        counts = np.asarray(counts, np.int32)
+        lo = rng.integers(0, max(n_build, 1), counts.shape[0]).astype(
+            np.int32)
+        return (label, torch.from_numpy(lo).to(device),
+                torch.from_numpy(counts).to(device), n_build)
+
+    out = [case("C's probe batch", rng.poisson(1.27, 131_072), 60_991),
+           case("1.5 M rows", rng.poisson(1.27, 1_500_000), 60_991),
+           case("no rows", []), case("all zero", np.zeros(5000))]
+    for d in (-1, 0, 1):
+        # rows of 3 slots (after two of none) start at k S + d
+        edges = []
+        for k in range(1, 6):
+            edges += [1] * (k * S + d - sum(edges)) + [0, 0, 3]
+        out.append(case(f"slot tile edges {d:+d}", edges))
+    out += [case("2^20 slots", [0, 2, 1 << 20, 1, 0, 3]),
+            case("skewed", np.insert(rng.integers(0, 3, 131_071), 70_000,
+                                     1 << 22)),
+            case("sparse", (rng.random(131_073) < 0.002) * 2),
+            case("sparse tail", np.r_[np.ones(10), np.zeros(20_000)]),
+            case("runs of empty rows", np.tile(np.r_[rng.poisson(
+                1.3, 3000), np.zeros(9000)], 11)),
+            case("empty build side", rng.integers(0, 4, 3000), 0)]
+    for n in (1, 2, 3, 4, 5, 1023, 1024, 1025, 4097, 131_073):
+        out.append(case(f"{n} rows of 0-3", rng.integers(0, 4, n)))
+    label, lo, counts, nb = case("unaligned", rng.integers(0, 4, 5001))
+    out.append((label, lo[1:], counts[1:], nb))
+    return out
 
 
 @pytest.mark.cuda
 def test_expand_segments_kernel_matches_twin(card):
-    lo, counts, starts, total = _pairs(np.random.default_rng(5), 20_000, 900,
-                                       card)
-    got = ke.expand_segments(lo, counts, starts, total, 900)
-    want = ke.expand_segments_plain(lo, counts, starts, total, 900)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    """The two launches and the total's read against the twin, all four
+    outputs exactly, at every shape of _expand_cases."""
+    for label, lo, counts, n_build in _expand_cases(
+            np.random.default_rng(5), card):
+        got = ke.expand_segments(lo, counts, n_build)
+        want = ke.expand_segments_plain(lo, counts, n_build)
+        assert got[3] == want[3], label
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w), label
 
 
 @pytest.mark.cuda
@@ -2260,14 +2303,14 @@ def _window_batch(rng, n, device, order_nulls=True):
 
 
 def _port_call(fn, frame, offset, value, desc=False, default=None,
-               partition=True, order=True):
+               partition=True, order=True, order_key="o"):
     from exon_tpu_torch.plan.expressions import ColumnRef, WindowCall
 
     child = None if fn in ("row_number", "rank", "dense_rank", "ntile",
                            "percent_rank", "cume_dist") else ColumnRef(value)
     return WindowCall(fn, child, [ColumnRef("p")] if partition else [],
-                      [(ColumnRef("o"), not desc)] if order else [], offset,
-                      default, frame)
+                      [(ColumnRef(order_key), not desc)] if order else [],
+                      offset, default, frame)
 
 
 @pytest.mark.parametrize("n", [1, 7, 2048, 2049, 5000])
@@ -2410,32 +2453,104 @@ def test_window_bounds_kernel_matches_twin(card, n):
         empty, kwb.window_bounds_plain(keys[:0], 0)))
 
 
+# lag/lead offsets and ROWS frames just inside and just past the halo a
+# block of window_frame.cu stages (LOOP_ROWS rows on each side)
+HALO_CASES = (
+    [("lag", None, o) for o in (63, 64, 65, 1000)]
+    + [("lead", None, o) for o in (64, 65)]
+    + [(fn, fr, 2) for fn in ("min", "max", "first_value", "last_value",
+                              "nth_value", "count")
+       for fr in (("rows", -64, 0), ("rows", 0, 64), ("rows", -65, -2),
+                  ("rows", 3, 65), ("rows", -31, 32))])
+
+
+def _frame_batch(rng, n, n_parts, device):
+    """A port batch for window_frame's shapes: partition key p (n_parts
+    partitions, one row each when n_parts == n), order keys o (int64), of
+    (float32) and od (float64, a few NaN), each 10 % NULL at payload 0; the
+    values vi (int64), vf (float32, a few NaN), vd (float64), v8 (int8)
+    and vb (bool), 10 % NULL."""
+    from exon_tpu_torch import datatypes as dt
+    from exon_tpu_torch.batch import Batch, FixedColumn
+    from exon_tpu_torch.datatypes import Field, Schema
+
+    def nulls():
+        return rng.random(n) >= 0.1
+
+    od = rng.integers(-60, 60, n).astype(np.float64) / 2
+    od[rng.random(n) < 0.02] = np.nan
+    vf = rng.integers(-500, 500, n).astype(np.float32)
+    vf[rng.random(n) < 0.03] = np.nan
+    p = np.arange(n) if n_parts >= n else np.sort(rng.integers(0, n_parts,
+                                                                n))
+    cols = {
+        "p": (dt.int64, p.astype(np.int64), np.ones(n, bool)),
+        "o": (dt.int64, rng.integers(-40, 40, n).astype(np.int64), nulls()),
+        "of": (dt.float32, rng.integers(-300, 300, n).astype(np.float32) / 4,
+               nulls()),
+        "od": (dt.float64, od, nulls()),
+        "vi": (dt.int64, rng.integers(-1000, 1000, n).astype(np.int64),
+               nulls()),
+        "vf": (dt.float32, vf, nulls()),
+        "vd": (dt.float64, rng.integers(-500, 500, n) / 4, nulls()),
+        "v8": (dt.int8, rng.integers(-128, 128, n).astype(np.int8), nulls()),
+        "vb": (dt.bool_, rng.random(n) < 0.5, nulls()),
+    }
+    schema = Schema(tuple(Field(k, t, True) for k, (t, _v, _ok) in
+                          cols.items()))
+    return Batch(schema, [FixedColumn(np.where(ok, v, 0).astype(v.dtype), ok)
+                          for _t, v, ok in cols.values()], n).to_device(device)
+
+
+def _same_words(got, want) -> bool:
+    """Equal bit for bit, but any NaN equals any NaN."""
+    g, w = got.view(torch.int64), want.view(torch.int64)
+    if got.is_floating_point():
+        nan = got.isnan()
+        return torch.equal(nan, want.isnan()) and torch.equal(g[~nan],
+                                                              w[~nan])
+    return torch.equal(g, w)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn,frame,offset", WINDOW_CASES,
-                         ids=[f"{f}-{fr}-{o}" for f, fr, o in WINDOW_CASES])
+@pytest.mark.parametrize("fn,frame,offset", WINDOW_CASES + HALO_CASES,
+                         ids=[f"{f}-{fr}-{o}" for f, fr, o in
+                              WINDOW_CASES + HALO_CASES])
 def test_window_frame_kernel_matches_twin(card, fn, frame, offset):
     """Every mode on the card against the twin on the card, bit for bit
-    (values and validity), over int64, float32 and float64 values and an
-    ASC and a DESC key."""
+    (values and validity; NaN as NaN): 20,000 rows in 6 partitions over
+    int64, float32 and float64 values and ASC and DESC keys; then 1, 1,025
+    and 3,001 rows in one partition (partitions across tiles, row counts
+    not a multiple of the tile), 2,049 rows in 3 and 700 rows of one row
+    each, over float32, float64 (NaN keys) and int64 order keys, with
+    values of every column type, NaN and NULL among them."""
     from exon_tpu_torch.kernels import window_frame as kwf
     from exon_tpu_torch.plan import window_exec as TW
 
     rng = np.random.default_rng(7)
     batch, _cols = _window_batch(rng, 20_000, card)
-    for value, desc in (("vi", False), ("vf", True), ("vd", False)):
-        call = _port_call(fn, frame, offset, value, desc)
-        perm, bounds = TW._sorted_bounds(call, batch)
+    runs = [(batch, value, "o", desc) for value, desc in
+            (("vi", False), ("vf", True), ("vd", False))]
+    for n, parts in ((1, 1), (1025, 1), (3001, 1), (2049, 3), (700, 700)):
+        b = _frame_batch(rng, n, parts, card)
+        runs += [(b, value, key, desc) for value, key, desc in
+                 (("vf", "of", False), ("vd", "od", True),
+                  ("v8", "o", False), ("vb", "od", False),
+                  ("vi", "of", True))]
+    for b, value, key, desc in runs:
+        call = _port_call(fn, frame, offset, value, desc, order_key=key)
+        perm, bounds = TW._sorted_bounds(call, b)
         values = valid = fr = None
         if call.child is not None:
-            values, valid = TW._values(call, batch)
+            values, valid = TW._values(call, b)
         if frame is not None:
-            fr = TW._frame(call, batch, perm)
+            fr = TW._frame(call, b, perm)
         got = kwf.window_frame(fn, bounds, perm, values, valid, fr, offset)
         want = kwf.window_frame_plain(fn, bounds, perm, values, valid, fr,
                                       offset)
-        assert torch.equal(got[1], want[1]), value
-        assert torch.equal(got[0].view(torch.int64),
-                           want[0].view(torch.int64)), value
+        label = (b.length, value, key, desc)
+        assert torch.equal(got[1], want[1]), label
+        assert _same_words(got[0], want[0]), label
 
 
 @pytest.mark.cuda
