@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
 ``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
 ``text_records,format_int,slice_var,take_list,window_frame,``
-``expand_segments,joins`` (any of them) runs phases 1-2 and those cases alone,
+``expand_segments,parse_number,string_eq,i_panel,joins`` (any of them) runs
+phases 1-2 and those cases alone,
 each taken apart into device time, launches and host time (window_frame at
 L's batch, all sixteen modes; expand_segments' chain at C's probe batch and
 the skewed one; joins: C's and D's joins and sorts alone, as phase 5; sw_score also read from its SASS; line_index also at the
@@ -15,7 +16,12 @@ first FASTQ chunk; text_records at A's chunk, at the first FASTQ chunk with
 and without want_hdr, and at two long-line chunks made from a seed: 128 MiB
 of long-read FASTQ records of 1-100 kb, in both modes, and four unwrapped
 32 MiB FASTA records; format_int at one 131,072-row batch of GFF starts and
-at all 3.4 M; slice_var at J's substr and take_list at N's list take);
+at all 3.4 M; slice_var at J's substr and take_list at N's list take;
+parse_number at a 131,072-row batch of GFF starts (int mode) and ends
+(float mode), at all 3.4 M of each and at a batch of VCF qual-like
+decimal and scientific text; string_eq at D's name pairs, I's key
+verification and 20,000 pairs of long keys; i_panel: Query I_panel's
+wall, median of 5);
 ``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
 earlier commit, unpacked), so that two versions are timed in one run on one
 card.
@@ -43,7 +49,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    The SQL kernels run at their queries' shapes: string_cmp over the ids of
    that first chunk, parse_number (int and float mode) and format_int over
    one 131,072-row batch of the GFF starts and ends as decimal text, and
-   once more over all 3.4 M of them (printed apart). K7 and K14, left to
+   once more over all 3.4 M of them (printed apart); parse_number's float
+   mode also over a batch of VCF qual-like decimal and scientific text
+   (printed apart). string_eq runs at Query D's batch of name pairs and,
+   printed apart, at Query I's key verification (each live row's ref
+   against its group's representative) and on 20,000 pairs of 100-300 B
+   keys equal up to their last 16 bytes. K7 and K14, left to
    PyTorch, are timed beside their bounds. The sequence UDF kernels run on
    the operands of the first batch of Queries F, G and H: sw_score against
    the adapter on the first FASTQ chunk the scan decodes (about 377,000
@@ -911,7 +922,7 @@ def _query_i_first_batch(torch):
     mask = agg._mask(b)
     vals, valid = agg._values_for_call(agg.agg_calls[1], b, mask)
     return {"parts": parts, "pvalid": pvalid, "mask": mask, "qual": vals,
-            "valid": valid, "kinds": kinds}
+            "valid": valid, "kinds": kinds, "ref": b.column("ref")}
 
 
 def _check_hash_query_i(torch, hk, agg_cls, first, label: str) -> dict:
@@ -1059,8 +1070,46 @@ def check_row_hash(torch, names) -> dict:
     return out["probe"]
 
 
-def check_string_eq(rng, torch, names) -> dict:
+def _string_eq_case(torch, label: str, a, ia, b, ib, a_rows: np.ndarray,
+                    b_rows: np.ndarray) -> dict:
+    """string_eq against its twin, exact, timed beside its bound; under
+    --kernels also taken apart (_print_split). a_rows and b_rows are the
+    pairs' rows as numpy bytes, for the bytes a comparison must read."""
     from exon_tpu_torch.kernels import string_eq as k
+
+    got = k.string_eq(a, ia, b, ib)
+    _exact(f"string_eq {label}", got, k.string_eq_plain(a, ia, b, ib))
+    m = ia.shape[0]
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         # both indices, both rows' offset pairs and validity, the bytes a
+         # comparison must read; a bool out
+         "bytes": 8 * m + 16 * m + 2 * m + _compared_bytes(a_rows, b_rows)
+         + m,
+         "ms": median_ms(lambda: k.string_eq(a, ia, b, ib), torch),
+         "plain_ms": median_ms(lambda: k.string_eq_plain(a, ia, b, ib),
+                               torch),
+         "shape": f"{label}: {m} pairs, {int(got.sum())} equal"}
+    if SPLITS:
+        _print_split(torch, f"string_eq {label}",
+                     lambda: k.string_eq(a, ia, b, ib))
+    return r
+
+
+def _host_rows(col) -> np.ndarray:
+    """The rows of a device (offsets, values, ...) column as numpy bytes."""
+    offs = col[0].cpu().numpy().astype(np.int64)
+    vals = col[1].cpu().numpy().tobytes()
+    return np.asarray([vals[s:e] for s, e in zip(offs[:-1], offs[1:])],
+                      dtype=object).astype(bytes)
+
+
+def check_string_eq(rng, torch, names, first_i=None) -> dict:
+    """string_eq at Query D's batch (the kernels line); given Query I's
+    first batch, also at I's key verification (_verify_keys: each live
+    row's ref against its group's representative); then 20,000 pairs of
+    long keys (100-300 bytes, equal up to their last 16 bytes, half of them
+    different there), each printed apart."""
+    from exon_tpu_torch.ops import layout as layout_ops
 
     # Query D: each R1 name against the R2 row its hash found, most equal
     a = _names_column(names[:N_ROWS], torch) + (
@@ -1070,20 +1119,49 @@ def check_string_eq(rng, torch, names) -> dict:
     ia = np.arange(N_ROWS, dtype=np.int32)
     ib = np.where(rng.random(N_ROWS) < 0.9, ia,
                   rng.integers(0, len(names), N_ROWS)).astype(np.int32)
-    ia, ib = torch.from_numpy(ia).cuda(), torch.from_numpy(ib).cuda()
-    got = k.string_eq(a, ia, b, ib)
-    _exact("string_eq", got, k.string_eq_plain(a, ia, b, ib))
-    compared = _compared_bytes(names[:N_ROWS][ia.cpu().numpy()],
-                               names[ib.cpu().numpy()])
-    return {"max_abs_err": 0.0, "library_ms": None,
-            # both indices, both rows' offset pairs and validity, the bytes
-            # a comparison must read; a bool out
-            "bytes": 8 * N_ROWS + 16 * N_ROWS + 2 * N_ROWS + compared
-            + N_ROWS,
-            "ms": median_ms(lambda: k.string_eq(a, ia, b, ib), torch),
-            "plain_ms": median_ms(lambda: k.string_eq_plain(a, ia, b, ib),
-                                  torch),
-            "shape": f"{N_ROWS} pairs, {int(got.sum())} equal"}
+    r = _string_eq_case(torch, "D's name pairs", a,
+                        torch.from_numpy(ia).cuda(), b,
+                        torch.from_numpy(ib).cuda(), names[:N_ROWS][ia],
+                        names[ib])
+    _print_case("string_eq", r)
+    if first_i is not None:
+        col = first_i["ref"]
+        ref = (col.offsets, col.values, col.validity)
+        live = first_i["mask"] & col.validity
+        rows = torch.nonzero(live).flatten().to(torch.int32)
+        keys = _host_rows(ref)
+        _u, first, gid = np.unique(keys, return_index=True,
+                                   return_inverse=True)
+        # the representatives in the order their groups opened, as the
+        # aggregate appends them
+        order = np.argsort(first)
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
+        reps = layout_ops.take_var(col, torch.from_numpy(
+            first[order].astype(np.int32)).cuda())
+        rows_np = rows.cpu().numpy()
+        gid_rows = rank[gid.reshape(-1)[rows_np]].astype(np.int32)
+        _print_case("string_eq", _string_eq_case(
+            torch, "I's key verification (ref against its group's "
+            "representative)", ref, rows, (reps.offsets, reps.values,
+                                           reps.validity),
+            torch.from_numpy(gid_rows).cuda(), keys[rows_np],
+            keys[first[order]][gid_rows]))
+    lrng = np.random.default_rng(20_000)
+    lens = lrng.integers(100, 301, 20_000)
+    rows_a = [lrng.integers(65, 91, n, dtype=np.uint8).tobytes()
+              for n in lens]
+    rows_b = [r if lrng.random() < 0.5 else r[:-16] + lrng.integers(
+        65, 91, 16, dtype=np.uint8).tobytes() for r in rows_a]
+    ones = torch.ones(20_000, dtype=torch.bool, device="cuda")
+    la, lb = np.asarray(rows_a), np.asarray(rows_b)
+    pick = lrng.permutation(20_000).astype(np.int32)
+    idx = torch.from_numpy(pick).cuda()
+    _print_case("string_eq", _string_eq_case(
+        torch, "long keys (100-300 bytes, equal up to their last 16)",
+        _names_column(la, torch) + (ones,), idx,
+        _names_column(lb, torch) + (ones,), idx, la[pick], lb[pick]))
+    return r
 
 
 def _compared_bytes(a: np.ndarray, b: np.ndarray) -> int:
@@ -1426,10 +1504,17 @@ def _decimal_column(values: np.ndarray, torch):
 
 
 def _parse_number_case(torch, want: np.ndarray, floating: bool,
-                       label: str) -> dict:
+                       label: str, text: np.ndarray = None) -> dict:
+    """parse_number over ``want`` as decimal text (or over ``text``, whose
+    values are ``want``) against its twin, bit for bit, and the values
+    against ``want``; under --kernels also taken apart (_print_split)."""
     from exon_tpu_torch.kernels import parse_number as k
 
-    col = _decimal_column(want, torch)
+    if text is None:
+        col = _decimal_column(want, torch)
+    else:
+        col = _names_column(text, torch) + (
+            torch.ones(len(text), dtype=torch.bool, device="cuda"),)
     got, ok = k.parse_number(*col, floating)
     plain, plain_ok = k.parse_number_plain(*col, floating)
     _exact(f"parse_number {label} validity", ok, plain_ok)
@@ -1438,14 +1523,34 @@ def _parse_number_case(torch, want: np.ndarray, floating: bool,
     if not bool(ok.all()) or not np.array_equal(
             got.cpu().numpy(), want.astype(got.cpu().numpy().dtype)):
         fail(f"parse_number {label}: values differ from the generator's")
-    n, text = len(want), int(col[1].shape[0])
-    return {"max_abs_err": 0.0, "library_ms": None,
-            # offset pairs, validity and the text in; value and ok out
-            "bytes": 4 * (n + 1) + n + text + 8 * n + n,
-            "ms": median_ms(lambda: k.parse_number(*col, floating), torch),
-            "plain_ms": median_ms(lambda: k.parse_number_plain(*col, floating),
-                                  torch),
-            "shape": f"{n} numerals, {text} bytes, {label}"}
+    n, text_bytes = len(want), int(col[1].shape[0])
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         # offset pairs, validity and the text in; value and ok out
+         "bytes": 4 * (n + 1) + n + text_bytes + 8 * n + n,
+         "ms": median_ms(lambda: k.parse_number(*col, floating), torch),
+         "plain_ms": median_ms(lambda: k.parse_number_plain(*col, floating),
+                               torch),
+         "shape": f"{n} numerals, {text_bytes} bytes, {label}"}
+    if SPLITS:
+        _print_split(torch, f"parse_number {label}",
+                     lambda: k.parse_number(*col, floating))
+    return r
+
+
+def _qual_text(rng, n: int) -> tuple:
+    """n VCF qual-like numerals as text and their doubles: one decimal
+    ('29.5') in three, the rest scientific ('1.2e-3', '-4.75E+2'); each a
+    mantissa of at most 15 digits over an exact power of ten, so that one
+    rounded multiply or divide, the kernel's, gives Python's double."""
+    kind = rng.integers(0, 3, n)
+    q = rng.integers(0, 100_000, n)
+    e = rng.integers(-9, 10, n)
+    sign = np.where(rng.random(n) < 0.2, "-", "")
+    mark = np.where(kind == 1, "e", "E")
+    text = [f"{q[i] / 10:.1f}" if kind[i] == 0 else
+            f"{sign[i]}{q[i] % 10}.{q[i] // 10:d}{mark[i]}{e[i]:+d}"
+            for i in range(n)]
+    return np.asarray(text, "S"), np.asarray([float(t) for t in text])
 
 
 def _format_int_case(torch, ints: np.ndarray) -> dict:
@@ -1495,7 +1600,14 @@ def check_parse_number(torch, feats) -> dict:
                                        f"{key}, {mode} mode")
         _print_case("parse_number whole file", _parse_number_case(
             torch, feats[key], floating, f"{key}, {mode} mode"))
+    _print_case("parse_number batch", out["int"])
     _print_case("parse_number batch", out["float"])
+    # the one-pass float rules on decimal and scientific text: a batch of
+    # VCF qual-like numerals
+    text, vals = _qual_text(np.random.default_rng(29), N_ROWS)
+    _print_case("parse_number qual-like text", _parse_number_case(
+        torch, vals, True, "qual-like decimal and scientific text, float "
+        "mode", text))
     return out["int"]
 
 
@@ -2438,18 +2550,19 @@ def phase_kernels(torch) -> dict:
     rng = np.random.default_rng(1234)
     offs, vals = _var_column(rng, N_ROWS, torch)
     names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
+    first_i = _query_i_first_batch(torch)
     results = {
         "compact_mask": check_compact(rng, torch, flags),
         "gather_var": check_gather(rng, torch, offs, vals, names),
         "like_match": check_like(torch, offs, vals),
-        "hash_aggregate": check_hash(rng, torch, _query_i_first_batch(torch)),
+        "hash_aggregate": check_hash(rng, torch, first_i),
         "expand_segments": check_expand(rng, torch),
         "row_hash": check_row_hash(torch, names),
-        "string_eq": check_string_eq(rng, torch, names),
+        "string_eq": check_string_eq(rng, torch, names, first_i),
         "sort_keys": check_sort_keys(rng, torch, names),
         **decode,
     }
-    del flags
+    del flags, first_i
     feats = gff_features(GFF_FEATURES, GFF_SEED)
     results["string_cmp"] = check_string_cmp(torch, n_ids)
     results["parse_number"] = check_parse_number(torch, feats)
@@ -4433,8 +4546,41 @@ def check_sw_alone(torch) -> None:
     print_sw_sass()
 
 
-# the cases a run with --kernels can take alone: phase 3's of fourteen
-# kernels (each at the shapes its redesign was measured at), and phase 5's
+def check_string_eq_alone(torch) -> None:
+    """string_eq's cases of phase 3: D's name pairs, I's key verification
+    and the long keys."""
+    from benchlib.bam_fixture import template_names
+
+    check_string_eq(np.random.default_rng(1234), torch,
+                    template_names(N_TEMPLATES, BAM_SEED)[
+                        : N_TEMPLATES - 14_250],
+                    _query_i_first_batch(torch))
+
+
+def check_i_panel_alone(torch) -> None:
+    """Query I_panel alone, string_eq's main caller by launches (its key
+    verification a batch): the wall of its SQL through collect_host, the
+    card synchronised, median of 5."""
+    import exon_tpu_torch as T
+    from benchlib.vcf_fixture import make_vcf
+
+    vcf = make_vcf(VCF_RECORDS, VCF_SEED)
+    sql = SQL_I.format(vcf=vcf, region=_panel_file(vcf))
+    session = T.ExonSession(device="cuda")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = session.sql(sql).collect_host().length
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    each = ", ".join(f"{w:.3f}" for w in walls)
+    print(f"query I_panel alone: {rows} rows out; median of 5: "
+          f"{np.median(walls):.3f} s wall ({each})")
+
+
+# the cases a run with --kernels can take alone: phase 3's of the kernels
+# redesigned (each at the shapes its redesign was measured at), and phase 5's
 # of Q's aggregate (hash_aggregate on Q's path) and of C's and D's joins
 # (expand_segments on JoinExec's path)
 FOCUS = {
@@ -4459,6 +4605,9 @@ FOCUS = {
     "map_bytes": lambda torch: check_map_table(torch,
                                                _fasta_first_batch(torch)),
     "window_frame": lambda torch: check_window_kernels(torch, _l_batch()),
+    "parse_number": lambda torch: check_parse_number(torch, _gff_features()),
+    "string_eq": check_string_eq_alone,
+    "i_panel": check_i_panel_alone,
     "expand_segments": lambda torch: check_expand(
         np.random.default_rng(1234), torch),
     "joins": check_joins_alone,

@@ -52,7 +52,8 @@ SIGNATURES = {
     "exon_expand_offsets": [_P, _I64, _P, _P, _U64, _U64, _P, _P, _I64, _P],
     "exon_expand_write": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
     "exon_row_hash": [_P, _P, _I64, _P, _P],
-    "exon_string_eq": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "exon_string_eq": [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I64, _P,
+                       _P],
     "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],
     "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "exon_line_index": [_P, _I64, _P, _P, _U64, _U64, _P, _I64, _P, _P],
@@ -61,7 +62,7 @@ SIGNATURES = {
     "exon_gather_spans": [_P, _I64, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
                           _P, _P],
     "exon_string_cmp": [_P, _P, _P, _I64, _P, _I32, _I32, _P, _P],
-    "exon_parse_number": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P],
+    "exon_parse_number": [_P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P],
     "exon_format_int_offsets": [_P, _P, _I64, _P, _P, _U64, _U64, _P, _P],
     "exon_format_int_write": [_P, _P, _I64, _P, _P],
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P, _P],
@@ -177,9 +178,12 @@ def check(status: int, name: str) -> None:
 
 
 def stream_of(tensor) -> int:
+    """The raw handle of the current stream on the tensor's card (the call
+    Triton's launcher makes; ``torch.cuda.current_stream`` would build a
+    Stream object on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
 
 
 def on_cuda(t, name: str) -> bool:

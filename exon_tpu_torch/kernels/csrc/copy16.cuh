@@ -1,12 +1,14 @@
 // copy16.cuh: byte runs assembled into aligned 16-byte output words, and
 // the searches that find the row (or span) holding an output byte; shared
-// by gather_var.cu and gather_spans.cu.
+// by gather_var.cu, gather_spans.cu, string_eq.cu (load_run, low_bytes)
+// and parse_number.cu (load_word).
 //
 // A run of k source bytes at any alignment is read as the two aligned
 // 16-byte words that cover it and funnel-shifted into place (load16), then
 // moved to its place in the output word (place) or joined with another run
 // by a byte mask (join). Only aligned words that hold a byte of the source
-// are read: load_run falls back to byte loads within 16 bytes of its end.
+// are read: load_run falls back to byte loads within 16 bytes of its end,
+// and load_word to byte loads for a word that reaches past either end.
 
 #pragma once
 
@@ -124,6 +126,26 @@ __device__ __forceinline__ uint4 load_run(const uint8_t* __restrict__ values,
                                           int64_t n_values, int64_t s,
                                           int k) {
   return s + 16 <= n_values ? load16(values + s) : load_bytes(values + s, k);
+}
+
+// Aligned word w of values (n_values bytes), counted from the aligned word
+// that holds values[0]: one 16-byte load when the word lies inside values,
+// else its bytes inside values and zeros for the rest.
+__device__ __forceinline__ uint4 load_word(const uint8_t* __restrict__ values,
+                                           int64_t n_values, int64_t w) {
+  const int64_t lo =
+      16 * w - static_cast<int64_t>(reinterpret_cast<uintptr_t>(values) & 15);
+  if (lo >= 0 && lo + 16 <= n_values) {
+    return *reinterpret_cast<const uint4*>(values + lo);
+  }
+  unsigned a[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (lo + t >= 0 && lo + t < n_values) {
+      a[t >> 2] |= static_cast<unsigned>(values[lo + t]) << (8 * (t & 3));
+    }
+  }
+  return make_uint4(a[0], a[1], a[2], a[3]);
 }
 
 // The n bytes of w (n <= 16) to out, one by one (a partial last word).

@@ -13,6 +13,14 @@ the JAX package's table of ``10.0 ** k`` built the same way on the host.
 Int mode follows the JAX rules (an optional '-', at most 20 bytes, digits
 only) except that a value outside int64 is NULL where the JAX sum clips its
 power of ten or wraps (ROADMAP Queue 3, F10).
+
+On the card a thread takes one row of a block's tile. A row that fits the
+window (20 bytes for int, 64 for float) has its aligned 16-byte words
+copied into shared memory and is parsed there in one pass; a longer row is
+NULL and never read (the header of ``csrc/parse_number.cu``). Bound:
+the bytes it must move (offsets, validity and the text in; value and ok
+out), 0.0009 ms for a 131,072-row batch of SQL_gff's numerals and 0.0229
+ms for all 3.4 M at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ _tables: dict = {}
 
 
 def _table(name: str, device) -> torch.Tensor:
-    key = (name, str(device))
+    key = (name, device)
     if key not in _tables:
         arr = POW10 if name == "int" else POW10F
         _tables[key] = torch.from_numpy(arr).to(device)
@@ -45,13 +53,14 @@ def _table(name: str, device) -> torch.Tensor:
 
 
 def _check(offsets, values, validity) -> None:
+    dev = offsets.get_device()
     for part, t, dt in (("offsets", offsets, torch.int32),
                         ("values", values, torch.uint8),
                         ("validity", validity, torch.bool)):
         if t.dtype != dt or t.dim() != 1:
             raise TypeError(f"parse_number: {part} must be 1-d {dt}, got "
                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != offsets.device:
+        if t.get_device() != dev:
             raise ValueError("parse_number: tensors on different devices")
 
 
@@ -180,8 +189,12 @@ def parse_number(offsets: torch.Tensor, values: torch.Tensor,
     _check(offsets, values, validity)
     if not _build.on_cuda(offsets, "parse_number"):
         return parse_number_plain(offsets, values, validity, floating)
-    offsets, values = offsets.contiguous(), values.contiguous()
-    validity = validity.contiguous()
+    if not offsets.is_contiguous():
+        offsets = offsets.contiguous()
+    if not values.is_contiguous():
+        values = values.contiguous()
+    if not validity.is_contiguous():
+        validity = validity.contiguous()
     n = validity.shape[0]
     dev = offsets.device
     out = torch.empty(n, dtype=torch.float64 if floating else torch.int64,
@@ -190,8 +203,9 @@ def parse_number(offsets: torch.Tensor, values: torch.Tensor,
     if n == 0:
         return out, ok
     _build.check(_build.library().exon_parse_number(
-        offsets.data_ptr(), values.data_ptr(), validity.data_ptr(), n,
-        int(floating), _table("float", dev).data_ptr(), out.data_ptr(),
-        ok.data_ptr(), _build.stream_of(offsets)), "parse_number")
+        offsets.data_ptr(), values.data_ptr(), values.shape[0],
+        validity.data_ptr(), n, int(floating),
+        _table("float", dev).data_ptr(), out.data_ptr(), ok.data_ptr(),
+        _build.stream_of(offsets)), "parse_number")
     launches += 1
     return out, ok

@@ -10,6 +10,13 @@ length m, and returns bool ``[m]``: pair p is True when rows ``a[ia[p]]``
 and ``b[ib[p]]`` are both valid, equally long and equal in every byte. Unlike
 the JAX function it compares whole rows, not a 32-byte prefix and the
 length, and it reads both columns in place instead of gathering them first.
+
+On the card a thread takes a pair: it reads the two rows' offsets and
+validity, and only for a pair of equal length and no NULL the text, both
+rows as 16-byte words (the header of ``csrc/string_eq.cu``), 64 bytes a row
+a step, every load of a step issued before any compare. Bound: the bytes it
+must move (indices, offset pairs and validity, the bytes compared, a bool
+out), 0.0037 ms for Query D's 131,072 name pairs at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from . import _build
 launches = 0
 
 
-def _check(name: str, offsets, values, validity, idx, device) -> None:
+def _check(name: str, offsets, values, validity, idx, device: int) -> None:
     for part, t, dt in (("offsets", offsets, torch.int32),
                         ("values", values, torch.uint8),
                         ("validity", validity, torch.bool),
@@ -29,7 +36,7 @@ def _check(name: str, offsets, values, validity, idx, device) -> None:
         if t.dtype != dt or t.dim() != 1:
             raise TypeError(f"string_eq: {name} {part} must be 1-d {dt}, got "
                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device:
+        if t.get_device() != device:
             raise ValueError("string_eq: tensors on different devices")
 
 
@@ -58,23 +65,24 @@ def string_eq_plain(a: tuple, ia: torch.Tensor, b: tuple, ib: torch.Tensor
 def string_eq(a: tuple, ia: torch.Tensor, b: tuple, ib: torch.Tensor
               ) -> torch.Tensor:
     global launches
-    dev = ia.device
+    dev = ia.get_device()
     _check("a", *a, ia, dev)
     _check("b", *b, ib, dev)
-    if ia.shape[0] != ib.shape[0]:
+    m = ia.shape[0]
+    if m != ib.shape[0]:
         raise ValueError("string_eq: index arrays differ in length")
     if not _build.on_cuda(ia, "string_eq"):
         return string_eq_plain(a, ia, b, ib)
-    (ao, av, avalid), (bo, bv, bvalid) = ([t.contiguous() for t in a],
-                                          [t.contiguous() for t in b])
-    ia, ib = ia.contiguous(), ib.contiguous()
-    m = ia.shape[0]
-    out = torch.empty(m, dtype=torch.bool, device=dev)
+    # a copy only of a tensor that is not contiguous, kept until the launch
+    ao, av, avalid, bo, bv, bvalid, ia, ib = [
+        t if t.is_contiguous() else t.contiguous() for t in (*a, *b, ia, ib)]
+    out = torch.empty(m, dtype=torch.bool, device=ia.device)
     if m == 0:
         return out
     _build.check(_build.library().exon_string_eq(
-        ao.data_ptr(), av.data_ptr(), avalid.data_ptr(), ia.data_ptr(),
-        bo.data_ptr(), bv.data_ptr(), bvalid.data_ptr(), ib.data_ptr(), m,
-        out.data_ptr(), _build.stream_of(ia)), "string_eq")
+        ao.data_ptr(), av.data_ptr(), av.shape[0], avalid.data_ptr(),
+        ia.data_ptr(), bo.data_ptr(), bv.data_ptr(), bv.shape[0],
+        bvalid.data_ptr(), ib.data_ptr(), m, out.data_ptr(),
+        _build.stream_of(ia)), "string_eq")
     launches += 1
     return out

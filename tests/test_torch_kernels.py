@@ -706,19 +706,166 @@ def test_row_hash_kernel_matches_twin(card):
     assert torch.equal(kr.row_hash(offs, vals), kr.row_hash_plain(offs, vals))
 
 
+# string_eq reads both rows as 16-byte words, 64 bytes a row a step, and
+# stops only between steps: pairs that differ at each byte either side of a
+# word and of a step, rows at every alignment in each column, a values
+# buffer that ends at its last row (the byte loads of copy16::load_run),
+# offsets past 0, NULL against empty, repeats, no pairs, and long keys
+EQ_DIFFER_AT = [0, 15, 16, 17, 31, 32, 33, 63, 64, 65]
+EQ_CASES = ["null vs empty", "differ at", "alignments", "tight end 5",
+            "tight end 16", "tight end 37", "offsets past 0", "repeats",
+            "no pairs", "rows 20000", "long keys"]
+
+
+def eq_column(rows: list, valid=None, pad: int = 0, tail: int = 0) -> tuple:
+    """A numpy (offsets, values, validity) of byte rows, after ``pad``
+    bytes and before ``tail`` bytes that belong to no row."""
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    vals = np.frombuffer(b"#" * pad + b"".join(rows) + b"~" * tail,
+                         np.uint8).copy()
+    ok = np.ones(len(rows), bool) if valid is None else np.asarray(valid)
+    return (offs + pad).astype(np.int32), vals, ok
+
+
+def _eq_rows(rng, n: int, lo: int, hi: int) -> list:
+    return [bytes(rng.integers(65, 91, int(k), dtype=np.uint8))
+            for k in rng.integers(lo, hi + 1, n)]
+
+
+def _aligned(rows: list, aligns: list) -> tuple:
+    """rows, each after a filler that starts it at its alignment mod 16;
+    returns (all rows, the given rows' indices among them)."""
+    out, at, pos = [], [], 0
+    for r, align in zip(rows, aligns):
+        fill = (align - pos) % 16
+        out.append(b"f" * fill)
+        at.append(len(out))
+        out.append(r)
+        pos += fill + len(r)
+    return out, at
+
+
+def eq_case(case: str) -> tuple:
+    """(a, ia, b, ib) of a string_eq case: two numpy columns and int32
+    indices of equal length."""
+    rng = np.random.default_rng(len(case))
+    a = b = ia = ib = None
+    if case == "null vs empty":
+        a = eq_column([b"", b"", b"", b"x", b""],
+                      [True, False, True, True, False])
+        b = eq_column([b"", b"", b"", b"", b"x"],
+                      [True, True, False, True, False])
+        ia, ib = np.divmod(np.arange(25), 5)
+    elif case == "differ at":
+        ra, rb = [], []
+        for n in (16, 17, 32, 33, 64, 65, 66, 80, 130):
+            base = _eq_rows(rng, 1, n, n)[0]
+            for k in [k for k in EQ_DIFFER_AT if k < n] + [n - 1]:
+                ra.append(base)
+                rb.append(base[:k] + bytes([base[k] ^ 0x20]) + base[k + 1:])
+            ra.append(base)
+            rb.append(base)
+        a, b = eq_column(ra), eq_column(rb)
+        ia = ib = np.arange(len(ra))
+    elif case == "alignments":
+        # every length at every alignment in a, and equal and last-byte
+        # different partners at every alignment in b
+        lens = [1, 15, 16, 17, 40, 64, 65, 100]
+        base = [r for n in lens for r in _eq_rows(rng, 1, n, n)]
+        other = [r[:-1] + bytes([r[-1] ^ 1]) for r in base]
+        ra, at_a = _aligned(base * 16, [t for t in range(16) for _ in lens])
+        rb, at_b = _aligned((base + other) * 16,
+                            [t for t in range(16) for _ in lens * 2])
+        a, b = eq_column(ra), eq_column(rb)
+        k = len(lens)
+        pairs = [(at_a[ta * k + j], at_b[tb * 2 * k + d * k + j])
+                 for ta in range(16) for tb in range(16)
+                 for j in range(k) for d in (0, 1)]
+        ia, ib = np.asarray(pairs).T
+    elif case.startswith("tight end"):
+        n = int(case.split()[-1])
+        last = _eq_rows(rng, 1, n, n)[0]
+        rows = _eq_rows(rng, 40, 0, 70)
+        a = eq_column(rows + [last])
+        b = eq_column([last, last[:-1] + b"!"] + rows[::-1] + [last])
+        ia = np.asarray([40, 40, 40, 0, 39])
+        ib = np.asarray([0, 1, 42, 41, 2])
+    elif case == "offsets past 0":
+        rows = _eq_rows(rng, 300, 0, 90)
+        a = eq_column(rows, rng.random(300) >= 0.05, pad=13, tail=29)
+        b = eq_column(rows[::-1], pad=70, tail=3)
+        ia = rng.integers(0, 300, 2000)
+        ib = np.where(rng.random(2000) < 0.7, 299 - ia,
+                      rng.integers(0, 300, 2000))
+    elif case == "repeats":
+        rows = _eq_rows(rng, 50, 0, 70)
+        a, b = eq_column(rows), eq_column(rows)
+        ia = np.full(1000, 17)
+        ib = rng.integers(0, 50, 1000)
+        ib[::3] = 17
+    elif case == "no pairs":
+        a = b = eq_column(_eq_rows(rng, 10, 0, 20))
+        ia = ib = np.zeros(0, np.int64)
+    elif case == "rows 20000":
+        rows = [bytes(rng.choice(np.frombuffer(b"ACKMW", np.uint8),
+                                 int(k))) for k in rng.integers(0, 50, 3000)]
+        a = b = eq_column(rows, rng.random(3000) < 0.9)
+        ia = rng.integers(0, 3000, 20_000)
+        ib = ia.copy()
+        ib[::2] = rng.integers(0, 3000, 10_000)
+    else:
+        assert case == "long keys"
+        rows = _eq_rows(rng, 2000, 100, 300)
+        a = eq_column(rows)
+        b = eq_column([r[:-16] + (bytes(rng.integers(65, 91, 16,
+                                                     dtype=np.uint8))
+                                  if rng.random() < 0.3 else r[-16:])
+                       for r in rows])
+        ia = ib = rng.permutation(2000)
+    return a, ia.astype(np.int32), b, ib.astype(np.int32)
+
+
+def eq_truth(a, ia, b, ib) -> np.ndarray:
+    """Python's answer: both rows valid and equal byte for byte."""
+    def row(col, i):
+        return col[1][col[0][i]:col[0][i + 1]].tobytes()
+
+    return np.array([bool(a[2][i] and b[2][j] and row(a, i) == row(b, j))
+                     for i, j in zip(ia, ib)], bool)
+
+
 @pytest.mark.cuda
-def test_string_eq_kernel_matches_twin(card):
-    rng = np.random.default_rng(7)
-    offs, vals = _var(rng, 3000, card)
-    valid = torch.from_numpy(rng.random(3000) < 0.9).to(card)
-    col = (offs, vals, valid)
-    ia = torch.from_numpy(rng.integers(0, 3000, 20_000).astype(np.int32))
-    ib = ia.clone()
-    ib[::2] = torch.from_numpy(rng.integers(0, 3000, 10_000).astype(np.int32))
-    ia, ib = ia.to(card), ib.to(card)
-    got = ks.string_eq(col, ia, col, ib)
-    assert torch.equal(got, ks.string_eq_plain(col, ia, col, ib))
-    assert 0 < int(got.sum()) < got.shape[0]
+@pytest.mark.parametrize("case", EQ_CASES)
+def test_string_eq_kernel_matches_twin(card, case):
+    a, ia, b, ib = eq_case(case)
+    a, b = ([torch.from_numpy(t).to(card) for t in col] for col in (a, b))
+    ia, ib = torch.from_numpy(ia).to(card), torch.from_numpy(ib).to(card)
+    got = ks.string_eq(a, ia, b, ib)
+    assert torch.equal(got, ks.string_eq_plain(a, ia, b, ib))
+    a_, ia_, b_, ib_ = eq_case(case)
+    assert (got.cpu().numpy() == eq_truth(a_, ia_, b_, ib_)).all()
+
+
+@pytest.mark.cuda
+def test_string_eq_on_views_at_every_offset_match_twin(card):
+    """Both columns' values as views at offsets 0-15 into their storage,
+    so that the same rows meet every alignment of the 16-byte words, each
+    ending at its last row; one launch a call."""
+    a, ia, b, ib = eq_case("alignments")
+    ia, ib = torch.from_numpy(ia).to(card), torch.from_numpy(ib).to(card)
+    for off in range(16):
+        cols = []
+        for offs, vals, valid in (a, b):
+            base = torch.zeros(len(vals) + off, dtype=torch.uint8,
+                               device=card)
+            base[off:] = torch.from_numpy(vals).to(card)
+            cols.append((torch.from_numpy(offs).to(card), base[off:],
+                         torch.from_numpy(valid).to(card)))
+        got = ks.string_eq(cols[0], ia, cols[1], ib)
+        assert torch.equal(got, ks.string_eq_plain(cols[0], ia, cols[1], ib))
+    seen = _cuda_kernels(lambda: ks.string_eq(cols[0], ia, cols[1], ib), 5)
+    assert len(seen) == 1 and "string_eq_kernel" in next(iter(seen)), seen
 
 
 @pytest.mark.cuda
@@ -1020,6 +1167,100 @@ def _numeral_column(seed: int):
     return strs, _strings(strs, rng)
 
 
+# parse_number stages a tile's rows that fit the window (20 bytes for int,
+# 64 for float) in 16-byte words and parses each in one pass: the one-pass
+# rules' edges, rows either side of each window, long mantissas and
+# exponents, offsets past 0 and values past the last row, row counts
+# either side of the 256-row tile, and a 10,000-byte row among short ones
+NUMERAL_EDGES = [
+    "", "-", "+", "-0", "+0", "0", "007", "-007", "+007", "0000", ".5", "5.",
+    "-.5", "+5.", ".", "1e5", "1E-5", "1e+5", "1e+", "1e-", "1e", "e5", "E",
+    "1.e3", "1.5E+3", "12e0", "1e05", "1.2.3", "1e5.2", "1e5e2", ".e1",
+    "1e5+", "1+e5", "--1", "+-1", "-+1", " 1", "1 ", "0x10", "1_0", "1e+-5",
+    "..5", "5..", "1.5e", "1.5e-", "9" * 18, "-" + "9" * 18]
+NUMERAL_CASES = ["no rows", "edges", "widths", "mantissas", "exponents",
+                 "offsets past 0", "rows 1", "rows 255", "rows 256",
+                 "rows 257", "rows 131073", "long row"]
+
+
+def _numeral_bulk(rng, n: int) -> list:
+    """n seeded numerals of SQL_gff's and VCF qual's kinds (ints, decimals,
+    scientific text), with leading zeros, signs and junk."""
+    ints = rng.integers(-10 ** 9, 10 ** 9, n)
+    frac = rng.integers(0, 10 ** 6, n)
+    exps = rng.integers(-320, 320, n)
+    kinds = rng.integers(0, 6, n)
+    junk = np.frombuffer(b"0123456789.eE+- x", np.uint8)
+    out = []
+    for k, i, f, e in zip(kinds.tolist(), ints.tolist(), frac.tolist(),
+                          exps.tolist()):
+        if k == 0:
+            out.append(str(i))
+        elif k == 1:
+            out.append(f"{i}.{f}")
+        elif k == 2:
+            out.append(f"{abs(i) % 10}.{f}e{e}")
+        elif k == 3:
+            out.append("0" * (f % 9) + str(abs(i)))
+        elif k == 4:
+            out.append(f"{f / 7:.{e % 17}g}")
+        else:
+            out.append(bytes(junk[rng.integers(0, len(junk),
+                                                f % 12)]).decode())
+    return out
+
+
+def numeral_case(case: str) -> tuple:
+    """(numerals, offsets, values, validity) of a parse_number case, numpy;
+    a NULL row keeps its bytes."""
+    rng = np.random.default_rng(len(case) + 31)
+    pad = tail = 0
+    if case == "no rows":
+        strs = []
+    elif case == "edges":
+        strs = NUMERAL_EDGES * 3
+    elif case == "widths":
+        strs = ["0" * 15 + "12345", "-" + "0" * 14 + "12345",
+                "0" * 16 + "12345", "-" + "0" * 15 + "12345",
+                "1" * 19, "0" + "1" * 19, "00" + "1" * 19,
+                "0." + "0" * 61 + "5", "0." + "0" * 62 + "5",
+                "1" + "0" * 63, "1" + "0" * 64, "-" + "1" * 63,
+                "-" + "1" * 64, "+" + "0" * 60 + "1e2", "+" + "0" * 61 + "1e2",
+                "1" * 20, "-" + "1" * 19]
+    elif case == "mantissas":
+        digits = "1234567890123456789012345"
+        strs = [z + s + t for z in ("", "0", "000") for s in
+                (digits[:18], digits[:19], digits[:25]) for t in ("", ".5")]
+        strs += ["0.000" + digits[:k] for k in (18, 19, 25)]
+        strs += ["-000" + digits[:19] + "." + digits[:6],
+                 "00." + digits + "e3", "0" * 30 + "1"]
+    elif case == "exponents":
+        strs = ["1e308", "1.7976931348623157e308", "1.8e308", "9e307",
+                "1e309", "1e-307", "1e-300", "-1e-300",
+                "2.2250738585072014e-308", "4.9e-324", "1e400", "-1e400",
+                "0e400", "0e-400", "1e+0308", "1e999999999999999999",
+                "123456789012345678e290", "0.000001e-302",
+                "1e" + "9" * 19, "1e-" + "1" * 21, "2e+" + "0" * 20 + "3"]
+    elif case == "offsets past 0":
+        strs = _numeral_bulk(rng, 3000) + NUMERAL_EDGES
+        pad, tail = 11, 37
+    elif case.startswith("rows "):
+        strs = _numeral_bulk(rng, int(case.split()[1]))
+    else:
+        assert case == "long row"
+        strs = _numeral_bulk(rng, 600)
+        strs[300] = "1" * 10_000
+        strs[301] = "2" * 21
+        strs[302] = "3." + "4" * 63
+    enc = [s.encode() for s in strs]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    vals = np.frombuffer(b"7" * pad + b"".join(enc) + b"8" * tail,
+                         np.uint8).copy()
+    valid = rng.random(len(enc)) >= 0.05
+    return strs, (offs + pad).astype(np.int32), vals, valid
+
+
 def _f10_int(s: str) -> bool:
     """Numerals whose JAX integer parse is wrong (F10): 20 or more
     significant digits, or a value outside int64."""
@@ -1131,13 +1372,36 @@ def test_string_cmp_kernel_matches_twin(card, op):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("floating", [False, True])
-def test_parse_number_kernel_matches_twin(card, floating):
-    _strs, col = _numeral_column(17)
+@pytest.mark.parametrize("case", ["seed 17"] + NUMERAL_CASES)
+def test_parse_number_kernel_matches_twin(card, floating, case):
+    col = _numeral_column(17)[1] if case == "seed 17" else \
+        numeral_case(case)[1:]
     cols = [torch.from_numpy(a).to(card) for a in col]
     got, ok = kp.parse_number(*cols, floating)
     want, w_ok = kp.parse_number_plain(*cols, floating)
     assert torch.equal(ok, w_ok)
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floating", [False, True])
+def test_parse_number_on_views_at_every_offset_match_twin(card, floating):
+    """values as a view at offsets 0-15 into its storage, so that the same
+    rows meet every alignment of the staged words, ending at its last row;
+    one launch a call."""
+    _strs, offs, vals, valid = numeral_case("rows 257")
+    offs, valid = torch.from_numpy(offs).to(card), \
+        torch.from_numpy(valid).to(card)
+    for off in range(16):
+        base = torch.zeros(len(vals) + off, dtype=torch.uint8, device=card)
+        base[off:] = torch.from_numpy(vals).to(card)
+        got, ok = kp.parse_number(offs, base[off:], valid, floating)
+        want, w_ok = kp.parse_number_plain(offs, base[off:], valid, floating)
+        assert torch.equal(ok, w_ok)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    seen = _cuda_kernels(
+        lambda: kp.parse_number(offs, base[off:], valid, floating), 5)
+    assert len(seen) == 1 and "parse_number_kernel" in next(iter(seen)), seen
 
 
 @pytest.mark.cuda
