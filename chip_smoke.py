@@ -7,8 +7,8 @@ Run from the repository root with no arguments:
 ``--kernels hash_aggregate,list_bins,q_aggregate,compact_mask,map_bytes,``
 ``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
 ``text_records,format_int,slice_var,take_list,window_frame,``
-``expand_segments,parse_number,string_eq,i_panel,joins`` (any of them) runs
-phases 1-2 and those cases alone,
+``expand_segments,parse_number,string_eq,i_panel,joins,sort_keys,``
+``row_hash`` (any of them) runs phases 1-2 and those cases alone,
 each taken apart into device time, launches and host time (window_frame at
 L's batch, all sixteen modes; expand_segments' chain at C's probe batch and
 the skewed one; joins: C's and D's joins and sorts alone, as phase 5; sw_score also read from its SASS; line_index also at the
@@ -21,7 +21,10 @@ parse_number at a 131,072-row batch of GFF starts (int mode) and ends
 (float mode), at all 3.4 M of each and at a batch of VCF qual-like
 decimal and scientific text; string_eq at D's name pairs, I's key
 verification and 20,000 pairs of long keys; i_panel: Query I_panel's
-wall, median of 5);
+wall, median of 5; sort_keys at C's and D's key sets, at L's window keys
+(chrom, pos over I_panel's 1,008,303 rows) and at an L_dist shard's size
+(every eighth of those rows); row_hash at D's probe batch and build side,
+at I's refs and on 1,000 rows of 256 B-64 KB);
 ``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
 earlier commit, unpacked), so that two versions are timed in one run on one
 card.
@@ -1048,26 +1051,53 @@ def check_expand(rng, torch) -> dict:
     return r
 
 
-def check_row_hash(torch, names) -> dict:
+def _row_hash_case(torch, label: str, offs, vals, plain_reps: int = REPS
+                   ) -> dict:
+    """row_hash against its twin, exact, timed beside its bound (each row's
+    offset, its bytes and the hash out; the twin over ``plain_reps`` runs);
+    under --kernels also taken apart (_print_split)."""
     from exon_tpu_torch.kernels import row_hash as k
 
-    out = {}
-    for label, rows in (("probe", names[:N_ROWS]), ("build", names)):
-        offs, vals = _names_column(rows, torch)
-        _exact(f"row_hash {label}", k.row_hash(offs, vals),
-               k.row_hash_plain(offs, vals))
-        out[label] = {
-            "max_abs_err": 0.0,
-            "ms": median_ms(lambda: k.row_hash(offs, vals), torch),
-            "plain_ms": median_ms(lambda: k.row_hash_plain(offs, vals),
-                                  torch),
-            "library_ms": None,
-            "bytes": 4 * (len(rows) + 1) + vals.shape[0] + 8 * len(rows),
-            "shape": f"{len(rows)} names, {vals.shape[0]} bytes"}
-    print(f"  row_hash build side: {out['build']['shape']}, kernel "
-          f"{out['build']['ms']:.4f} ms, twin {out['build']['plain_ms']:.4f} ms"
-          f", bound {bound_ms(out['build']['bytes']):.4f} ms")
-    return out["probe"]
+    _exact(f"row_hash {label}", k.row_hash(offs, vals),
+           k.row_hash_plain(offs, vals))
+    n = offs.shape[0] - 1
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         "ms": median_ms(lambda: k.row_hash(offs, vals), torch),
+         "plain_ms": median_ms(lambda: k.row_hash_plain(offs, vals), torch,
+                               plain_reps),
+         "bytes": 4 * (n + 1) + int(offs[-1] - offs[0]) + 8 * n,
+         "shape": f"{label}: {n} rows, {int(offs[-1] - offs[0])} bytes"}
+    if SPLITS:
+        _print_split(torch, f"row_hash {label}",
+                     lambda: k.row_hash(offs, vals))
+    return r
+
+
+def check_row_hash(torch, names, first_i=None) -> dict:
+    """row_hash at Query D's probe batch (the kernels line) and build side;
+    under --kernels also at Query I's refs (given its first batch) and on
+    1,000 rows of 256 B-64 KB made from a seed (long chains), each printed
+    apart."""
+    probe = _row_hash_case(torch, "D's probe batch",
+                           *_names_column(names[:N_ROWS], torch))
+    _print_case("row_hash", _row_hash_case(torch, "D's build side",
+                                           *_names_column(names, torch)))
+    if SPLITS and first_i is not None:
+        ref = first_i["ref"]
+        _print_case("row_hash", _row_hash_case(torch, "I's refs",
+                                               ref.offsets, ref.values))
+    if SPLITS:
+        rng = np.random.default_rng(256)
+        lens = rng.integers(256, 65_537, 1_000)
+        offs = np.zeros(len(lens) + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        vals = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+        # the twin's byte loop takes seconds here: timed over 2 runs
+        _print_case("row_hash", _row_hash_case(
+            torch, "long rows (256 B-64 KB)",
+            torch.from_numpy(offs.astype(np.int32)).cuda(),
+            torch.from_numpy(vals).cuda(), plain_reps=2))
+    return probe
 
 
 def _string_eq_case(torch, label: str, a, ia, b, ib, a_rows: np.ndarray,
@@ -1178,7 +1208,37 @@ def _compared_bytes(a: np.ndarray, b: np.ndarray) -> int:
     return int(2 * np.where(la == lb, np.minimum(first, la), 0).sum())
 
 
+def _sort_keys_case(torch, label: str, specs: list, n: int) -> dict:
+    """sort_keys against its twin, exact, timed beside its bound: per key
+    its validity; a fixed key its values' own bytes, a string key its int32
+    offsets once (neighbouring rows share them) and up to 8 bytes a row per
+    key row; the key matrix out. Under --kernels also taken apart
+    (_print_split)."""
+    from exon_tpu_torch.kernels import sort_keys as k
+
+    got = k.sort_keys(specs, n, "cuda")
+    _exact(f"sort_keys {label}", got, k.sort_keys_plain(specs, n, "cuda"))
+    key_in = sum(sp.values.element_size() * n + n
+                 if isinstance(sp, k.FixedKey) else
+                 4 * (n + 1) + n + int(torch.clamp(
+                     sp.offsets[1:] - sp.offsets[:-1],
+                     max=8 * sp.nchunks).sum())
+                 for sp in specs)
+    r = {"max_abs_err": 0.0, "library_ms": None,
+         "bytes": key_in + 8 * got.numel(),
+         "ms": median_ms(lambda: k.sort_keys(specs, n, "cuda"), torch),
+         "plain_ms": median_ms(lambda: k.sort_keys_plain(specs, n, "cuda"),
+                               torch),
+         "shape": f"{label}: {n} rows x {got.shape[0]} key rows"}
+    if SPLITS:
+        _print_split(torch, f"sort_keys {label}",
+                     lambda: k.sort_keys(specs, n, "cuda"))
+    return r
+
+
 def check_sort_keys(rng, torch, names) -> dict:
+    """sort_keys at Query C's key set (the kernels line) and D's, D's
+    printed apart."""
     from benchlib.gff_fixture import SEQNAMES
     from exon_tpu_torch.kernels import sort_keys as k
 
@@ -1195,25 +1255,43 @@ def check_sort_keys(rng, torch, names) -> dict:
                  k.VarKey(*name, valid, 5)]
         if gene:
             specs.append(k.FixedKey(start - 1000, valid))
-        got = k.sort_keys(specs, n, "cuda")
-        _exact(f"sort_keys {label}", got, k.sort_keys_plain(specs, n, "cuda"))
-        # per key its validity; fixed keys 8 bytes a row, string keys their
-        # offset pair and up to 8 bytes per key row; the key matrix out
-        key_in = sum(9 * n if isinstance(sp, k.FixedKey) else
-                     9 * n + int(torch.clamp(sp.offsets[1:] - sp.offsets[:-1],
-                                             max=8 * sp.nchunks).sum())
-                     for sp in specs)
-        out[label] = {
-            "max_abs_err": 0.0, "library_ms": None,
-            "bytes": key_in + 8 * got.numel(),
-            "ms": median_ms(lambda: k.sort_keys(specs, n, "cuda"), torch),
-            "plain_ms": median_ms(
-                lambda: k.sort_keys_plain(specs, n, "cuda"), torch),
-            "shape": f"{n} rows x {got.shape[0]} key rows"}
-    print(f"  sort_keys Query D shape: {out['D']['shape']}, kernel "
-          f"{out['D']['ms']:.4f} ms, twin {out['D']['plain_ms']:.4f} ms, "
-          f"bound {bound_ms(out['D']['bytes']):.4f} ms")
+        out[label] = _sort_keys_case(torch, f"Query {label}'s keys", specs, n)
+    _print_case("sort_keys", out["D"])
     return out["C"]
+
+
+def check_sort_keys_alone(torch) -> None:
+    """sort_keys at C's and D's key sets (phase 3's cases), at Query L's
+    window keys (PARTITION BY chrom ORDER BY pos over I_panel's 1,008,303
+    rows, as WindowExec's sort_rows builds them) and at an L_dist shard's
+    size (every eighth of those rows), each taken apart."""
+    import exon_tpu_torch as T
+    from benchlib.bam_fixture import template_names
+    from exon_tpu_torch.ops import layout as layout_ops
+    from exon_tpu_torch.plan.physical import sort_key_specs
+
+    names = template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250]
+    _print_case("sort_keys", check_sort_keys(np.random.default_rng(1234),
+                                             torch, names))
+    batch = _l_batch()
+    keys = [(T.col("chrom"), True), (T.col("pos"), True)]
+    for label, b in (("L's window keys", batch),
+                     ("an L_dist shard's window keys", layout_ops.take_batch(
+                         batch, torch.arange(0, batch.length, 8,
+                                             dtype=torch.int32,
+                                             device="cuda")))):
+        _print_case("sort_keys", _sort_keys_case(
+            torch, label, sort_key_specs(keys, b), b.length))
+
+
+def check_row_hash_alone(torch) -> None:
+    """row_hash's cases: D's probe batch and build side, I's refs and the
+    long rows."""
+    from benchlib.bam_fixture import template_names
+
+    _print_case("row_hash", check_row_hash(
+        torch, template_names(N_TEMPLATES, BAM_SEED)[: N_TEMPLATES - 14_250],
+        _query_i_first_batch(torch)))
 
 
 def _fasta_chunk(torch):
@@ -4608,6 +4686,8 @@ FOCUS = {
     "parse_number": lambda torch: check_parse_number(torch, _gff_features()),
     "string_eq": check_string_eq_alone,
     "i_panel": check_i_panel_alone,
+    "sort_keys": check_sort_keys_alone,
+    "row_hash": check_row_hash_alone,
     "expand_segments": lambda torch: check_expand(
         np.random.default_rng(1234), torch),
     "joins": check_joins_alone,

@@ -54,8 +54,7 @@ SIGNATURES = {
     "exon_row_hash": [_P, _P, _I64, _P, _P],
     "exon_string_eq": [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I64, _P,
                        _P],
-    "exon_sort_keys_fixed": [_P, _I32, _P, _I64, _I32, _I32, _P, _P],
-    "exon_sort_keys_var": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "exon_sort_keys": [_P, _I32, _I64, _I32, _P, _P],
     "exon_line_index": [_P, _I64, _P, _P, _U64, _U64, _P, _I64, _P, _P],
     "exon_text_records": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P, _U64, _P],

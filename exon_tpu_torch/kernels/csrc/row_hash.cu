@@ -5,10 +5,10 @@
 // then scatter-adds every byte's contribution into its row: four passes
 // over the bytes with int64 temporaries.
 //
-// Bound on the H100: HBM reads, each row's bytes once plus 8 bytes of
-// offsets and 8 bytes of output per row: a 131,072-row batch of ~38-byte
-// read names moves about 7 MB, some 2 us at 3.35 TB/s; 1.41 M build rows
-// about 75 MB.
+// Bound on the H100: HBM bytes, each row's bytes once plus 4 bytes of
+// offsets and 8 bytes of output per row (bytes / 3.35 TB/s): a 131,072-row
+// batch of ~38-byte read names moves about 6.4 MB, 0.0019 ms; D's
+// 1,410,750 build-side names about 70 MB, 0.021 ms.
 //
 // Design: one thread per row runs the Horner form of the same polynomial,
 // h = h * P + byte + 1 with uint64 wrap, which equals the JAX sum of
@@ -16,6 +16,15 @@
 // splitmix64 finalizer: bit for bit _hash_bytes_host (:819). Neighbouring
 // threads read neighbouring rows, so a warp's loads fall in a few hundred
 // contiguous bytes and are served from L1/L2. Threads stride over rows.
+//
+// This loop (31 registers, no shared memory) stays because each redesign
+// timed beside it on the card lost at D's build side, its largest input
+// (PERF.md section 6, the K3 row): 16-byte words with eight bytes a
+// dependent step (48 registers), with and without a warp for rows past 256
+// bytes, aligned 4-byte words into the same chain, and a warp's rows staged
+// in shared memory as coalesced 16-byte words, hashed from there a byte or
+// eight bytes a step. A row of 64 KB is one thread's 64 K steps; no query
+// hashes a key past a few hundred bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>

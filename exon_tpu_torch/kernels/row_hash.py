@@ -9,6 +9,10 @@ the splitmix64 finalizer, read as signed int64.
 The twin computes in int64, whose multiply and add wrap like uint64; CPU
 torch has no uint64 ``+``/``>>``, so each logical right shift is an
 arithmetic shift with the sign-extended bits masked off.
+
+On the card a thread takes a row and runs the chain a byte a step;
+``row_hash.cu``'s head says why, and which redesigns lost to it. The
+wrapper checks both tensors at once and allocates the output alone.
 """
 
 from __future__ import annotations
@@ -56,13 +60,14 @@ def row_hash_plain(offsets: torch.Tensor, values: torch.Tensor
 
 def row_hash(offsets: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     global launches
-    for name, t, dt in (("offsets", offsets, torch.int32),
-                        ("values", values, torch.uint8)):
-        if t.dtype != dt or t.dim() != 1:
-            raise TypeError(f"row_hash: {name} must be 1-d {dt}, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-        if t.device != offsets.device:
-            raise ValueError("row_hash: tensors on different devices")
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or \
+            values.dtype != torch.uint8 or values.dim() != 1:
+        raise TypeError(f"row_hash: offsets must be 1-d int32 and values "
+                        f"1-d uint8, got {offsets.dtype} "
+                        f"{tuple(offsets.shape)} and {values.dtype} "
+                        f"{tuple(values.shape)}")
+    if values.device != offsets.device:
+        raise ValueError("row_hash: tensors on different devices")
     if not _build.on_cuda(offsets, "row_hash"):
         return row_hash_plain(offsets, values)
     offsets, values = offsets.contiguous(), values.contiguous()

@@ -18,12 +18,18 @@ all zero because batches hold no padding rows. Each spec then adds rows:
 ``nulls_first`` is None for the default placement (ASC: NULLs last, DESC:
 first), else True/False. A DESC key's rows hold ``-1 - k``, except an
 explicit NULLS FIRST/LAST validity row, whose placement is already final.
-One launch writes each spec's rows.
+
+On the card one launch writes the whole matrix, row 0 included, for up to
+``MAX_KEYS`` keys (a call with more takes a launch for each ``MAX_KEYS``).
+The keys go by value in the launch's parameters, from a ctypes table the
+module fills in place; nothing is uploaded and nothing syncs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import threading
 from typing import Optional, Union
 
 import torch
@@ -35,7 +41,7 @@ launches = 0
 _SIGN = -(1 << 63)
 # value kinds of csrc/sort_keys.cu; other dtypes are widened to int64 first
 _KIND = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.float32: 3,
-         torch.uint8: 4, torch.bool: 4}
+         torch.uint8: 4, torch.bool: 4, torch.int16: 5, torch.int8: 6}
 
 
 @dataclasses.dataclass
@@ -125,55 +131,84 @@ def sort_keys_plain(specs: list, n: int, device) -> torch.Tensor:
     return torch.cat(rows)
 
 
-def _check(key: Key, n: int, device) -> None:
-    tensors = ([("validity", key.validity, torch.bool, n)]
-               + ([("offsets", key.offsets, torch.int32, n + 1),
-                   ("values", key.values, torch.uint8, None)]
-                  if isinstance(key, VarKey) else
-                  [("values", key.values, None, n)]))
-    for name, t, dt, length in tensors:
-        if (dt is not None and t.dtype != dt) or t.dim() != 1 or \
-                (length is not None and t.shape[0] != length):
-            raise TypeError(f"sort_keys: {name} must be 1-d "
-                            f"{dt or 'numeric'} of {length} rows, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError("sort_keys: tensors on different devices")
+# at most this many keys go in one launch's parameters
+# (csrc/sort_keys.cu kMaxKeys); a call with more takes more launches
+MAX_KEYS = 16
+_VAR = 7
+# a key's 56 bytes in csrc/sort_keys.cu's SortKey, as 7 int64 slots: the
+# offsets, values and validity pointers, the values' bytes, kind | nchunks
+# << 32, asc | nulls mode << 32, the key's first row of the matrix
+KEY_SLOTS = 7
+# the key table of a launch, filled in place for every call under
+# _table_lock
+_TABLE = (ctypes.c_int64 * (KEY_SLOTS * MAX_KEYS))()
+_table_lock = threading.Lock()
+
+
+def _checked(key: Key, n: int, device: int) -> tuple:
+    """(offsets or None, values, validity, kind) of ``key``, contiguous,
+    after checking their types, shapes and device (``get_device()``'s
+    number); a fixed key's values of a type the kernel does not take are
+    widened to int64."""
+    valid = key.validity
+    if isinstance(key, VarKey):
+        offs, vals = key.offsets, key.values
+        bad = (offs.dtype != torch.int32 or offs.shape != (n + 1,)
+               or vals.dtype != torch.uint8 or vals.dim() != 1)
+        want = f"int32 offsets [{n + 1}] and 1-d uint8 values"
+    else:
+        offs, vals = None, key.values
+        bad = vals.shape != (n,)
+        want = f"values [{n}]"
+    if bad or valid.dtype != torch.bool or valid.shape != (n,):
+        got = [(t.dtype, tuple(t.shape)) for t in (offs, vals, valid)
+               if t is not None]
+        raise TypeError(f"sort_keys: a key needs {want} and bool validity "
+                        f"[{n}], got {got}")
+    if vals.get_device() != device or valid.get_device() != device or \
+            (offs is not None and offs.get_device() != device):
+        raise ValueError("sort_keys: tensors on different devices")
+    if offs is not None:
+        return offs.contiguous(), vals.contiguous(), valid.contiguous(), _VAR
+    if vals.dtype not in _KIND:
+        vals = vals.to(torch.int64)
+    return None, vals.contiguous(), valid.contiguous(), _KIND[vals.dtype]
 
 
 def sort_keys(specs: list, n: int, device) -> torch.Tensor:
     global launches
     # the keys' own device: torch.device("cuda") != its tensors' "cuda:0"
     device = specs[0].validity.device if specs else torch.device(device)
-    for key in specs:
-        _check(key, n, device)
-    if not _build.on_cuda(torch.empty(0, device=device), "sort_keys"):
+    if not (_build.on_cuda(specs[0].validity, "sort_keys") if specs
+            else device.type == "cuda"):
+        for key in specs:
+            _checked(key, n, -1)
         return sort_keys_plain(specs, n, device)
-    total = 1 + sum(k.rows for k in specs)
-    out = torch.empty((total, n), dtype=torch.int64, device=device)
-    out[0].zero_()
-    if n == 0:
-        return out
+    out = torch.empty((1 + sum(k.rows for k in specs), n), dtype=torch.int64,
+                      device=device)
+    index = out.get_device()
     lib = _build.library()
     stream = _build.stream_of(out)
     row = 1
-    for key in specs:
-        mode = _nulls_mode(key.nulls_first)
-        valid = key.validity.contiguous()
-        if isinstance(key, VarKey):
-            offs, vals = key.offsets.contiguous(), key.values.contiguous()
-            status = lib.exon_sort_keys_var(
-                offs.data_ptr(), vals.data_ptr(), valid.data_ptr(), n,
-                key.nchunks, int(key.asc), mode, out[row].data_ptr(), stream)
-        else:
-            vals = key.values
-            if vals.dtype not in _KIND:
-                vals = vals.to(torch.int64)
-            vals = vals.contiguous()
-            status = lib.exon_sort_keys_fixed(
-                vals.data_ptr(), _KIND[vals.dtype], valid.data_ptr(), n,
-                int(key.asc), mode, out[row].data_ptr(), stream)
-        _build.check(status, "sort_keys")
-        launches += 1
-        row += key.rows
+    with _table_lock:
+        # no keys: one launch writes row 0
+        for first in range(0, max(len(specs), 1), MAX_KEYS):
+            group = specs[first:first + MAX_KEYS]
+            keep, slots = [], []  # the tensors the launch reads, its table
+            for key in group:
+                offs, vals, valid, kind = _checked(key, n, index)
+                keep.append((offs, vals, valid))
+                nchunks = 0 if offs is None else key.nchunks
+                slots += [0 if offs is None else offs.data_ptr(),
+                          vals.data_ptr(), valid.data_ptr(), vals.shape[0],
+                          kind | nchunks << 32,
+                          int(key.asc) | _nulls_mode(key.nulls_first) << 32,
+                          row]
+                row += key.rows
+            _TABLE[:len(slots)] = slots
+            _build.check(lib.exon_sort_keys(_TABLE, len(group), n,
+                                            int(first == 0), out.data_ptr(),
+                                            stream), "sort_keys")
+            if n:
+                launches += 1
     return out

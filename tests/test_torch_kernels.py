@@ -706,6 +706,293 @@ def test_row_hash_kernel_matches_twin(card):
     assert torch.equal(kr.row_hash(offs, vals), kr.row_hash_plain(offs, vals))
 
 
+# row_hash runs a thread's chain a byte a step; sort_keys reads each row in
+# place, two chunks a 16-byte word (byte loads only within 16 bytes of the
+# end of values), all keys in one launch of up to 16. The cases below put
+# rows on each side of every word and chunk edge and of a warp's and a
+# tile's rows; "64 KB row", "long rows in a warp" and "wide rows" hold
+# long rows beside short ones.
+HASH_LENS = [0, 1, 7, 8, 9, 15, 16, 17, 39, 40, 41, 255, 256, 257]
+HASH_CASES = ["lengths", "every byte", "64 KB row", "offsets past 0",
+              "tight end 5", "tight end 16", "tight end 300", "no rows",
+              "one row", "tile edges", "long rows in a warp", "wide rows"]
+
+
+def _byte_rows(rng, lens) -> list:
+    return [bytes(rng.integers(0, 256, int(k), dtype=np.uint8))
+            for k in lens]
+
+
+def hash_case(case: str) -> tuple:
+    """numpy (offsets int32, values uint8) of a row_hash case."""
+    rng = np.random.default_rng(len(case) + 100)
+    pad = tail = 0
+    if case == "lengths":
+        # every length at every alignment mod 16
+        rows, _at = _aligned(_byte_rows(rng, HASH_LENS * 16),
+                             [t for t in range(16) for _ in HASH_LENS])
+    elif case == "every byte":
+        # b + 1 = 256 at b = 255: each value alone, in a run, and in order
+        rows = ([bytes([b]) for b in range(256)]
+                + [bytes([b]) * 17 for b in range(256)]
+                + [bytes(range(256)), bytes(range(255, -1, -1)),
+                   b"\xff" * 300, b"\x00" * 257])
+    elif case == "64 KB row":
+        rows = (_byte_rows(rng, rng.integers(0, 60, 40))
+                + _byte_rows(rng, [65_536 + 13])
+                + _byte_rows(rng, rng.integers(0, 60, 40)))
+    elif case == "offsets past 0":
+        rows = _byte_rows(rng, rng.integers(0, 300, 500))
+        pad, tail = 13, 29
+    elif case.startswith("tight end"):
+        rows = _byte_rows(rng, list(rng.integers(0, 70, 40))
+                          + [int(case.split()[-1])])
+    elif case == "no rows":
+        rows = []
+    elif case == "one row":
+        rows = _byte_rows(rng, [23])
+    elif case == "tile edges":
+        # 3 tiles of 256 rows and one more
+        rows = _byte_rows(rng, rng.integers(0, 60, 3 * 256 + 1))
+    elif case == "wide rows":
+        # past 256 bytes a row on average: rows of 0-3,000
+        lens = rng.integers(0, 3001, 300)
+        lens[:20] = [0, 1, 15, 16, 17, 255, 256, 257, 511, 512, 513, 0, 2,
+                     31, 32, 33, 1024, 1025, 4096, 4111]
+        rows = _byte_rows(rng, lens)
+    else:
+        assert case == "long rows in a warp"
+        lens = rng.integers(0, 60, 300)
+        long_at = [0, 31, 32, 33, 63, 64, 100, 101, 102, 103, 104, 299]
+        lens[long_at] = rng.integers(257, 3000, len(long_at))
+        lens[104] = 511
+        lens[299] = 16 * 32 * 3 + 1
+        rows = _byte_rows(rng, lens)
+    offs, vals, _ok = eq_column(rows, pad=pad, tail=tail)
+    return offs, vals
+
+
+def _on_view(vals: torch.Tensor, off: int) -> torch.Tensor:
+    """vals as a view at byte ``off`` of a larger buffer that ends with
+    it."""
+    base = torch.zeros(vals.shape[0] + off, dtype=torch.uint8,
+                       device=vals.device)
+    base[off:] = vals
+    return base[off:]
+
+
+def _one_kernel(run, reps: int) -> dict:
+    """_cuda_kernels, taken again (up to three profiles in all) where the
+    profiler lost the whole window and recorded no kernel."""
+    for _ in range(3):
+        seen = _cuda_kernels(run, reps)
+        if seen:
+            break
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_row_hash_kernel_matches_twin_at_its_edges(card, case):
+    """Every case on values at offsets 0, 1, 3, 7 and 15 of their storage
+    (each ending at the case's end), bit for bit; one launch a call."""
+    offs, vals = (torch.from_numpy(t).to(card) for t in hash_case(case))
+    want = kr.row_hash_plain(offs, vals)
+    for off in (0, 1, 3, 7, 15):
+        assert torch.equal(kr.row_hash(offs, _on_view(vals, off)), want), off
+    if offs.shape[0] > 1:
+        seen = _one_kernel(lambda: kr.row_hash(offs, vals), 5)
+        assert len(seen) == 1 and "row_hash_kernel" in next(iter(seen)), seen
+
+
+@pytest.mark.cuda
+def test_row_hash_kernel_takes_a_1mb_row(card):
+    """A 1 MiB row (one thread's 1 M steps) and its neighbours against the
+    host mirror of the hash."""
+    from exon_tpu_torch.plan.physical import _hash_bytes_host
+
+    rng = np.random.default_rng(11)
+    rows = _byte_rows(rng, [5, (1 << 20) + 7, 300, 0, 40])
+    offs, vals, _ok = eq_column(rows)
+    got = kr.row_hash(torch.from_numpy(offs).to(card),
+                      torch.from_numpy(vals).to(card))
+    assert got.cpu().tolist() == [_hash_bytes_host(r) for r in rows]
+
+
+SORT_CASES = ["lengths", "every byte", "nchunks 1-9", "long rows",
+              "offsets past 0", "tight end", "no rows", "one row",
+              "tile edges", "fixed kinds", "many keys"]
+# (asc, nulls_first): the default placement either way, then NULLS FIRST
+# and NULLS LAST
+PLACEMENTS = [(True, None), (False, None), (True, True), (False, False)]
+INT64_EDGES = [-(1 << 63), -(1 << 63) + 1, -1, 0, 1, (1 << 63) - 1]
+# +-0, NaN, +-inf, the least subnormals and the largest finite values
+FLOAT_EDGES = {np.float64: [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324,
+                            -5e-324, 1.5, -1.5, 1.7e308, -1.7e308],
+               np.float32: [0.0, -0.0, np.nan, np.inf, -np.inf, 1e-45,
+                            -1e-45, 1.5, -1.5, 3.4e38, -3.4e38]}
+
+
+def _var_key(rows: list, rng, nchunks: int, pad: int = 0,
+             tail: int = 0) -> dict:
+    offs, vals, _ok = eq_column(rows, pad=pad, tail=tail)
+    return {"offsets": offs, "values": vals, "nchunks": nchunks,
+            "validity": rng.random(len(rows)) >= 0.1}
+
+
+def _fixed_key(values: np.ndarray, rng) -> dict:
+    return {"values": values, "validity": rng.random(len(values)) >= 0.1}
+
+
+def _fixed_values(rng, dtype, n: int) -> np.ndarray:
+    if dtype == np.bool_:
+        return rng.random(n) < 0.5
+    if np.issubdtype(dtype, np.floating):
+        v = (rng.standard_normal(n) * 1e6).astype(dtype)
+        edges = FLOAT_EDGES[dtype][:n]
+        v[: len(edges)] = np.asarray(edges, dtype)
+        return v
+    info = np.iinfo(dtype)
+    v = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    edges = [e for e in INT64_EDGES if info.min <= e <= info.max]
+    v[: len(edges)] = np.asarray(edges[:n], dtype)
+    return v
+
+
+FIXED_DTYPES = [np.int64, np.int32, np.float64, np.float32, np.bool_,
+                np.int16, np.int8, np.uint8]
+
+
+def sort_case(case: str) -> tuple:
+    """(n, keys) of a sort_keys case: each key a dict of numpy arrays,
+    "offsets", "values" and "nchunks" for a var key, "values" for a fixed
+    one, and "validity"."""
+    rng = np.random.default_rng(len(case) + 200)
+    if case == "lengths":
+        rows, _at = _aligned(_byte_rows(rng, HASH_LENS * 16),
+                             [t for t in range(16) for _ in HASH_LENS])
+        keys = [_var_key(rows, rng, 33)]
+    elif case == "every byte":
+        # 0x00, 0x7f, 0x80 and 0xff at every byte of a chunk
+        rows = [bytes([b]) * k for b in range(256) for k in (1, 8, 9)]
+        rows += [bytes(8 * [0x41]) + bytes([b]) + b"A" * (7 - j)
+                 for b in (0, 0x7f, 0x80, 0xff) for j in range(8)]
+        keys = [_var_key(rows, rng, 3)]
+    elif case == "nchunks 1-9":
+        rows = _byte_rows(rng, rng.integers(0, 80, 600))
+        keys = [_var_key(rows, rng, c) for c in range(1, 10)]
+    elif case == "long rows":
+        # a 30,000-byte row cut at 3 chunks, and 39 and 40 chunks (an odd
+        # and an even count of 16-byte words) of rows of 100-320 bytes
+        rows = _byte_rows(rng, rng.integers(0, 60, 700))
+        rows[300] = _byte_rows(rng, [30_000])[0]
+        wide = _byte_rows(rng, rng.integers(100, 321, 700))
+        keys = [_var_key(rows, rng, 3), _var_key(wide, rng, 39),
+                _var_key(wide, rng, 40)]
+    elif case == "offsets past 0":
+        rows = _byte_rows(rng, rng.integers(0, 70, 500))
+        keys = [_var_key(rows, rng, 9, pad=13, tail=29),
+                _var_key(rows[::-1], rng, 2, pad=70, tail=3)]
+    elif case == "tight end":
+        # the last row ends the values buffer at 5, 13 and 300 bytes
+        keys = [_var_key(_byte_rows(rng, list(rng.integers(0, 70, 300))
+                                    + [k]), rng, c)
+                for k, c in ((5, 1), (13, 3), (300, 38))]
+    elif case in ("no rows", "one row"):
+        n = 0 if case == "no rows" else 1
+        keys = [_var_key(_byte_rows(rng, rng.integers(0, 30, n)), rng, 4)]
+        keys += [_fixed_key(_fixed_values(rng, dt, n), rng)
+                 for dt in FIXED_DTYPES]
+    elif case == "tile edges":
+        n = 3 * 256 + 1
+        keys = [_var_key(_byte_rows(rng, rng.integers(0, 40, n)), rng, 5),
+                _fixed_key(_fixed_values(rng, np.int64, n), rng)]
+    elif case == "fixed kinds":
+        keys = [_fixed_key(_fixed_values(rng, dt, 1000), rng)
+                for dt in FIXED_DTYPES]
+    else:
+        assert case == "many keys"
+        # past the 16 keys a launch's parameters hold: 3 launches
+        n = 400
+        keys = []
+        for j in range(35):
+            if j % 3 == 0:
+                keys.append(_var_key(_byte_rows(rng, rng.integers(0, 30, n)),
+                                     rng, 1 + j % 5))
+            else:
+                keys.append(_fixed_key(_fixed_values(
+                    rng, FIXED_DTYPES[j % len(FIXED_DTYPES)], n), rng))
+    n = len(keys[0]["validity"])
+    return n, keys
+
+
+def sort_specs(keys: list, placement: tuple, device, shift: int = 0
+               ) -> list:
+    """kk.VarKey/FixedKey specs of sort_case's keys on ``device``, key j
+    under PLACEMENTS[(i + j) % 4] when ``shift`` is set, else all under
+    ``placement``."""
+    i = PLACEMENTS.index(placement)
+    specs = []
+    for j, k in enumerate(keys):
+        asc, first = PLACEMENTS[(i + j) % 4] if shift else placement
+        t = {name: torch.from_numpy(np.ascontiguousarray(k[name])).to(device)
+             for name in ("values", "validity", "offsets") if name in k}
+        if "offsets" in k:
+            specs.append(kk.VarKey(t["offsets"], t["values"], t["validity"],
+                                   k["nchunks"], asc, first))
+        else:
+            specs.append(kk.FixedKey(t["values"], t["validity"], asc, first))
+    return specs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", PLACEMENTS)
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_sort_keys_kernel_matches_twin_at_its_edges(card, case, placement):
+    """Every case, its var keys' values also at offsets 1, 7 and 15 of
+    their storage, bit for bit; ceil(keys / 16) launches a call, nothing
+    else on the card."""
+    n, keys = sort_case(case)
+    specs = sort_specs(keys, placement, card, shift=case == "many keys")
+    want = kk.sort_keys_plain(specs, n, card)
+    assert torch.equal(kk.sort_keys(specs, n, card), want)
+    for off in (1, 7, 15):
+        moved = [kk.VarKey(s.offsets, _on_view(s.values, off), s.validity,
+                           s.nchunks, s.asc, s.nulls_first)
+                 if isinstance(s, kk.VarKey) else s for s in specs]
+        assert torch.equal(kk.sort_keys(moved, n, card), want), off
+    if n:
+        seen = _one_kernel(lambda: kk.sort_keys(specs, n, card), 5)
+        assert len(seen) == 1 and "sort_keys_kernel" in next(iter(seen)), \
+            seen
+        launches = -(-len(specs) // kk.MAX_KEYS)
+        assert next(iter(seen.values())) in (5 * launches,
+                                             5 * launches - 1), seen
+
+
+@pytest.mark.cuda
+def test_sort_keys_is_one_launch_at_c_d_and_l_shapes(card):
+    """The key sets of Queries C (ref, start, name, gene_start), D (ref,
+    start, name) and L (chrom, pos) in one launch each: no fill of the
+    padding row, no other kernel."""
+    rng = np.random.default_rng(13)
+    n = 20_000
+    ref = _var_key([b"chr%d" % k for k in rng.integers(1, 23, n)], rng, 1)
+    name = _var_key(_byte_rows(rng, rng.integers(30, 41, n)), rng, 5)
+    start = _fixed_key(rng.integers(1, 1 << 28, n), rng)
+    gene = _fixed_key(rng.integers(1, 1 << 28, n), rng)
+    for keys in ([ref, start, name, gene], [ref, start, name], [ref, start]):
+        specs = sort_specs(keys, (True, None), card)
+        assert torch.equal(kk.sort_keys(specs, n, card),
+                           kk.sort_keys_plain(specs, n, card))
+        kernels.reset_launch_counts()
+        kk.sort_keys(specs, n, card)
+        assert kk.launches == 1
+        seen = _one_kernel(lambda: kk.sort_keys(specs, n, card), 5)
+        assert len(seen) == 1 and "sort_keys_kernel" in next(iter(seen)), \
+            seen
+
+
 # string_eq reads both rows as 16-byte words, 64 bytes a row a step, and
 # stops only between steps: pairs that differ at each byte either side of a
 # word and of a step, rows at every alignment in each column, a values
