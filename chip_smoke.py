@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 ``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
 ``text_records,format_int,slice_var,take_list,window_frame,``
 ``expand_segments,parse_number,string_eq,i_panel,joins,sort_keys,``
-``row_hash`` (any of them) runs phases 1-2 and those cases alone,
+``row_hash,span_concat,window_bounds`` (any of them) runs phases 1-2 and
+those cases alone,
 each taken apart into device time, launches and host time (window_frame at
 L's batch, all sixteen modes; expand_segments' chain at C's probe batch and
 the skewed one; joins: C's and D's joins and sorts alone, as phase 5; sw_score also read from its SASS; line_index also at the
@@ -24,7 +25,11 @@ verification and 20,000 pairs of long keys; i_panel: Query I_panel's
 wall, median of 5; sort_keys at C's and D's key sets, at L's window keys
 (chrom, pos over I_panel's 1,008,303 rows) and at an L_dist shard's size
 (every eighth of those rows); row_hash at D's probe batch and build side,
-at I's refs and on 1,000 rows of 256 B-64 KB);
+at I's refs and on 1,000 rows of 256 B-64 KB; span_concat at J's lpad
+and concat_ws, fn_concat_ws whole and a repeat of A's first 20,000
+sequences 3 times, each whole call also with span_concat's twin;
+window_bounds at L's (chrom, pos) and (chrom, qual DESC) key matrices and
+at an L_dist shard's size);
 ``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
 earlier commit, unpacked), so that two versions are timed in one run on one
 card.
@@ -2029,6 +2034,50 @@ def _lens(col):
     return (col.offsets[1:] - col.offsets[:-1]).long()
 
 
+def _j_right(b):
+    """J's right(id, length(id) - strpos(substr(id, 4), '|') - 3) over a
+    FASTA batch: the ids' accession parts."""
+    from exon_tpu_torch.batch import FixedColumn
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    idc = b.column("id")
+    k = _lens(idc) - S.fn_strpos(b, S.fn_substr(b, idc, 4), "|").values - 3
+    return S.fn_right(b, idc, FixedColumn(k, idc.validity))
+
+
+def _j_concat(torch, b, right) -> dict:
+    """span_concat's (sources, pieces) of J's lpad (the sequences' lengths
+    as text to 5 with '0') and concat_ws('|', upper(right),
+    initcap(trim(description)), that lpad) over a FASTA batch, with the
+    bytes each bound counts and the concat_ws arguments. An earlier tree's
+    pad_pieces (``--tree``) takes the width as a per-row tensor."""
+    from exon_tpu_torch import datatypes as dt
+    from exon_tpu_torch.kernels import span_concat as ks
+    from exon_tpu_torch.ops import sqlfuncs as S
+    from exon_tpu_torch.plan.expressions import _eval_cast
+
+    n = b.length
+    text = _eval_cast(_lens(b.column("sequence")), dt.utf8, b)
+    width = 5 if hasattr(ks, "Piece") else torch.full(
+        (n,), 5, dtype=torch.int32, device="cuda")
+    pad = S.pad_pieces(text, width, b"0", True)
+    kept = int(torch.clamp(_lens(text), max=5).sum())
+    out1 = int(ks.span_concat(*pad)[0][-1])
+    args = [S.fn_upper(b, right), S.fn_initcap(b, S.fn_trim(
+        b, b.column("description"))), S.fn_lpad(b, text, 5, "0")]
+    ws = S.concat_ws_pieces(b"|", args, n)
+    out2 = int(ks.span_concat(*ws)[0][-1])
+    # lpad: the text's offsets and validity and the bytes kept, and the pad
+    # byte, in; the padded text and its offsets out (the validity passes
+    # through). concat_ws: each argument's offsets, validity and bytes, and
+    # the separator, in; the joined text and its offsets out (every row is
+    # valid)
+    read = sum(4 * (n + 1) + n + int(a.offsets[-1]) for a in args) + 1
+    return {"pad": pad, "pad_bytes": 4 * (n + 1) + n + kept + 1 + out1 +
+            4 * (n + 1), "ws": ws, "ws_bytes": read + out2 + 4 * (n + 1),
+            "ws_out": out2, "args": args}
+
+
 def check_map_table(torch, fa_batch):
     """map_bytes' table mode (upper) against its twin, exact, beside
     ``table[values]`` and taken apart (_print_split): on J's accession
@@ -2036,15 +2085,10 @@ def check_map_table(torch, fa_batch):
     bandwidth-bound shape). Each bound counts the two offsets, the bytes
     in the rows and the table read, the whole buffer written. Returns J's
     accession parts."""
-    from exon_tpu_torch.batch import FixedColumn
     from exon_tpu_torch.kernels import map_bytes as km
-    from exon_tpu_torch.ops import sqlfuncs as S
     from exon_tpu_torch.ops.strings import UPPER
 
-    # J's right(id, length(id) - strpos(substr(id, 4), '|') - 3)
-    b, idc = fa_batch, fa_batch.column("id")
-    k = _lens(idc) - S.fn_strpos(b, S.fn_substr(b, idc, 4), "|").values - 3
-    right = S.fn_right(b, idc, FixedColumn(k, idc.validity))
+    right = _j_right(fa_batch)
     seq = fa_batch.column("sequence")
     upper = torch.from_numpy(UPPER).cuda()
     n = fa_batch.length
@@ -2159,17 +2203,15 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     adapter LIKE over that chunk (check_like_fastq). Each bound counts what the function must move: its inputs'
     offsets, validity and the bytes it reads, its output's bytes and
     offsets."""
-    from exon_tpu_torch import datatypes as dt
     from exon_tpu_torch.batch import FixedColumn
     from exon_tpu_torch.kernels import map_bytes as km
     from exon_tpu_torch.kernels import polya_tail as kp
     from exon_tpu_torch.kernels import span_concat as ks
     from exon_tpu_torch.ops import sqlfuncs as S
     from exon_tpu_torch.ops.strings import LOWER, UPPER
-    from exon_tpu_torch.plan.expressions import _eval_cast
 
     b = fa_batch
-    idc, desc, seq = (b.column(c) for c in ("id", "description", "sequence"))
+    idc, desc = b.column("id"), b.column("description")
     n = b.length
     right = check_map_table(torch, b)
     check_slice_var(torch, b)
@@ -2209,29 +2251,14 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
           translate_twin, 4 * (n + 1) + n + total + kept + 4 * (n + 1),
           f"{n} descriptions, {total} bytes in, {kept} out",
           library=lambda: table[desc.values.long()])
-    text = _eval_cast(_lens(seq), dt.utf8, b)
-    width = torch.full((n,), 5, dtype=torch.int32, device="cuda")
-    pad = S.pad_pieces(text, width, b"0", True)
-    o1, _v1 = ks.span_concat(*pad)
-    kept = int(torch.clamp(_lens(text), max=5).sum())
+    j = _j_concat(torch, b, right)
+    pad, ws = j["pad"], j["ws"]
     _case(torch, "span_concat J lpad", lambda: ks.span_concat(*pad),
-          lambda: ks.span_concat_plain(*pad),
-          # the text's offsets and validity and the bytes kept, and the pad
-          # byte, in; the padded text and its offsets out (the validity
-          # passes through)
-          4 * (n + 1) + n + kept + 1 + int(o1[-1]) + 4 * (n + 1),
+          lambda: ks.span_concat_plain(*pad), j["pad_bytes"],
           f"{n} lengths, width 5")
-    args = [S.fn_upper(b, right), S.fn_initcap(b, trimmed),
-            S.fn_lpad(b, text, 5, "0")]
-    ws = S.concat_ws_pieces(b"|", args, n)
-    o2, _v2 = ks.span_concat(*ws)
-    # each argument's offsets, validity and bytes, and the separator, in;
-    # the joined text and its offsets out (every row is valid)
-    read = sum(4 * (n + 1) + n + int(a.offsets[-1]) for a in args) + 1
     res = _case(torch, "span_concat J concat_ws", lambda: ks.span_concat(*ws),
-                lambda: ks.span_concat_plain(*ws),
-                read + int(o2[-1]) + 4 * (n + 1),
-                f"{n} rows, 3 columns and 2 separators, {int(o2[-1])} bytes "
+                lambda: ks.span_concat_plain(*ws), j["ws_bytes"],
+                f"{n} rows, 3 columns and 2 separators, {j['ws_out']} bytes "
                 "out")
     # K over the first FASTQ chunk
     fq = fq_batch.column("sequence")
@@ -4657,6 +4684,81 @@ def check_i_panel_alone(torch) -> None:
           f"{np.median(walls):.3f} s wall ({each})")
 
 
+def check_span_concat_alone(torch) -> None:
+    """span_concat at J's lpad and concat_ws over the first batch of A's
+    FASTA scan (phase 3's cases), fn_concat_ws whole (the callers' pieces
+    and the kernel, beside the same with span_concat's twin) and a repeat
+    of long rows (the batch's first 20,000 sequences, 3 times), each
+    against its twin and taken apart."""
+    from exon_tpu_torch.batch import VarColumn
+    from exon_tpu_torch.kernels import span_concat as ks
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    b = _fasta_first_batch(torch)
+    n = b.length
+    j = _j_concat(torch, b, _j_right(b))
+    for label, pieces, nbytes in (("J lpad", j["pad"], j["pad_bytes"]),
+                                  ("J concat_ws", j["ws"], j["ws_bytes"])):
+        _case(torch, f"span_concat {label}",
+              lambda: ks.span_concat(*pieces),
+              lambda: ks.span_concat_plain(*pieces), nbytes, f"{n} rows")
+        _print_split(torch, f"span_concat {label}",
+                     lambda: ks.span_concat(*pieces))
+    seq = b.column("sequence")
+    m = 20_000
+    long_rows = VarColumn(seq.values, seq.offsets[:m + 1], seq.validity[:m])
+    inside = int(seq.offsets[m] - seq.offsets[0])
+    for label, fn, nbytes in (
+            ("fn_concat_ws J whole", lambda: S.fn_concat_ws(
+                b, "|", *j["args"]), j["ws_bytes"]),
+            # the offsets and the rows' bytes in; 3 times the bytes and
+            # the offsets out (the validity passes through)
+            ("fn_repeat of 20,000 sequences, 3 times",
+             lambda: S.fn_repeat(b, long_rows, 3),
+             8 * (m + 1) + 4 * inside)):
+        def run(fn=fn):
+            c = fn()
+            return c.offsets, c.values
+
+        def twin(run=run):
+            with _swapped([("exon_tpu_torch.ops.sqlfuncs", "span_concat")]):
+                return run()
+
+        _case(torch, label, run, twin, nbytes, f"{n} rows" if "J" in label
+              else f"{m} rows, {inside} bytes in")
+        _print_split(torch, label, run)
+
+
+def check_window_bounds_alone(torch) -> None:
+    """window_bounds at Query L's two key matrices, (chrom, pos) and
+    (chrom, qual DESC) over I_panel's 1,008,303 rows as WindowExec's
+    sort_rows builds them (phase 3's cases), and at an L_dist shard's size
+    (every eighth of those rows), each against its twin and taken
+    apart."""
+    from exon_tpu_torch.kernels import window_bounds as kb
+    from exon_tpu_torch.ops import layout as layout_ops
+    from exon_tpu_torch.plan import window_exec as W
+    from exon_tpu_torch.plan.expressions import ColumnRef, WindowCall
+
+    batch = _l_batch()
+    shard = layout_ops.take_batch(batch, torch.arange(
+        0, batch.length, 8, dtype=torch.int32, device="cuda"))
+    for label, b, order in (
+            ("L (chrom, pos)", batch, (ColumnRef("pos"), True)),
+            ("L (chrom, qual DESC)", batch, (ColumnRef("qual"), False)),
+            ("an L_dist shard (chrom, pos)", shard,
+             (ColumnRef("pos"), True))):
+        call = WindowCall("rank", None, [ColumnRef("chrom")], [order])
+        _perm, keys, n_part = W.sort_rows(call, b)
+        _case(torch, f"window_bounds {label}",
+              lambda: kb.window_bounds(keys, n_part),
+              lambda: kb.window_bounds_plain(keys, n_part),
+              8 * keys.numel() + 16 * b.length,
+              f"{b.length} rows, {keys.shape[0]} key rows")
+        _print_split(torch, f"window_bounds {label}",
+                     lambda: kb.window_bounds(keys, n_part))
+
+
 # the cases a run with --kernels can take alone: phase 3's of the kernels
 # redesigned (each at the shapes its redesign was measured at), and phase 5's
 # of Q's aggregate (hash_aggregate on Q's path) and of C's and D's joins
@@ -4691,6 +4793,8 @@ FOCUS = {
     "expand_segments": lambda torch: check_expand(
         np.random.default_rng(1234), torch),
     "joins": check_joins_alone,
+    "span_concat": check_span_concat_alone,
+    "window_bounds": check_window_bounds_alone,
 }
 
 

@@ -75,8 +75,12 @@ SIGNATURES = {
                             _P],
     "exon_map_lookup": [_P, _P, _P, _P, _I64, _P, _I32, _P, _P],
     "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
-    "exon_span_concat": [_P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P],
-    "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _P],
+    "exon_span_concat_offsets": [_P, _I32, _P, _P, _I32, _I64, _I32, _P, _P,
+                                 _U64, _U64, _P, _P, _I64, _P, _P],
+    "exon_span_concat_write": [_P, _I32, _P, _P, _I32, _I64, _I32, _P, _P,
+                               _I64, _I32, _P, _P],
+    "exon_window_bounds": [_P, _I32, _I32, _I64, _P, _P, _U64, _U64, _P, _P,
+                           _P],
     "exon_window_frame": [_P, _P],
     "exon_bucket_rank": [_I64, _P, _P, _P, _I32, _I32, _P, _P, _U64, _U64,
                          _P, _P, _P, _P],

@@ -39,28 +39,32 @@ _workspaces: dict = {}
 _lock = threading.Lock()
 
 
-def workspace(device: torch.device, stream: int, words: int) -> Workspace:
+def workspace(device: torch.device, stream: int, words: int,
+              epochs: int = 1) -> Workspace:
     """The workspace of (device, stream), with at least ``words`` status
     words, grown (doubled at least) and cleared when it has fewer, and
-    cleared at the last epoch."""
+    cleared when fewer than ``epochs`` epochs are left."""
     key = (device.index, stream)
     ws = _workspaces.get(key)
     if ws is None or ws.capacity < words:
         grown = words if ws is None else max(words, 2 * ws.capacity)
         ws = _workspaces[key] = Workspace(grown, device)
-    if ws.epoch == EPOCH_LIMIT:
+    if ws.epoch + epochs > EPOCH_LIMIT:
         ws.words.zero_()  # the ticket counter too
         ws.epoch = ws.tickets = 0
     return ws
 
 
 def scan(device: torch.device, stream: int, words: int, tiles: int,
-         launch) -> None:
-    """Make one single-pass launch of ``tiles`` tiles that reads and writes
-    ``words`` status words: ``launch(status, ticket, ticket_base, epoch)``
-    launches it and returns its status code (``_build.check`` raises)."""
+         launch, epochs: int = 1) -> None:
+    """Make single-pass launches of ``tiles`` tiles in all that read and
+    write ``words`` status words: ``launch(status, ticket, ticket_base,
+    epoch)`` launches them and returns their status code (``_build.check``
+    raises). A call of several passes (``epochs``) numbers them epoch,
+    epoch + 1, ..., each taking its tickets after the one before."""
     with _lock:
-        ws = workspace(device, stream, max(words, 1))
+        ws = workspace(device, stream, max(words, 1), epochs)
         ws.epoch += 1
         launch(ws.status, ws.ticket, ws.tickets, ws.epoch)
+        ws.epoch += epochs - 1
         ws.tickets += tiles

@@ -15,18 +15,25 @@ first and last row and its peer group's first and last row. The JAX package
 compares 64-bit hashes of the partition keys and 8-byte prefixes of string
 order keys here (ROADMAP Queue 3, F19 and F20); the matrix holds every
 byte of every key, so the bounds are exact.
+
+On the card a call is two launches from one ctypes call and no host read:
+a pass over tiles taken from the left writes the starts and a flags byte
+a row, and a pass over tiles taken from the right writes the ends from
+those flags, each completing its tiles on a look-back over the status
+words of ``_lookback`` (two epochs of one workspace call). The four
+outputs and the flags are one allocation.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _lookback
 
 launches = 0
 
-# rows a block of csrc/window_bounds.cu scans (kThreads * kItems)
-TILE_ROWS = 256 * 8
+# rows a tile of csrc/window_bounds.cu takes (kThreads * kItems)
+TILE_ROWS = 128 * 8
 
 
 def window_bounds_plain(keys: torch.Tensor, n_part: int
@@ -69,15 +76,24 @@ def window_bounds(keys: torch.Tensor, n_part: int
         raise ValueError(f"window_bounds: {n} rows exceed int32 bounds")
     if not _build.on_cuda(keys, "window_bounds"):
         return window_bounds_plain(keys, n_part)
-    keys = keys.contiguous()
-    out = torch.empty((4, n), dtype=torch.int32, device=keys.device)
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
+    dev = keys.device
+    # the four outputs, then a flags byte a row (16-byte aligned after them)
+    buf = torch.empty(4 * n + -(-n // 4), dtype=torch.int32, device=dev)
+    out = buf[:4 * n].view(4, n)
     if n:
+        flags = buf[4 * n:].view(torch.uint8)
+        lib, stream = _build.library(), _build.stream_of(keys)
         tiles = -(-n // TILE_ROWS)
-        carry = torch.empty((4, tiles), dtype=torch.int32,
-                            device=keys.device)
-        _build.check(_build.library().exon_window_bounds(
-            keys.data_ptr(), rows, n_part, n, out.data_ptr(),
-            carry.data_ptr(), _build.stream_of(keys)), "window_bounds")
+
+        def both(status, ticket, base, epoch):
+            _build.check(lib.exon_window_bounds(
+                keys.data_ptr(), rows, n_part, n, status, ticket, base,
+                epoch, buf.data_ptr(), flags.data_ptr(), stream),
+                "window_bounds")
+
+        # two passes on the same words: two epochs, tiles taken twice
+        _lookback.scan(dev, stream, 2 * tiles, 2 * tiles, both, epochs=2)
         launches += 1
     return out[0], out[1], out[2], out[3]
-

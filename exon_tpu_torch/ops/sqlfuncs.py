@@ -48,13 +48,13 @@ import torch
 
 from .. import datatypes as dt
 from ..batch import Batch, DictColumn, FixedColumn, VarColumn
-from ..errors import ExecutionError, PlanError
+from ..errors import PlanError
 from ..kernels.compact_mask import compact_mask
 from ..kernels.count_bytes import count_bytes
 from ..kernels.gather_spans import gather_spans
 from ..kernels.map_bytes import map_bytes
 from ..kernels.polya_tail import polya_tail
-from ..kernels.span_concat import span_concat
+from ..kernels.span_concat import Piece, span_concat
 from ..plan.expressions import _eval_string_cmp, _full, register_function
 from . import strings as str_ops
 from .device_text import lengths_to_offsets
@@ -74,14 +74,6 @@ def _cap_of(batch: Batch) -> int:
     """The batch's rows (a batch of no columns, as a scan projected to none
     yields, keeps its length)."""
     return batch.length if batch is not None else 1
-
-
-def _literal_var(b: bytes, device) -> VarColumn:
-    """A one-row column of a literal's bytes (a separator or pad source)."""
-    return VarColumn(torch.frombuffer(bytearray(b), dtype=torch.uint8).to(
-        device) if b else torch.zeros(0, dtype=torch.uint8, device=device),
-        torch.tensor([0, len(b)], dtype=torch.int32, device=device),
-        torch.ones(1, dtype=torch.bool, device=device))
 
 
 def _as_var(v, fn: str, batch: Batch) -> VarColumn:
@@ -312,41 +304,58 @@ def fn_contains(batch: Batch, v, needle) -> torch.Tensor:
     return str_ops.contains(col, _literal_bytes(needle, "contains needle"))
 
 
-def _pieces(cols: list, lens: list, cap: int):
-    """span_concat's (sources, pieces) for lens[i][r] bytes of each
-    column's row r, one piece a column."""
-    sources, pieces = [], []
-    for c, ln in zip(cols, lens):
-        starts, _n, _v = _span(c, cap)
-        sources.append(c.values)
-        pieces.append((len(sources) - 1, starts, ln, ln))
-    return sources, pieces
+def _col_piece(i: int, c, cap: int, gate: str) -> Piece:
+    """span_concat's piece of source i, a column's rows (its offsets; a
+    one-row column repeats, ``_broadcast_valid`` :79) or a literal's bytes
+    on every row, opened by ``gate`` on the column's validity."""
+    if isinstance(c, bytes):
+        return Piece(i, gate=gate)
+    if c.capacity == cap:
+        return Piece(i, c.offsets, valid=c.validity, gate=gate)
+    starts, lens, valid = _span(c, cap)
+    return Piece(i, starts, length=lens, valid=valid, gate=gate)
 
 
-def _assemble(cols: list, lens: list, cap: int, valid) -> VarColumn:
-    """Row r is the concatenation of lens[i][r] bytes of each column's row
-    r (span_concat)."""
-    offsets, values = span_concat(*_pieces(cols, lens, cap))
-    return VarColumn(values, offsets, valid)
+def _sources(cols: list) -> list:
+    return [c if isinstance(c, bytes) else c.values for c in cols]
 
 
 def _concat_cols(cols: list, cap: int, skip_null: bool, batch: Batch
                  ) -> VarColumn:
     """(sqlfuncs.py:268) skip_null: a NULL argument contributes nothing
-    and the row is valid (DataFusion concat); else NULL propagates (||)."""
-    lens, valid = [], None
-    for c in cols:
-        _s, n, v = _span(c, cap)
-        lens.append(torch.where(v, n, 0) if skip_null else n)
-        valid = v if valid is None else valid & v
-    if skip_null:  # every row valid (batches are exact: no padding rows)
-        valid = torch.ones(cap, dtype=torch.bool, device=cols[0].values.device)
-    return _assemble(cols, lens, cap, valid)
+    and the row is valid (DataFusion concat); else NULL propagates (||).
+    A column is a VarColumn or a literal's bytes."""
+    dev = _cols_device(cols, batch)
+    valid = None
+    if not skip_null:
+        for c in cols:
+            if not isinstance(c, bytes):
+                _s, _n, v = _span(c, cap)
+                valid = v if valid is None else valid & v
+    if valid is None:  # every row valid (batches are exact: no padding rows)
+        valid = torch.ones(cap, dtype=torch.bool, device=dev)
+    gate = "valid" if skip_null else "always"
+    offsets, values = span_concat(
+        _sources(cols), [_col_piece(i, c, cap, gate)
+                         for i, c in enumerate(cols)], n=cap, device=dev)
+    return VarColumn(values, offsets, valid)
+
+
+def _cols_device(cols: list, batch: Batch) -> torch.device:
+    return next((c.values.device for c in cols if not isinstance(c, bytes)),
+                _device(batch))
 
 
 def _norm_concat_args(batch: Batch, args, fname: str):
-    cols = [_as_var(a, fname, batch) for a in args]
-    return cols, max(c.capacity for c in cols)
+    """The arguments as VarColumns, literals as their bytes, and the rows:
+    the columns' (a literal repeats on every row of the batch, F16)."""
+    cols = [a.encode() if isinstance(a, str) else
+            a if isinstance(a, bytes) else _as_var(a, fname, batch)
+            for a in args]
+    caps = [c.capacity for c in cols if not isinstance(c, bytes)]
+    if len(caps) < len(cols):
+        caps.append(_cap_of(batch))
+    return cols, max(caps)
 
 
 def _empty_var(cap: int, valid: bool, batch: Batch) -> VarColumn:
@@ -374,21 +383,17 @@ def fn_concat_op(batch: Batch, *args) -> VarColumn:
 
 def concat_ws_pieces(sep: bytes, cols: list, cap: int):
     """span_concat's (sources, pieces) of concat_ws over non-literal-NULL
-    argument columns: each argument a piece of its row (empty where NULL),
-    the separator a piece before argument i where it and an earlier one
-    are non-NULL (sqlfuncs.py:349-362)."""
-    sep_col = _literal_var(sep, cols[0].values.device)
-    out_cols, lens = [], []
-    seen = None
-    for c in cols:
-        _s, n, v = _span(c, cap)
-        if seen is not None:
-            out_cols.append(sep_col)
-            lens.append(torch.where(seen & v, len(sep), 0).to(torch.int32))
-        out_cols.append(c)
-        lens.append(torch.where(v, n, 0))
-        seen = v if seen is None else seen | v
-    return _pieces(out_cols, lens, cap)
+    arguments (VarColumns or a literal's bytes): each argument a piece of
+    its row, empty where NULL, the separator a piece before argument i
+    where it and an earlier one are non-NULL (sqlfuncs.py:349-362), by the
+    gates of the validity of argument i."""
+    sources, pieces = [bytes(sep)] + _sources(cols), []
+    for i, c in enumerate(cols):
+        arg = _col_piece(i + 1, c, cap, "valid")
+        if i:
+            pieces.append(Piece(0, gate="join", valid=arg.valid))
+        pieces.append(arg)
+    return sources, pieces
 
 
 def fn_concat_ws(batch: Batch, sep, *args) -> VarColumn:
@@ -399,47 +404,40 @@ def fn_concat_ws(batch: Batch, sep, *args) -> VarColumn:
     if not args:
         return _empty_var(_cap_of(batch), True, batch)
     cols, cap = _norm_concat_args(batch, args, "concat_ws")
-    offsets, values = span_concat(*concat_ws_pieces(sb, cols, cap))
-    return VarColumn(values, offsets, torch.ones(
-        cap, dtype=torch.bool, device=cols[0].values.device))
+    dev = _cols_device(cols, batch)
+    offsets, values = span_concat(*concat_ws_pieces(sb, cols, cap), n=cap,
+                                  device=dev)
+    return VarColumn(values, offsets,
+                     torch.ones(cap, dtype=torch.bool, device=dev))
 
 
 def fn_repeat(batch: Batch, v, k) -> VarColumn:
+    """Each row cycled to k times its length (a total of 2^31 bytes or more
+    raises ExecutionError in span_concat)."""
     col = _as_var(v, "repeat", batch)
     if not isinstance(k, (int, float)):
         raise PlanError("repeat count must be a literal")
-    k = max(int(k), 0)
-    n = _lens(col)
-    lens = n.to(torch.int64) * k
-    if bool((lens >= 1 << 31).any()):
-        raise ExecutionError(f"repeat: a row of {k} copies holds 2^31 or "
-                             "more bytes")
-    offsets, values = span_concat(
-        [col.values], [(0, col.offsets[:-1], n, lens.to(torch.int32))])
+    offsets, values = span_concat([col.values], [
+        Piece(0, col.offsets, times=max(int(k), 0))])
     return VarColumn(values, offsets, col.validity)
 
 
-def pad_pieces(col: VarColumn, width: torch.Tensor, pad: bytes, left: bool):
+def pad_pieces(col: VarColumn, width: int, pad: bytes, left: bool):
     """span_concat's (sources, pieces) of lpad/rpad (sqlfuncs.py:387): the
     row cut to the width, the pad pattern cycled from its first byte to
     fill it."""
-    n = _lens(col)
-    out_len = width.clamp(min=0)
-    keep = torch.minimum(n, out_len)
-    pad_col = _literal_var(pad, col.values.device)
-    row = (0, col.offsets[:-1], keep, keep)
-    fill = (1, torch.zeros_like(n), torch.full_like(n, len(pad)),
-            out_len - keep)
-    return [col.values, pad_col.values], [fill, row] if left else [row, fill]
+    w = max(int(width), 0)
+    row, fill = Piece(0, col.offsets, cap=w), Piece(1, fill=w)
+    return [col.values, bytes(pad)], [fill, row] if left else [row, fill]
 
 
 def _pad(batch: Batch, v, width, pad, left: bool, fname: str) -> VarColumn:
     col = _as_var(v, fname, batch)
-    w = _row_int(width, batch, col.capacity)
     pb = b" " if pad is None else _literal_bytes(pad, f"{fname} pad")
     if not isinstance(width, (int, float)):
         raise PlanError(f"{fname} width must be a literal")
-    offsets, values = span_concat(*pad_pieces(col, w, pb or b" ", left))
+    offsets, values = span_concat(*pad_pieces(col, int(width), pb or b" ",
+                                              left))
     return VarColumn(values, offsets, col.validity)
 
 
@@ -784,14 +782,17 @@ def fn_coalesce(batch: Batch, *args):
         # per row the bytes of the first valid argument: span_concat with
         # one piece an argument, of length 0 where it is not the chosen one
         cols, cap = _norm_concat_args(batch, args, "coalesce")
-        spans = [_span(c, cap) for c in cols]
-        chosen = torch.full((cap,), len(cols), dtype=torch.int32,
-                            device=spans[0][0].device)
-        for i in reversed(range(len(cols))):
-            chosen = torch.where(spans[i][2], i, chosen)
-        lens = [torch.where(chosen == i, n, 0)
-                for i, (_s, n, _v) in enumerate(spans)]
-        return _assemble(cols, lens, cap, chosen < len(cols))
+        dev = _cols_device(cols, batch)
+        pieces = [_col_piece(i, c, cap, "first") for i, c in enumerate(cols)]
+        valid = None
+        for p in pieces:
+            if p.valid is None:  # a literal: every row has a value
+                valid = torch.ones(cap, dtype=torch.bool, device=dev)
+                break
+            valid = p.valid if valid is None else valid | p.valid
+        offsets, values = span_concat(_sources(cols), pieces, n=cap,
+                                      device=dev)
+        return VarColumn(values, offsets, valid)
     cap = _cap_of(batch)
     vals = valid = None
     for a in args:

@@ -2802,6 +2802,146 @@ def test_literal_functions_over_a_table_run_on_the_card(card, tmp_path):
     assert all(0.0 <= r < 1.0 for r in rows[3]) and len(set(rows[3])) > 900
 
 
+# -- span_concat's redesign: the cases its Hopper design must survive --------
+
+# each case's columns and literals; test_torch_redesign_k10a_k12.py holds
+# the twin to exon_tpu's functions on them, the CUDA test below the kernel
+# to the twin
+CONCAT_CASES = ["nulls", "empty", "long separator", "pad 1", "pad several",
+                "cut", "repeat 0", "repeat past a tile", "offsets past 0",
+                "many pieces", "n 0", "n 1", "tiles"]
+# the functions each case runs, through the port's ops/sqlfuncs.py
+CONCAT_OPS = ["concat", "pipe", "concat_ws", "lpad", "rpad", "repeat",
+              "coalesce"]
+
+
+def concat_case(case: str) -> dict:
+    """numpy columns ``cols`` [(offsets int32, values uint8, validity)] and
+    the literals of a span_concat case: ``lit`` (an argument of concat and
+    coalesce), ``sep``, ``pad``, ``width`` and ``k`` (repeat's count)."""
+    rng = np.random.default_rng(len(case) + 300)
+    spec = dict(n=120, ncols=3, maxlen=40, p_null=0.2, lit=b"<lit>",
+                sep=b"|", pad=b"ab", width=9, k=2, before=0, after=0)
+    spec.update({
+        "nulls": dict(n=64, p_null=None),
+        "empty": dict(n=50, maxlen=2, lit=b"", sep=b"", pad=b"", width=0),
+        "long separator": dict(
+            n=40, sep=bytes(rng.integers(32, 127, 600, dtype=np.uint8)),
+            pad=bytes(rng.integers(32, 127, 600, dtype=np.uint8)),
+            width=700),
+        "pad 1": dict(n=100, pad=b"*", width=12),
+        "pad several": dict(n=100, pad="é☃".encode(), width=31),
+        "cut": dict(n=100, width=3, pad=b"-"),
+        "repeat 0": dict(k=0),
+        "repeat past a tile": dict(n=20, maxlen=3000, k=3),
+        "offsets past 0": dict(before=37, after=11),
+        "many pieces": dict(n=50, ncols=40, maxlen=6),
+        "n 0": dict(n=0),
+        "n 1": dict(n=1),
+        "tiles": dict(n=5000, maxlen=24),
+    }.get(case, {}))
+    n, cols = spec["n"], []
+    for c in range(spec["ncols"]):
+        lens = rng.integers(0, spec["maxlen"] + 1, n)
+        if case == "repeat past a tile":
+            lens[:3] = [1, 2999, 4097]
+        if case == "empty":
+            lens[rng.random(n) < 0.6] = 0
+        before, after = spec["before"] + c, spec["after"]
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        offs += before
+        vals = rng.integers(32, 127, int(offs[-1]) + after,
+                            dtype=np.uint8)
+        if spec["p_null"] is None:  # every pattern of NULLs over 3 columns
+            valid = (np.arange(n) >> c) % 2 == 0
+        else:
+            valid = rng.random(n) >= spec["p_null"]
+        cols.append((offs.astype(np.int32), vals, valid))
+    return dict(cols=cols, **{k: spec[k] for k in ("lit", "sep", "pad",
+                                                   "width", "k")})
+
+
+def concat_op(S, op: str, case: dict, cols: list):
+    """The port's (or, given exon_tpu's sqlfuncs, the JAX package's)
+    function ``op`` over a case's columns (VarColumns of that package)."""
+    # the literal repeats on every row; with batch None there is one, so
+    # a case of no rows leaves it out
+    lit = [case["lit"].decode("latin-1")] if cols[0].capacity else []
+    if op == "concat":
+        return S.fn_concat(None, *cols, *lit)
+    if op == "pipe":
+        return S.fn_concat_op(None, *cols)
+    if op == "concat_ws":
+        return S.fn_concat_ws(None, case["sep"].decode("latin-1"), *cols)
+    if op in ("lpad", "rpad"):
+        return S._pad(None, cols[0], case["width"], case["pad"],
+                      op == "lpad", op)
+    if op == "repeat":
+        return S.fn_repeat(None, cols[0], case["k"])
+    return S.fn_coalesce(None, *cols[:3], *lit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", CONCAT_OPS)
+@pytest.mark.parametrize("case", CONCAT_CASES)
+def test_span_concat_kernel_matches_twin_on_its_cases(card, case, op):
+    """The port's function on the card (span_concat's kernel) against the
+    same on the CPU (its twin), bit for bit, for every case; two kernels a
+    call (the offsets pass, the write pass) beside the total's copy."""
+    from exon_tpu_torch.batch import VarColumn as TVar
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    spec = concat_case(case)
+
+    def run(dev):
+        cols = [TVar(*(torch.from_numpy(a).to(dev) for a in (v, o, ok)))
+                for o, v, ok in spec["cols"]]
+        return concat_op(S, op, spec, cols)
+
+    got, want = run(card), run("cpu")
+    assert torch.equal(got.offsets.cpu(), want.offsets)
+    assert torch.equal(got.values.cpu(), want.values)
+    assert torch.equal(got.validity.cpu(), want.validity)
+    if case == "tiles" and op == "concat_ws":
+        cols = [TVar(*(torch.from_numpy(a).to(card) for a in (v, o, ok)))
+                for o, v, ok in spec["cols"]]
+        sources, pieces = S.concat_ws_pieces(spec["sep"], cols,
+                                              spec["cols"][0][0].shape[0] - 1)
+        seen = _one_kernel(lambda: kconcat.span_concat(sources, pieces), 5)
+        named = [k for k in seen if "concat" in k]
+        assert sorted(named) == sorted(k for k in seen if "kernel" in k), seen
+        assert len(named) == 2, seen
+
+
+@pytest.mark.cuda
+def test_span_concat_kernel_takes_every_piece_form(card):
+    """Per-row and scalar starts, spans and lengths, inline and device
+    literals, every gate, cut, fill and times, against the twin; and past
+    MAX_PIECES (a device table)."""
+    rng = np.random.default_rng(46)
+    n = 3000
+    offs, vals = _var(rng, n, card)
+    lens = (offs[1:] - offs[:-1]).to(torch.int32)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(card)
+    other = torch.from_numpy(rng.random(n) < 0.5).to(card)
+    long_lit = bytes(rng.integers(0, 256, 700, dtype=np.uint8))
+    srcs = [vals, b"-=", long_lit, torch.from_numpy(
+        rng.integers(0, 256, 64, dtype=np.uint8)).to(card)]
+    P = kconcat.Piece
+    pieces = [P(1, gate="join", valid=valid), P(0, offs, gate="valid",
+                                                 valid=valid),
+              P(3, 5, span=3, length=lens % 7), P(2, 13, length=40),
+              P(1, fill=60, span=1), P(0, offs, times=3, cap=50),
+              P(0, offs[:-1], span=lens.clamp(min=1), length=lens * 2),
+              P(3, 0, length=64, gate="first", valid=other),
+              P(2, gate="first", valid=valid), P(1, 1, length=1, times=5)]
+    for ps in (pieces, pieces * 4):  # 10 pieces, then 40
+        o1, v1 = kconcat.span_concat(srcs, ps)
+        o2, v2 = kconcat.span_concat_plain(srcs, ps)
+        assert torch.equal(o1, o2) and torch.equal(v1, v2)
+
+
 # ---------------------------------------------------------------------------
 # Windows (K10): window_bounds and window_frame
 # ---------------------------------------------------------------------------
@@ -3002,6 +3142,61 @@ def test_window_bounds_kernel_matches_twin(card, n):
                                           device=card), 0)
     assert all(torch.equal(t, w) for t, w in zip(
         empty, kwb.window_bounds_plain(keys[:0], 0)))
+
+
+# -- window_bounds' redesign: the cases its Hopper design must survive ------
+
+BOUNDS_TILE = 1024  # kernels/window_bounds.py TILE_ROWS
+BOUNDS_CASES = ["one partition", "every row a partition", "all peers",
+                "tile edges", "n 1", "n tile - 1", "n tile", "n tile + 1"]
+
+
+def bounds_case(case: str) -> tuple:
+    """numpy int64 (p, o) of a window_bounds case, in sorted (p, o) order:
+    a partition key and an order key whose partitions and peer groups
+    take the case's shape."""
+    rng = np.random.default_rng(len(case) + 400)
+    t = BOUNDS_TILE
+    n = {"n 1": 1, "n tile - 1": t - 1, "n tile": t, "n tile + 1": t + 1,
+         "tile edges": 3 * t + 3}.get(case, 3 * t + 17)
+    r = np.arange(n)
+    if case == "one partition":
+        p, o = np.full(n, 7), np.sort(rng.integers(0, 500, n))
+    elif case == "every row a partition":
+        p, o = r * 3 - 5, rng.integers(0, 4, n)
+    elif case == "all peers":
+        p, o = np.full(n, 1), np.full(n, 5)
+    elif case == "tile edges":
+        # partitions and peer groups start exactly at tile edges and one
+        # row either side of them
+        edges = [e + d for e in (t, 2 * t, 3 * t) for d in (-1, 0, 1)]
+        p = np.searchsorted(np.array(edges[::2]), r, side="right")
+        o = np.searchsorted(np.array(edges), r, side="right")
+    else:
+        p = np.sort(rng.integers(0, 4, n))
+        o = np.concatenate([np.sort(rng.integers(0, 20, int(k)))
+                            for k in np.bincount(p, minlength=4)])
+    return p.astype(np.int64), o.astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDS_CASES)
+def test_window_bounds_kernel_matches_twin_on_its_cases(card, case):
+    """Each case's key matrix (sort_rows over (p, o)) and the bare rows,
+    with 0, 1 and 2 partition rows, bit for bit; two kernels a call and no
+    memset."""
+    from exon_tpu_torch.kernels import window_bounds as kwb
+
+    p, o = bounds_case(case)
+    keys = torch.from_numpy(np.stack([p, o, o // 3])).to(card)
+    for n_part in (0, 1, 2, 3):
+        got = kwb.window_bounds(keys, n_part)
+        want = kwb.window_bounds_plain(keys.cpu(), n_part)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), n_part
+    seen = _one_kernel(lambda: kwb.window_bounds(keys, 1), 5)
+    assert len(seen) == 2 and all("bounds_" in k for k in seen), seen
+    assert not any("memset" in k.lower() for k in seen), seen
 
 
 # lag/lead offsets and ROWS frames just inside and just past the halo a
