@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 ``gather_var,bucket_pack,gather_spans,sw_score,like_match,line_index,``
 ``text_records,format_int,slice_var,take_list,window_frame,``
 ``expand_segments,parse_number,string_eq,i_panel,joins,sort_keys,``
-``row_hash,span_concat,window_bounds`` (any of them) runs phases 1-2 and
+``row_hash,span_concat,window_bounds,count_bytes,polya_tail`` (any of
+them) runs phases 1-2 and
 those cases alone,
 each taken apart into device time, launches and host time (window_frame at
 L's batch, all sixteen modes; expand_segments' chain at C's probe batch and
@@ -29,7 +30,11 @@ at I's refs and on 1,000 rows of 256 B-64 KB; span_concat at J's lpad
 and concat_ws, fn_concat_ws whole and a repeat of A's first 20,000
 sequences 3 times, each whole call also with span_concat's twin;
 window_bounds at L's (chrom, pos) and (chrom, qual DESC) key matrices and
-at an L_dist shard's size);
+at an L_dist shard's size; count_bytes at G's BAM batch and the first FASTQ
+chunk, in share and count mode, and gc_content whole at G's batch beside
+its twin; polya_tail at H's GC-rich reads, J's trim (both runs, and
+fn_trim whole beside its twin), K's rtrim 'N', K's {A, C} runs and the
+ACGT runs of all-class reads);
 ``--tree DIR`` imports exon_tpu_torch and benchlib from another checkout (an
 earlier commit, unpacked), so that two versions are timed in one run on one
 card.
@@ -71,7 +76,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    its int32 operations (5.5 per DP cell, sw_score.cu's design with
    Hopper's DPX instructions, over the card's INT32 rate); gather_spans
    also on a CRLF copy of A's first 16 MiB; count_bytes on one
-   131,072-read BAM batch (G) and on the FASTQ chunk (H's filter);
+   131,072-read BAM batch (G) and on the FASTQ chunk (H's filter), in
+   share mode as gc_content launches it (the kernels line's row) and in
+   count mode (translate's);
    polya_tail on the chunk's GC-rich reads and map_bytes on their trimmed
    forms (H's projection), both also on the whole chunk, printed apart.
    hash_aggregate runs on Query I's first batch (the scan's batch after the
@@ -89,8 +96,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    map_bytes' table mode on J's upper and on the sequences of A's first
    chunk (each beside table[values], the library call, and taken apart as
    compact_mask is) and its word-start mode on J's trimmed descriptions (initcap); polya_tail's
-   leading space run on J's descriptions (trim) and trailing 'N' run on
-   K's cut reads of the first FASTQ chunk (rtrim); like_match's position
+   space runs at both ends of J's descriptions in one call (trim) and
+   trailing 'N' run on K's cut reads of the first FASTQ chunk (rtrim); like_match's position
    mode on K's strpos and E's adapter LIKE over that chunk; translate (on no query's path) at
    J's shape, beside table[values]; K12's _slice_var at J's substr(id, 4),
    apart from gather_spans' own case. Batch.to_device is timed beside its
@@ -1889,26 +1896,43 @@ def print_sw_sass() -> None:
 
 
 def check_count_bytes(torch, bam_col, fq_col) -> dict:
+    """count_bytes as gc_content launches it (share mode: float32 count /
+    length, bit for bit as int32 views against the twin) on Query G's BAM
+    batch and Query H's FASTQ chunk, and its count mode (translate's) at
+    the same shapes, exact; each beside its bound. Returns the share mode
+    at G's batch (the count mode on a --tree whose count_bytes has no
+    share mode)."""
     from exon_tpu_torch.kernels import count_bytes as k
 
-    # Query G's gc_content on one BAM batch; Query H's on the FASTQ chunk
+    modes = (True, False) if _takes(k.count_bytes, "share") else (False,)
     out = {}
-    for label, (offs, vals) in (("BAM batch", bam_col),
-                                ("FASTQ chunk", fq_col)):
-        n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
-        _exact(f"count_bytes {label}", k.count_bytes(offs, vals, b"GCgc"),
-               k.count_bytes_plain(offs, vals, b"GCgc"))
-        out[label] = {
-            "max_abs_err": 0.0, "library_ms": None,
-            "ms": median_ms(lambda: k.count_bytes(offs, vals, b"GCgc"), torch),
-            "plain_ms": median_ms(
-                lambda: k.count_bytes_plain(offs, vals, b"GCgc"), torch),
-            # offsets and bytes in, a count out (the class travels in the
-            # launch's parameters)
-            "bytes": 4 * (n + 1) + total + 4 * n,
-            "shape": f"{n} reads, {total} bytes ({label})"}
-    _print_case("count_bytes FASTQ chunk", out["FASTQ chunk"])
-    return out["BAM batch"]
+    for share in modes:
+        for label, (offs, vals) in (("BAM batch", bam_col),
+                                    ("FASTQ chunk", fq_col)):
+            n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
+            kw = {"share": True} if share else {}
+            got = k.count_bytes(offs, vals, b"GCgc", **kw)
+            want = k.count_bytes_plain(offs, vals, b"GCgc", **kw)
+            if share:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            mode = "share" if share else "count"
+            _exact(f"count_bytes {label} ({mode} mode)", got, want)
+            out[label, share] = {
+                "max_abs_err": 0.0, "library_ms": None,
+                "ms": median_ms(
+                    lambda: k.count_bytes(offs, vals, b"GCgc", **kw), torch),
+                "plain_ms": median_ms(
+                    lambda: k.count_bytes_plain(offs, vals, b"GCgc", **kw),
+                    torch),
+                # offsets and bytes in, a 4-byte count or share out (the
+                # class travels in the launch's parameters)
+                "bytes": 4 * (n + 1) + total + 4 * n,
+                "shape": f"{n} reads, {total} bytes ({label}, {mode} mode)"}
+    for (label, share), case in out.items():
+        if (label, share) != ("BAM batch", modes[0]):
+            _print_case(f"count_bytes {label}, "
+                        f"{'share' if share else 'count'} mode", case)
+    return out["BAM batch", modes[0]]
 
 
 def check_map_bytes(torch, offs, vals) -> dict:
@@ -2194,7 +2218,7 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     twin, bit for bit: span_concat on J's concat_ws (the kernels line) and
     lpad over the first decoded chunk of A; map_bytes' table mode on J's
     upper and over A's first chunk (check_map_table) and its word-start
-    mode on J's trimmed descriptions (initcap); polya_tail's leading run on J's
+    mode on J's trimmed descriptions (initcap); polya_tail's both runs on J's
     descriptions (trim) and trailing N run on K's left(...) over the first
     FASTQ chunk (rtrim), and, since neither class occurs in those rows,
     both runs at the same shapes on classes that do: 'sp|' leading J's
@@ -2205,7 +2229,6 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     offsets."""
     from exon_tpu_torch.batch import FixedColumn
     from exon_tpu_torch.kernels import map_bytes as km
-    from exon_tpu_torch.kernels import polya_tail as kp
     from exon_tpu_torch.kernels import span_concat as ks
     from exon_tpu_torch.ops import sqlfuncs as S
     from exon_tpu_torch.ops.strings import LOWER, UPPER
@@ -2217,7 +2240,7 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     check_slice_var(torch, b)
     upper = torch.from_numpy(UPPER).cuda()
     lower = torch.from_numpy(LOWER).cuda()
-    _class_runs(torch, "J trim", desc, b" ", True, n, "descriptions")
+    _both_runs(torch, "J trim ' '", desc, b" ", n, "descriptions")
     lead = _class_runs(torch, "J ids 'sp|'", idc, b"sp|", True, n, "ids")
     if not bool((lead > 0).all()):
         fail("polya_tail: 'sp|' should lead every id")
@@ -2265,8 +2288,7 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     m = fq_batch.length
     pos = check_like_fastq(torch, fq_batch)
     lens = _lens(fq)
-    cut = S.fn_left(fq_batch, fq, FixedColumn(
-        torch.where(pos >= 0, pos.long(), lens), fq.validity))
+    cut = _k_cut(fq_batch, pos)
     _class_runs(torch, "K rtrim 'N'", cut, b"N", False, m, "cut reads")
     # the K12 numbers (Lib: elementwise torch) at K's shape: coalesce(
     # nullif(strpos, 0) - 1, length) over the chunk's reads
@@ -2289,17 +2311,75 @@ def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
     keep = _class_runs(torch, "K reads {A, C}", fq, b"AC", False, m, "reads")
     if not (0 < int(lead.sum()) < total and 0 < int(keep.sum()) < total):
         fail("polya_tail: {A, C} should begin and end some reads, not all")
-    both = (lambda: (kp.polya_tail(fq.offsets, fq.values, b"ACGT", True),
-                     kp.polya_tail(fq.offsets, fq.values, b"ACGT")))
-    lead, keep = both()
+    lead, keep = _both_runs(torch, "K reads ACGT", fq, b"ACGT", m, "reads")
     if not (torch.equal(lead.long(), _lens(fq)) and not bool(keep.any())):
         fail("polya_tail: every read should be all ACGT")
-    _case(torch, "polya_tail K reads ACGT, both runs of all-class rows", both,
-          lambda: (kp.polya_tail_plain(fq.offsets, fq.values, b"ACGT", True),
-                   kp.polya_tail_plain(fq.offsets, fq.values, b"ACGT")),
-          # each read's bytes once answer both ends
-          4 * (m + 1) + total + 8 * m, f"{m} reads, {total} bytes")
     return res
+
+
+def _k_cut(fq_batch, pos):
+    """K's left(sequence, coalesce(nullif(strpos, 0) - 1, length)) over a
+    FASTQ batch, given strpos - 1 (-1 where there is no adapter): the rows
+    K's rtrim 'N' reads."""
+    from exon_tpu_torch.batch import FixedColumn
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    fq = fq_batch.column("sequence")
+    return S.fn_left(fq_batch, fq, FixedColumn(
+        pos.long().where(pos >= 0, _lens(fq)), fq.validity))
+
+
+def _both_ends(kp):
+    """polya_tail's leading and trailing runs in one call: its "both"
+    end, or, in a tree whose polya_tail has none, its two one-end calls."""
+    if _takes(kp.polya_tail, "end"):
+        return (lambda o, v, m: kp.polya_tail(o, v, m, "both"),
+                lambda o, v, m: kp.polya_tail_plain(o, v, m, "both"))
+    return (lambda o, v, m: (kp.polya_tail(o, v, m, True),
+                             kp.polya_tail(o, v, m)),
+            lambda o, v, m: (kp.polya_tail_plain(o, v, m, True),
+                             kp.polya_tail_plain(o, v, m)))
+
+
+def _one_end(kp, from_start: bool):
+    """polya_tail's run from the start or from the end, kernel and twin:
+    its ``end`` argument, or ``from_start`` in a tree that takes that."""
+    end = ("start" if from_start else "end") if \
+        _takes(kp.polya_tail, "end") else from_start
+    return (lambda o, v, m: kp.polya_tail(o, v, m, end),
+            lambda o, v, m: kp.polya_tail_plain(o, v, m, end))
+
+
+def _both_scanned(torch, lead, keep, lens) -> int:
+    """The bytes both runs must read: each row from its start to its first
+    byte outside the class and from its end to its last, each byte once
+    (all of an all-class row)."""
+    part = lead.long() < lens
+    return int(torch.minimum(
+        torch.where(part, lead.long() + 1, lens)
+        + torch.where(part, lens - keep.long() + 1, 0), lens).sum())
+
+
+def _both_runs(torch, label: str, col, members: bytes, n: int, rows: str):
+    """polya_tail's leading and trailing runs of the class ``members`` over
+    ``col`` in one call (_both_ends), kernel against twin; under --kernels
+    also taken apart. The bound reads each row's bytes from either end to
+    its first byte outside the class, each byte once (all of an all-class
+    row: _both_scanned), the offsets, and writes both runs. Returns (lead,
+    keep)."""
+    from exon_tpu_torch.kernels import polya_tail as kp
+
+    kernel, plain = _both_ends(kp)
+    o, v = col.offsets, col.values
+    lead, keep = kernel(o, v, members)
+    scanned = _both_scanned(torch, lead, keep, _lens(col))
+    name = f"polya_tail {label}, both runs"
+    _case(torch, name, lambda: kernel(o, v, members),
+          lambda: plain(o, v, members), 4 * (n + 1) + scanned + 8 * n,
+          f"{n} {rows}, {scanned} bytes scanned")
+    if SPLITS:
+        _print_split(torch, name, lambda: kernel(o, v, members))
+    return lead, keep
 
 
 def check_like_fastq(torch, fq_batch):
@@ -2343,7 +2423,9 @@ def _class_runs(torch, label: str, col, members: bytes, from_start: bool,
     ``members`` over ``col``, kernel against twin; its result."""
     from exon_tpu_torch.kernels import polya_tail as kp
 
-    run = kp.polya_tail(col.offsets, col.values, members, from_start)
+    kernel, plain = _one_end(kp, from_start)
+    o, v = col.offsets, col.values
+    run = kernel(o, v, members)
     lens = _lens(col)
     if from_start:  # the run, and the byte that ends it
         scanned = int(torch.where(run < lens, run + 1, run).sum())
@@ -2351,9 +2433,7 @@ def _class_runs(torch, label: str, col, members: bytes, from_start: bool,
         scanned = int(torch.where(run > 0, lens - run.long() + 1, lens).sum())
     _case(torch, f"polya_tail {label}, "
           f"{'leading' if from_start else 'trailing'} run",
-          lambda: kp.polya_tail(col.offsets, col.values, members, from_start),
-          lambda: kp.polya_tail_plain(col.offsets, col.values, members,
-                                      from_start),
+          lambda: kernel(o, v, members), lambda: plain(o, v, members),
           4 * (n + 1) + scanned + 4 * n, f"{n} {rows}, {scanned} bytes scanned")
     return run
 
@@ -4759,6 +4839,112 @@ def check_window_bounds_alone(torch) -> None:
                      lambda: kb.window_bounds(keys, n_part))
 
 
+def _takes(fn, name: str) -> bool:
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
+def check_count_bytes_alone(torch) -> None:
+    """count_bytes at G's BAM batch and the first FASTQ chunk (phase 3's
+    cases, share and count mode), each against its twin and taken apart;
+    gc_content whole at G's batch beside the same call
+    with count_bytes' twin swapped in, taken apart."""
+    from benchlib.bam_fixture import make_bam
+    from benchlib.fastq_fixture import make_fastq
+    from exon_tpu_torch import udfs
+    from exon_tpu_torch.batch import VarColumn
+    from exon_tpu_torch.kernels import count_bytes as k
+
+    bam = _first_column(lambda s: s.read_bam(make_bam(N_TEMPLATES, BAM_SEED)),
+                        "sequence")
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    fq = _first_column(lambda s: s.read_fastq(fq_path), "sequence")
+    _print_case("count_bytes BAM batch", check_count_bytes(torch, bam, fq))
+    modes = (True, False) if _takes(k.count_bytes, "share") else (False,)
+    for share in modes:
+        kw = {"share": True} if share else {}
+        for label, (offs, vals) in (("G's BAM batch", bam),
+                                    ("the first FASTQ chunk", fq)):
+            _print_split(torch, f"count_bytes {label}, "
+                         f"{'share' if share else 'count'} mode",
+                         lambda: k.count_bytes(offs, vals, b"GCgc", **kw))
+    offs, vals = bam
+    n, total = offs.shape[0] - 1, int(offs[-1] - offs[0])
+    col = VarColumn(vals, offs, torch.ones(n, dtype=torch.bool,
+                                           device=offs.device))
+
+    def gc():
+        return udfs.gc_content(None, col)
+
+    def gc_twin():
+        with _swapped([("exon_tpu_torch.udfs", "count_bytes")]):
+            return gc()
+
+    # offsets and bytes in, a float32 share out
+    _case(torch, "gc_content G whole", gc, gc_twin,
+          4 * (n + 1) + total + 4 * n, f"{n} reads, {total} bytes")
+    _print_split(torch, "gc_content G whole", gc)
+
+
+def check_polya_tail_alone(torch) -> None:
+    """polya_tail at phase 3's cases, each against its twin and taken
+    apart: H's trim_polya over the first FASTQ chunk's GC-rich reads, J's
+    trim (both runs, and fn_trim whole beside the same call with
+    polya_tail's twin swapped in), K's rtrim 'N' over its cut reads, K's
+    {A, C} runs from either end, and the ACGT runs of all-class rows."""
+    import exon_tpu_torch as T
+    from benchlib.fastq_fixture import make_fastq
+    from exon_tpu_torch.kernels import like_match as kl
+    from exon_tpu_torch.kernels import polya_tail as kp
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    h_kept = _first_column(lambda s: s.read_fastq(fq_path).filter(
+        T.FunctionCall("gc_content", [T.col("sequence")]) >= GC_MIN),
+        "sequence")
+    _print_case("polya_tail H trim_polya", check_polya_tail(torch, *h_kept))
+    _print_split(torch, "polya_tail H trim_polya",
+                 lambda: kp.polya_tail(*h_kept))
+    b = _fasta_first_batch(torch)
+    desc, n = b.column("description"), b.length
+    _both_runs(torch, "J trim ' '", desc, b" ", n, "descriptions")
+
+    def trim():
+        t = S.fn_trim(b, desc)
+        return t.offsets, t.values
+
+    def trim_twin():
+        with _swapped([("exon_tpu_torch.ops.sqlfuncs", "polya_tail")]):
+            return trim()
+
+    scanned = _both_scanned(torch, *_both_ends(kp)[1](
+        desc.offsets, desc.values, b" "), _lens(desc))
+    kept = int(trim()[0][-1])
+    # offsets and validity in, the scanned bytes, the kept bytes and their
+    # offsets out
+    _case(torch, "fn_trim J whole", trim, trim_twin,
+          4 * (n + 1) + n + scanned + kept + 4 * (n + 1),
+          f"{n} descriptions, {kept} bytes kept")
+    _print_split(torch, "fn_trim J whole", trim)
+    fq_batch = _first_batch(lambda s: s.read_fastq(fq_path).select(
+        "sequence"))
+    fq, m = fq_batch.column("sequence"), fq_batch.length
+    pos = kl.like_find(fq.offsets, fq.values,
+                       tuple(ADAPTER.strip("%").encode()))
+    cut = _k_cut(fq_batch, pos)
+    for label, col, members, from_start, rows in (
+            ("K rtrim 'N'", cut, b"N", False, "cut reads"),
+            ("K reads {A, C}", fq, b"AC", True, "reads"),
+            ("K reads {A, C}", fq, b"AC", False, "reads")):
+        _class_runs(torch, label, col, members, from_start, m, rows)
+        kernel = _one_end(kp, from_start)[0]
+        _print_split(torch, f"polya_tail {label}, "
+                     f"{'leading' if from_start else 'trailing'} run",
+                     lambda: kernel(col.offsets, col.values, members))
+    _both_runs(torch, "K reads ACGT", fq, b"ACGT", m, "reads")
+
+
 # the cases a run with --kernels can take alone: phase 3's of the kernels
 # redesigned (each at the shapes its redesign was measured at), and phase 5's
 # of Q's aggregate (hash_aggregate on Q's path) and of C's and D's joins
@@ -4795,6 +4981,8 @@ FOCUS = {
     "joins": check_joins_alone,
     "span_concat": check_span_concat_alone,
     "window_bounds": check_window_bounds_alone,
+    "count_bytes": check_count_bytes_alone,
+    "polya_tail": check_polya_tail_alone,
 }
 
 

@@ -65,7 +65,7 @@ SIGNATURES = {
     "exon_format_int_offsets": [_P, _P, _I64, _P, _P, _U64, _U64, _P, _P],
     "exon_format_int_write": [_P, _P, _I64, _P, _P],
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P, _P],
-    "exon_count_bytes": [_P, _P, _I64, _U64, _U64, _U64, _U64, _P, _P],
+    "exon_count_bytes": [_P, _I64, _P, _I64, _P, _I32, _I32, _P, _P],
     "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
     "exon_map_bytes_table": [_P, _I64, _P, _I64, _P, _P, _P],
     "exon_map_bytes_widen": [_P, _I64, _P, _I32, _P, _P],
@@ -74,7 +74,7 @@ SIGNATURES = {
     "exon_list_bins_bins": [_P, _P, _P, _I64, _F64, _F64, _I32, _I32, _P,
                             _P],
     "exon_map_lookup": [_P, _P, _P, _P, _I64, _P, _I32, _P, _P],
-    "exon_polya_tail": [_P, _P, _I64, _U64, _U64, _U64, _U64, _I32, _P, _P],
+    "exon_polya_tail": [_P, _I64, _P, _I64, _P, _I32, _I32, _P, _P, _P],
     "exon_span_concat_offsets": [_P, _I32, _P, _P, _I32, _I64, _I32, _P, _P,
                                  _U64, _U64, _P, _P, _I64, _P, _P],
     "exon_span_concat_write": [_P, _I32, _P, _P, _I32, _I64, _I32, _P, _P,

@@ -1,7 +1,8 @@
 // copy16.cuh: byte runs assembled into aligned 16-byte output words, and
 // the searches that find the row (or span) holding an output byte; shared
 // by gather_var.cu, gather_spans.cu, string_eq.cu (load_run, low_bytes),
-// parse_number.cu (load_word) and sort_keys.cu (load_run).
+// parse_number.cu, count_bytes.cu and polya_tail.cu (load_word) and
+// sort_keys.cu (load_run).
 //
 // A run of k source bytes at any alignment is read as the two aligned
 // 16-byte words that cover it and funnel-shifted into place (load16), then

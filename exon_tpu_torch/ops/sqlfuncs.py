@@ -248,18 +248,18 @@ def fn_reverse(batch: Batch, v) -> VarColumn:
 
 def _trim(v, chars, mode: str, fname: str, batch: Batch) -> VarColumn:
     """(sqlfuncs.py:203) the leading and trailing trim-set runs from the
-    polya_tail kernel (``_trim_counts`` :178), then the kept span."""
+    polya_tail kernel (``_trim_counts`` :178; both ends in one launch),
+    then the kept span."""
     col = _as_var(v, fname, batch)
     cb = b" " if chars is None else _literal_bytes(
         chars, f"{fname} characters")
-    n = _lens(col)
     if mode == "r":
         keep = polya_tail(col.offsets, col.values, cb)
-        return _slice_var(col, torch.zeros_like(n), keep)
-    lead = polya_tail(col.offsets, col.values, cb, from_start=True)
+        return _slice_var(col, torch.zeros_like(keep), keep)
     if mode == "l":
-        return _slice_var(col, lead, n - lead)
-    keep = polya_tail(col.offsets, col.values, cb)
+        lead = polya_tail(col.offsets, col.values, cb, "start")
+        return _slice_var(col, lead, _lens(col) - lead)
+    lead, keep = polya_tail(col.offsets, col.values, cb, "both")
     return _slice_var(col, lead, (keep - lead).clamp(min=0))
 
 

@@ -85,12 +85,10 @@ GC = b"GCgc"
 
 def gc_content(batch: Batch, seq) -> torch.Tensor:
     """The G/C share of each row as float32, 0 for an empty (or NULL) row:
-    one IEEE float32 divide, as the JAX function does."""
+    one IEEE float32 divide, as the JAX function does, inside count_bytes'
+    one launch (its share mode)."""
     col = _require_var(seq, "gc_content", batch)
-    gc = count_bytes(col.offsets, col.values, GC)
-    lens = _row_lengths(col)
-    return torch.where(lens > 0, gc.to(torch.float32) / lens.to(torch.float32),
-                       0.0)
+    return count_bytes(col.offsets, col.values, GC, share=True)
 
 
 # -- reverse_complement (udfs/sequence/reverse_complement.rs) ---------------

@@ -2517,6 +2517,165 @@ def test_count_map_and_polya_kernels_match_twins(card):
     assert torch.equal(kgs.gather_spans(*args), kgs.gather_spans_plain(*args))
 
 
+# -- count_bytes and polya_tail: the byte-class designs' shapes ---------------
+# Classes by size (members), with byte 0 and bytes >= 128 among them: the
+# kernels test each by SWAR on its cubes (byte sets b & m == v; 1, 2, 4 or
+# 8 of them, 3 repeating its first) or, with none or more than 8 cubes (the
+# 40 scattered bytes), by the 256-bit mask.
+BYTECLASSES = {0: b"", 1: b"A", 2: b"Aa", 3: b"N \x00", 4: b"\x00AC\xff",
+               5: b"ACGT\x80", 8: b"ACGTacg\x80", 9: b"ACGTacgtN",
+               40: bytes(sorted(np.random.default_rng(5).choice(
+                   256, 40, replace=False).tolist())),
+               200: bytes(v for v in range(256) if v % 32 < 25)}
+# runs either side of a word (16), of a thread's walk (256) and of a warp's
+# step (512)
+RUN_EDGES = (15, 16, 17, 255, 256, 257, 511, 512, 513)
+BYTECLASS_CASES = ("mixed", "edges", "row_ends", "long_row", "neighbours",
+                   "one_row", "no_rows")
+
+
+def byteclass_case(name: str, members: bytes, seed: int = 0):
+    """(int32 offsets, uint8 values, each row's bytes) of the case ``name``
+    for the class ``members``: "mixed", 2,000 rows of 0-300 bytes, half of
+    them class bytes, some with class runs at either end; "edges", empty
+    rows, rows of 1 byte, all-class rows and runs of RUN_EDGES bytes at
+    either end and both; "row_ends", rows of 0-48 bytes, so that row ends
+    fall at every offset mod 16; "long_row", a 64 KB row (mixed, all-class,
+    and class runs of 30,000 and 35,535 bytes around one other byte) among
+    100-byte rows; "neighbours", offsets that start past 0 with class bytes
+    just before the first row and just after the last; "one_row"; "no_rows"
+    (n = 0, offsets past 0)."""
+    rng = np.random.default_rng(seed + 1009 * len(members))
+    inside = np.frombuffer(members, np.uint8)
+    outside = np.setdiff1d(np.arange(256, dtype=np.uint8), inside)
+
+    def run(k):
+        if not len(inside):
+            return b""
+        return inside[rng.integers(0, len(inside), int(k))].tobytes()
+
+    def other(k):
+        return outside[rng.integers(0, len(outside), int(k))].tobytes()
+
+    def mix(k):
+        k = int(k)
+        pick = rng.random(k) < 0.5 if len(inside) else np.zeros(k, bool)
+        out = outside[rng.integers(0, len(outside), k)]
+        if len(inside):
+            out[pick] = inside[rng.integers(0, len(inside), int(pick.sum()))]
+        return out.tobytes()
+
+    rows, pre, post = [], b"", b""
+    if name == "mixed":
+        for _ in range(2000):
+            row = mix(rng.integers(0, 301))
+            if rng.random() < 0.3:
+                row = run(rng.integers(1, 40)) + row
+            if rng.random() < 0.3:
+                row += run(rng.integers(1, 40))
+            rows.append(row)
+    elif name == "edges":
+        rows += [b"", other(1), run(1), b"", run(2), other(1) + run(1)]
+        for k in RUN_EDGES:
+            rows += [run(k), run(k) + other(1), other(1) + run(k),
+                     run(k) + other(2) + run(k), run(k) + mix(37) + run(k),
+                     mix(k)]
+    elif name == "row_ends":
+        for k in range(49):
+            rows += [mix(k), run(k), other(1) + run(k), run(k) + other(1)]
+    elif name == "long_row":
+        rows = [mix(100) for _ in range(300)]
+        rows[150] = mix(1 << 16)
+        rows[200] = run(1 << 16)
+        rows[250] = run(30_000) + other(1) + run(35_535)
+    elif name == "neighbours":
+        rows = [run(3) + mix(rng.integers(0, 200)) + run(5)
+                for _ in range(200)]
+        pre, post = run(37) or other(37), run(29) or other(29)
+    elif name == "one_row":
+        rows = [run(20) + mix(50) + run(20)]
+    elif name == "no_rows":
+        pre = other(7)
+    else:
+        raise ValueError(name)
+    offs = np.full(len(rows) + 1, len(pre), np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    offs[1:] += len(pre)
+    vals = np.frombuffer(pre + b"".join(rows) + post, np.uint8).copy()
+    return offs.astype(np.int32), vals, rows
+
+
+def _at_alignment(vals: torch.Tensor, shift: int) -> torch.Tensor:
+    """vals copied to a view whose first byte lies ``shift`` bytes past an
+    aligned 16-byte word."""
+    buf = torch.zeros(vals.shape[0] + 16, dtype=torch.uint8,
+                      device=vals.device)
+    view = buf[shift:shift + vals.shape[0]]
+    view.copy_(vals)
+    return view
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", sorted(BYTECLASSES))
+@pytest.mark.parametrize("name", BYTECLASS_CASES)
+def test_byteclass_kernels_match_twins(card, name, size):
+    """count_bytes in both modes and polya_tail from either end and both,
+    kernel against twin bit for bit, at three alignments of the values."""
+    members = BYTECLASSES[size]
+    offs, vals, _rows = byteclass_case(name, members)
+    o = torch.from_numpy(offs).to(card)
+    for shift in (0, 5, 11):
+        v = _at_alignment(torch.from_numpy(vals).to(card), shift)
+        for share in (False, True):
+            assert _same_bits(kcb.count_bytes(o, v, members, share),
+                              kcb.count_bytes_plain(o, v, members, share))
+        for end in ("end", "start"):
+            assert torch.equal(kpt.polya_tail(o, v, members, end),
+                               kpt.polya_tail_plain(o, v, members, end))
+        got = kpt.polya_tail(o, v, members, "both")
+        want = kpt.polya_tail_plain(o, v, members, "both")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_gc_content_count_bytes_and_trim_are_one_kernel_a_call(card):
+    """gc_content is count_bytes' share mode alone; count_bytes and
+    polya_tail's both mode one kernel a call; fn_trim one polya_tail
+    launch a call."""
+    from exon_tpu_torch import udfs
+    from exon_tpu_torch.batch import VarColumn
+    from exon_tpu_torch.ops import sqlfuncs as S
+
+    offs, vals, _rows = byteclass_case("mixed", b" ")
+    o, v = (torch.from_numpy(x).to(card) for x in (offs, vals))
+    col = VarColumn(v, o, torch.ones(o.shape[0] - 1, dtype=torch.bool,
+                                     device=card))
+    # the profiler shows what runs on the card (it may lose a record, so
+    # its counts are not read); the wrappers' counters count the launches
+    for run, name, mod in (
+            (lambda: udfs.gc_content(None, col), "count_bytes_kernel", kcb),
+            (lambda: kcb.count_bytes(o, v, b"GCgc"), "count_bytes_kernel",
+             kcb),
+            (lambda: kpt.polya_tail(o, v, b" ", "both"),
+             "polya_tail_kernel", kpt)):
+        seen = _cuda_kernels(run, 5)
+        assert len(seen) == 1 and name in next(iter(seen)), seen
+        before = mod.launches
+        run()
+        assert mod.launches == before + 1
+    seen = _cuda_kernels(lambda: S.fn_trim(None, col), 5)
+    assert [k for k in seen if "polya_tail" in k], seen
+    before = kpt.launches
+    S.fn_trim(None, col)
+    assert kpt.launches == before + 1
+
+
 # ---------------------------------------------------------------------------
 # the SQL function kernels (K12): span_concat, and the new modes of
 # polya_tail (class runs from either end), like_match (first position) and
@@ -2598,7 +2757,7 @@ def test_trim_counts_twin_matches_jax(jx, chars):
     j, t, (offs, _v, _ok) = _both_vars(rng, 400)
     lead, trail = (np.asarray(x) for x in JS._trim_counts(j, chars))
     n = np.diff(offs)
-    got_lead = kpt.polya_tail(t.offsets, t.values, chars, from_start=True)
+    got_lead = kpt.polya_tail(t.offsets, t.values, chars, "start")
     got_keep = kpt.polya_tail(t.offsets, t.values, chars)
     assert got_lead.numpy().tolist() == lead.tolist()
     assert (n - got_keep.numpy()).tolist() == trail.tolist()
@@ -2723,10 +2882,9 @@ def test_span_concat_kernel_matches_twin(card):
                          ids=["polya", "n", "space", "all", "empty"])
 def test_polya_tail_class_runs_match_twin(card, members):
     offs, vals = _seqs(np.random.default_rng(42), 20_000, card)
-    for from_start in (False, True):
-        assert torch.equal(
-            kpt.polya_tail(offs, vals, members, from_start),
-            kpt.polya_tail_plain(offs, vals, members, from_start))
+    for end in ("end", "start"):
+        assert torch.equal(kpt.polya_tail(offs, vals, members, end),
+                           kpt.polya_tail_plain(offs, vals, members, end))
 
 
 @pytest.mark.cuda
