@@ -18,7 +18,11 @@ first FASTQ chunk; text_records at A's chunk, at the first FASTQ chunk with
 and without want_hdr, and at two long-line chunks made from a seed: 128 MiB
 of long-read FASTQ records of 1-100 kb, in both modes, and four unwrapped
 32 MiB FASTA records; format_int at one 131,072-row batch of GFF starts and
-at all 3.4 M; slice_var at J's substr and take_list at N's list take;
+at all 3.4 M; slice_var at J's substr and take_list at N's list take and
+its attributes['gene_type'][1]; map_bytes in every mode: table at J's upper
+and A's chunk, the mirror at H's trimmed reads and the first FASTQ chunk,
+reverse at J's ids, the word starts at J's trimmed descriptions, widen and
+narrow at O's chunk;
 parse_number at a 131,072-row batch of GFF starts (int mode) and ends
 (float mode), at all 3.4 M of each and at a batch of VCF qual-like
 decimal and scientific text; string_eq at D's name pairs, I's key
@@ -1956,6 +1960,58 @@ def check_map_bytes(torch, offs, vals) -> dict:
             "shape": f"{n} reads, {total} bytes, mirrored"}
 
 
+def check_map_bytes_alone(torch) -> None:
+    """map_bytes in every mode at its main-path shapes, each against its
+    twin and taken apart: table mode at J's upper and A's chunk
+    (check_map_table); the mirror at H's trimmed GC-rich reads and over
+    the whole first FASTQ chunk, and fn_reverse's (the identity table) at
+    J's ids; the word-start mode (initcap) at J's trimmed descriptions;
+    widen to int8 codes and to int64 scores, and narrow, at O's first
+    FASTQ chunk (check_list_kernels' cases)."""
+    import exon_tpu_torch as T
+    from benchlib.fastq_fixture import make_fastq
+    from exon_tpu_torch.kernels import map_bytes as km
+    from exon_tpu_torch.ops import sqlfuncs as S
+    from exon_tpu_torch.ops.strings import LOWER, UPPER
+
+    b = _fasta_first_batch(torch)
+    check_map_table(torch, b)
+    fq_path = make_fastq(FASTQ_READS, FASTQ_SEED)
+    fn, c = T.FunctionCall, T.col
+    h_trim = _first_column(lambda s: s.read_fastq(fq_path).filter(
+        fn("gc_content", [c("sequence")]) >= GC_MIN).select(
+        fn("trim_polya", [c("sequence")]).alias("t")), "t")
+    fq = _first_column(lambda s: s.read_fastq(fq_path), "sequence")
+    table = np.arange(256, dtype=np.uint8)
+    table[list(b"ACGTacgtNnUu")] = list(b"TGCAtgcaNnAa")
+    comp = torch.from_numpy(table).cuda()
+    trimmed = S.fn_trim(b, b.column("description"))
+    initcap = torch.cat([torch.from_numpy(LOWER), torch.from_numpy(UPPER)])
+    ident = torch.arange(256, dtype=torch.uint8, device="cuda")
+    idc = b.column("id")
+    for label, (o, v), t, mode, what in (
+            ("mirror H", h_trim, comp, "mirror", "trimmed GC-rich reads"),
+            ("mirror FASTQ chunk", fq, comp, "mirror", "reads"),
+            ("reverse J ids", (idc.offsets, idc.values), ident, "mirror",
+             "ids"),
+            ("word_start J initcap", (trimmed.offsets, trimmed.values),
+             initcap.cuda(), "word_start", "trimmed descriptions")):
+        rows, inside = o.shape[0] - 1, int(o[-1] - o[0])
+
+        def run(o=o, v=v, t=t, m=mode):
+            return km.map_bytes(o, v, t, m)
+
+        # the offsets, the rows' bytes and the table in, the whole buffer
+        # out
+        _case(torch, f"map_bytes {label}", run,
+              lambda o=o, v=v, t=t, m=mode: km.map_bytes_plain(o, v, t, m),
+              4 * (rows + 1) + inside + t.shape[0] + v.shape[0],
+              f"{rows} {what}, {inside} bytes in rows, {v.shape[0]} out")
+        _print_split(torch, f"map_bytes {label}", run)
+    del h_trim, fq
+    check_widen(torch, fq_path)
+
+
 def check_polya_tail(torch, offs, vals) -> dict:
     from exon_tpu_torch.kernels import polya_tail as k
 
@@ -2211,6 +2267,34 @@ def check_take_list(torch, gf: str) -> dict:
                  idx.numel() * idx.element_size() + 2 * out,
                  f"{b.length} attribute maps, {idx.numel()} kept, {out} "
                  "bytes out")
+
+
+def check_list_element(torch, gf: str) -> dict:
+    """_list_element (the port's plain torch, on gather_var for a list of
+    strings) at N's attributes['gene_type'][1] over the first 131,072-row
+    batch of N's scan, against the same with gather_var's twin, exact. Its
+    bound reads the lists' offsets and validity and each taken string (its
+    offsets and bytes) and writes the strings, their offsets and a
+    validity."""
+    from exon_tpu_torch.plan.expressions import _list_element
+
+    lists = _first_batch(lambda s: s.sql(
+        f"SELECT attributes['gene_type'] AS t FROM gff_scan('{gf}')")
+    ).column("t")
+
+    def element():
+        col = _list_element(lists, 1)
+        return col.offsets, col.values, col.validity
+
+    def twin():
+        with _swapped([("exon_tpu_torch.ops.layout", "gather_var")]):
+            return element()
+
+    n = lists.capacity
+    out = int(element()[0][-1])
+    return _case(torch, "_list_element N attributes['gene_type'][1]",
+                 element, twin, 4 * (n + 1) + n + 8 * n + out + out +
+                 4 * (n + 1) + n, f"{n} lists, {out} bytes taken")
 
 
 def check_sql_kernels(torch, fa_batch, fq_batch) -> dict:
@@ -2571,17 +2655,12 @@ def _rel_err(a, b) -> float:
         float(d.max()) if d.numel() else 0.0
 
 
-def check_list_kernels(torch, fq_path: str) -> dict:
-    """K11b and the map lookup at the shapes of queries N, O and P:
-    map_bytes' widen mode (the DNA codes and the Phred scores) and narrow
-    mode (the scores back to text) on the first FASTQ chunk of O's scan,
-    beside table[values]; map_lookup on the attribute maps of N's first
-    131,072-row batch ('gene_type'); list_bins at P's (check_list_bins).
-    Exact, but the bins at relative BINS_RTOL."""
-    from benchlib.gencode_gff_fixture import make_gencode_gff
+def check_widen(torch, fq_path: str) -> None:
+    """map_bytes' widen mode (the DNA codes and the Phred scores) and
+    narrow mode (the scores back to text) on the first FASTQ chunk of O's
+    scan, beside table[values]; taken apart under --kernels."""
     from exon_tpu_torch.formats.fasta import DNA_CODE
     from exon_tpu_torch.kernels import map_bytes as mb
-    from exon_tpu_torch.kernels import map_lookup as ml
 
     seq = _first_column(lambda s: s.read_fastq(fq_path), "sequence")
     qual = _first_column(lambda s: s.read_fastq(fq_path), "quality_scores")
@@ -2590,20 +2669,37 @@ def check_list_kernels(torch, fq_path: str) -> dict:
     dna = torch.from_numpy(DNA_CODE.astype(np.int64)).to(dev)
     phred = torch.arange(256, dtype=torch.int64, device=dev) - 33
     shape = f"{n_reads} reads, {total} bases"
-    for label, vals, table, out, width in (
-            ("integer_encode_dna", seq[1], dna, torch.int8, 1),
-            ("quality_scores_to_list", qual[1], phred, torch.int64, 8)):
-        _case(torch, f"map_bytes widen ({label})",
-              lambda v=vals, t=table, o=out: mb.map_bytes_widen(v, t, o),
-              lambda v=vals, t=table, o=out: mb.map_bytes_widen_plain(v, t, o),
-              total * (1 + width) + 256 * 8, shape,
-              library=lambda v=vals, t=table, o=out: t[v.int()].to(o))
     scores = mb.map_bytes_widen(qual[1], phred, torch.int64)
-    _case(torch, "map_bytes narrow (quality_scores_to_string)",
-          lambda: mb.map_bytes_narrow(scores),
-          lambda: mb.map_bytes_narrow_plain(scores), total * 9, shape)
-    del seq, qual, scores
+    calls = {
+        "widen (integer_encode_dna)": (
+            lambda: mb.map_bytes_widen(seq[1], dna, torch.int8),
+            lambda: mb.map_bytes_widen_plain(seq[1], dna, torch.int8),
+            lambda: dna[seq[1].int()].to(torch.int8), total * 2 + 256 * 8),
+        "widen (quality_scores_to_list)": (
+            lambda: mb.map_bytes_widen(qual[1], phred, torch.int64),
+            lambda: mb.map_bytes_widen_plain(qual[1], phred, torch.int64),
+            lambda: phred[qual[1].int()], total * 9 + 256 * 8),
+        "narrow (quality_scores_to_string)": (
+            lambda: mb.map_bytes_narrow(scores),
+            lambda: mb.map_bytes_narrow_plain(scores), None, total * 9)}
+    for label, (kernel, plain, library, nbytes) in calls.items():
+        _case(torch, f"map_bytes {label}", kernel, plain, nbytes, shape,
+              library=library)
+        if SPLITS:
+            _print_split(torch, f"map_bytes {label}", kernel)
+    del seq, qual, scores, calls
 
+
+def check_list_kernels(torch, fq_path: str) -> dict:
+    """K11b and the map lookup at the shapes of queries N, O and P:
+    map_bytes' widen and narrow modes at O's (check_widen); map_lookup on
+    the attribute maps of N's first 131,072-row batch ('gene_type');
+    list_bins at P's (check_list_bins). Exact, but the bins at relative
+    BINS_RTOL."""
+    from benchlib.gencode_gff_fixture import make_gencode_gff
+    from exon_tpu_torch.kernels import map_lookup as ml
+
+    check_widen(torch, fq_path)
     gf = make_gencode_gff(GENCODE_FEATURES, GENCODE_SEED)
     attrs = _first_batch(lambda s: s.read_gff(gf).select(
         "attributes")).column("attributes")
@@ -4955,7 +5051,8 @@ FOCUS = {
         torch, _gff_features()),
     "slice_var": lambda torch: check_slice_var(torch,
                                                _fasta_first_batch(torch)),
-    "take_list": lambda torch: check_take_list(torch, _gencode()),
+    "take_list": lambda torch: (check_take_list(torch, _gencode()),
+                                check_list_element(torch, _gencode())),
     "like_match": check_like_alone,
     "line_index": check_line_index_alone,
     "gather_spans": check_gather_spans_alone,
@@ -4968,8 +5065,7 @@ FOCUS = {
     "q_aggregate": check_q_aggregate,
     "compact_mask": lambda torch: check_compact(
         np.random.default_rng(1234), torch, _chunk_line_flags(torch)),
-    "map_bytes": lambda torch: check_map_table(torch,
-                                               _fasta_first_batch(torch)),
+    "map_bytes": check_map_bytes_alone,
     "window_frame": lambda torch: check_window_kernels(torch, _l_batch()),
     "parse_number": lambda torch: check_parse_number(torch, _gff_features()),
     "string_eq": check_string_eq_alone,

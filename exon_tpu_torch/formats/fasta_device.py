@@ -22,6 +22,7 @@ column over the same offsets; a byte outside the alphabet (code 0) raises
 
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Optional
 
 import numpy as np
@@ -62,15 +63,21 @@ def split_chunks(data: bytes, max_chunk: int = DEFAULT_CHUNK
     return spans
 
 
+@functools.lru_cache(maxsize=None)
+def encoding_table(encoding: str, device: torch.device) -> torch.Tensor:
+    """The encoding's table as int64 on ``device``, copied there once."""
+    return torch.from_numpy(ENCODINGS[encoding][0].astype(np.int64)).to(
+        device)
+
+
 def encode_sequence(col: VarColumn, encoding: str) -> ListColumn:
     """The sequence bytes as int8 codes through the encoding's table (the
     widen mode of map_bytes); a byte outside the alphabet raises."""
-    table, what = ENCODINGS[encoding]
     codes = map_bytes_widen(
-        col.values, torch.from_numpy(table.astype(np.int64)).to(
-            col.values.device), torch.int8)
+        col.values, encoding_table(encoding, col.values.device), torch.int8)
     if bool((codes == 0).any()):
-        raise InvalidSequenceError(f"invalid {what} in FASTA sequence")
+        raise InvalidSequenceError(
+            f"invalid {ENCODINGS[encoding][1]} in FASTA sequence")
     return ListColumn(FixedColumn(codes, torch.ones_like(codes,
                                                          dtype=torch.bool)),
                       col.offsets, col.validity)

@@ -66,8 +66,7 @@ SIGNATURES = {
     "exon_format_int_write": [_P, _P, _I64, _P, _P],
     "exon_sw_score": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P, _P],
     "exon_count_bytes": [_P, _I64, _P, _I64, _P, _I32, _I32, _P, _P],
-    "exon_map_bytes": [_P, _P, _I64, _P, _I32, _P, _P],
-    "exon_map_bytes_table": [_P, _I64, _P, _I64, _P, _P, _P],
+    "exon_map_bytes": [_P, _I64, _P, _I64, _P, _I32, _P, _P],
     "exon_map_bytes_widen": [_P, _I64, _P, _I32, _P, _P],
     "exon_map_bytes_narrow": [_P, _I64, _P, _P],
     "exon_list_bins_peak": [_P, _P, _P, _I64, _F64, _F64, _P, _P],

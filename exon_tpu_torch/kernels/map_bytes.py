@@ -16,9 +16,12 @@ of the same size. ``mode`` is the kernel's:
   first byte, or one after a byte that is not ASCII alphanumeric) and
   ``table[byte]`` elsewhere (table [512]).
 
-Bytes outside every row are 0. Table mode needs no rows, since the rows'
-bytes are exactly [offsets[0], offsets[n]): one flat pass maps that range
-and zeroes the rest.
+Bytes outside every row are 0. Every mode is one launch a call that
+writes every byte of the output, since the rows' bytes are exactly
+[offsets[0], offsets[n]): table mode is a flat pass over that range, the
+mirror mode a group of 8 lanes a row over its 16-byte words, the
+word-start mode a flat pass over 16-byte words that marks each tile's row
+starts once; each kernel writes the zeros outside the range itself.
 
 Two more modes are K11b's byte-to-list maps (exon_tpu/udfs.py
 ``integer_encode_dna`` :106, ``integer_encoding`` :340,
@@ -99,23 +102,15 @@ def map_bytes(offsets: torch.Tensor, values: torch.Tensor,
         raise ValueError("map_bytes: offsets need n + 1 >= 1 entries")
     offsets, values = offsets.contiguous(), values.contiguous()
     table = table.contiguous()
-    n = offsets.shape[0] - 1
-    if mode == "table" and values.shape[0] > 0:
-        # one launch: the kernel writes every byte, zeros outside the rows
-        out = torch.empty(values.shape[0], dtype=torch.uint8,
-                          device=values.device)
-        _build.check(_build.library().exon_map_bytes_table(
-            values.data_ptr(), values.shape[0], offsets.data_ptr(), n,
-            table.data_ptr(), out.data_ptr(), _build.stream_of(values)),
-            "map_bytes")
-        launches += 1
-        return out
-    out = torch.zeros_like(values)
-    if n == 0 or values.shape[0] == 0:
+    # one launch in every mode: the kernel writes every byte, zeros outside
+    # the rows
+    out = torch.empty(values.shape[0], dtype=torch.uint8, device=values.device)
+    if values.shape[0] == 0:
         return out
     _build.check(_build.library().exon_map_bytes(
-        values.data_ptr(), offsets.data_ptr(), n, table.data_ptr(),
-        MODES[mode], out.data_ptr(), _build.stream_of(values)), "map_bytes")
+        values.data_ptr(), values.shape[0], offsets.data_ptr(),
+        offsets.shape[0] - 1, table.data_ptr(), MODES[mode], out.data_ptr(),
+        _build.stream_of(values)), "map_bytes")
     launches += 1
     return out
 

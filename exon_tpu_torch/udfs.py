@@ -240,9 +240,16 @@ def region_match(batch: Batch, chrom, pos, region) -> torch.Tensor:
 # -- list columns (K11b) ------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _int64_table(table: bytes, device: torch.device) -> torch.Tensor:
+    """A 256-entry int64 table (its bytes) on ``device``, copied there
+    once."""
+    return torch.frombuffer(bytearray(table), dtype=torch.int64).to(device)
+
+
 def _widen(col: VarColumn, table: np.ndarray, out: torch.dtype) -> ListColumn:
     """Each byte through ``table``: a list per row over the same offsets."""
-    t = torch.from_numpy(table.astype(np.int64)).to(col.values.device)
+    t = _int64_table(table.astype(np.int64).tobytes(), col.values.device)
     vals = map_bytes_widen(col.values, t, out)
     return ListColumn(FixedColumn(vals, torch.ones(vals.shape[0],
                                                    dtype=torch.bool,

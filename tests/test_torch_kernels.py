@@ -2676,6 +2676,153 @@ def test_gc_content_count_bytes_and_trim_are_one_kernel_a_call(card):
     assert kpt.launches == before + 1
 
 
+# -- map_bytes' row modes and widen: their designs' shapes -------------------
+# mirror_kernel gives a group of 8 lanes to each row: its aligned 16-byte
+# words one load each (reversed), its partial first and last words (which
+# neighbouring rows share) byte by byte. word_start_kernel maps 16-byte
+# output words flat: a block marks the row starts of its 8 KB tile in a
+# mask a word, from the offsets it reads after a search. Both write the
+# bytes outside the rows as zeros in the same launch. widen8_kernel maps 16
+# bytes a thread. The cases (``map_case``) are the edges of those designs;
+# test_torch_redesign_k11b_map.py holds the twins to exon_tpu on them.
+
+MAP_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 255, 256, 257, 511, 512, 513)
+MAP_CASES = ("lengths", "long_row", "short_runs", "every_start",
+             "word_starts", "neighbours", "odd_bytes", "one_row", "no_rows")
+# words, digits, punctuation, spaces and bytes >= 128
+_MAP_TEXT = np.frombuffer(b"ACGTNacgtnHelloWORLD0123456789 ,.|-_'\t"
+                          b"\x00\x80\xc3\xa9\xff", np.uint8)
+
+
+def map_case(name: str):
+    """(int32 offsets, uint8 values, each row's bytes) of the case ``name``:
+    "lengths", rows of each of MAP_LENGTHS bytes (0, 1 and each side of 16,
+    32, 256 and 512) in a shuffled order, so their starts fall at many
+    offsets mod 16; "long_row", a 64 KB row of every byte value among
+    150-byte rows; "short_runs", runs of 1-3-byte rows (and empty ones)
+    that share 16-byte words; "every_start", rows of 17 and 33 bytes, so
+    that a row starts at every offset mod 16, then rows of 1-48;
+    "word_starts", a separator (a space, a digit, punctuation, a byte >=
+    128) at each byte of a 16-byte word within rows of letters, and rows
+    that follow a row
+    ending in an alphanumeric byte; "neighbours", offsets that start past 0
+    with alphanumeric bytes just before the first row and slack after the
+    last; "odd_bytes", rows of every byte value; "one_row"; "no_rows" (n =
+    0, offsets past 0, slack)."""
+    rng = np.random.default_rng(7919 * len(name))
+
+    def text(k):
+        return _MAP_TEXT[rng.integers(0, len(_MAP_TEXT), int(k))].tobytes()
+
+    rows, pre, post = [], b"", b""
+    if name == "lengths":
+        lens = list(MAP_LENGTHS) * 4
+        rng.shuffle(lens)
+        rows = [text(k) for k in lens]
+    elif name == "long_row":
+        rows = [text(150) for _ in range(300)]
+        rows[150] = rng.integers(0, 256, 1 << 16).astype(np.uint8).tobytes()
+    elif name == "short_runs":
+        rows = [text(k) for k in rng.integers(0, 4, 3000)]
+    elif name == "every_start":
+        rows = [text(17) for _ in range(16)] + [text(33) for _ in range(16)]
+        rows += [text(k) for k in range(1, 49)]
+    elif name == "word_starts":
+        for sep in (b" ", b"7", b",", b"\x80", b"_"):
+            for k in range(16):
+                rows.append(b"ab" * 8 + b"x" * k + sep + b"yZ" * 12)
+        # a row that follows one ending in an alphanumeric byte, at every
+        # offset of a word
+        for k in range(16):
+            rows += [b"q" * (k + 1), b"zz", b"9" * (k + 3), b"K"]
+    elif name == "neighbours":
+        rows = [text(rng.integers(0, 200)) for _ in range(200)]
+        pre, post = b"Ab9" * 12 + b"A", b"zZ7" * 9 + b"q"
+    elif name == "odd_bytes":
+        rows = [rng.integers(0, 256, int(k)).astype(np.uint8).tobytes()
+                for k in rng.integers(0, 300, 400)]
+        rows.append(bytes(range(256)))
+    elif name == "one_row":
+        rows = [text(100)]
+        pre, post = b"x" * 5, b"y" * 9
+    elif name == "no_rows":
+        pre = b"Ab9 " * 9 + b"A"
+        post = b"zZ7" * 9 + b"q"
+    else:
+        raise ValueError(name)
+    offs = np.full(len(rows) + 1, len(pre), np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    offs[1:] += len(pre)
+    vals = np.frombuffer(pre + b"".join(rows) + post, np.uint8).copy()
+    return offs.astype(np.int32), vals, rows
+
+
+def map_tables() -> dict:
+    """A table for each mode of map_bytes: the complement for the mirror,
+    initcap's lower/upper pair for the word starts, a permutation for the
+    table mode."""
+    from exon_tpu_torch.ops.strings import LOWER, UPPER
+    from exon_tpu_torch.udfs import _COMPLEMENT
+
+    perm = np.random.default_rng(5).permutation(256).astype(np.uint8)
+    return {"mirror": _COMPLEMENT,
+            "word_start": np.concatenate([LOWER, UPPER]), "table": perm}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mirror", "word_start", "table"])
+@pytest.mark.parametrize("name", MAP_CASES)
+def test_map_bytes_cases_match_twin(card, name, mode):
+    """Every map_case in each mode, at three alignments of the values,
+    equal to the twin; one launch a call."""
+    offs, vals, _rows = map_case(name)
+    o = torch.from_numpy(offs).to(card)
+    t = torch.from_numpy(map_tables()[mode]).to(card)
+    for shift in (0, 5, 11):
+        v = _at_alignment(torch.from_numpy(vals).to(card), shift)
+        before = kmb.launches
+        got = kmb.map_bytes(o, v, t, mode)
+        assert kmb.launches == before + 1
+        assert torch.equal(got, kmb.map_bytes_plain(o, v, t, mode)), shift
+
+
+_WIDEN_LENGTHS = list(range(18)) + [4095, 4096, 4097]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.int8, torch.int64],
+                         ids=["int8", "int64"])
+def test_map_bytes_widen_lengths_match_twin(card, out):
+    """Widen at lengths 0-17 and 4,095-4,097, on values at offsets 0-15 of
+    their storage, equal to the twin."""
+    rng = np.random.default_rng(17)
+    table = torch.from_numpy(rng.integers(-2**40, 2**40, 256)).to(card)
+    for n in _WIDEN_LENGTHS:
+        vals = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8))
+        vals = vals.to(card)
+        for shift in range(16):
+            v = _at_alignment(vals, shift)
+            got = kmb.map_bytes_widen(v, table, out)
+            assert got.dtype == out
+            want = kmb.map_bytes_widen_plain(v, table, out)
+            assert torch.equal(got, want), (n, shift)
+
+
+@pytest.mark.cuda
+def test_map_bytes_row_modes_are_one_kernel_a_call(card):
+    """The mirror and word-start modes each run their kernel alone: no
+    memset and no zero fill beside it."""
+    offs, vals, _rows = map_case("neighbours")
+    o, v = (torch.from_numpy(x).to(card) for x in (offs, vals))
+    for mode, name in (("mirror", "mirror_kernel"),
+                       ("word_start", "word_start_kernel")):
+        t = torch.from_numpy(map_tables()[mode]).to(card)
+        seen = _one_kernel(lambda: kmb.map_bytes(o, v, t, mode), 5)
+        assert len(seen) == 1 and name in next(iter(seen)), seen
+        assert not any("memset" in k.lower() or "fill" in k.lower()
+                       for k in seen), seen
+
+
 # ---------------------------------------------------------------------------
 # the SQL function kernels (K12): span_concat, and the new modes of
 # polya_tail (class runs from either end), like_match (first position) and
@@ -3341,8 +3488,7 @@ def bounds_case(case: str) -> tuple:
 @pytest.mark.parametrize("case", BOUNDS_CASES)
 def test_window_bounds_kernel_matches_twin_on_its_cases(card, case):
     """Each case's key matrix (sort_rows over (p, o)) and the bare rows,
-    with 0, 1 and 2 partition rows, bit for bit; two kernels a call and no
-    memset."""
+    with 0, 1 and 2 partition rows, bit for bit."""
     from exon_tpu_torch.kernels import window_bounds as kwb
 
     p, o = bounds_case(case)
@@ -3352,6 +3498,18 @@ def test_window_bounds_kernel_matches_twin_on_its_cases(card, case):
         want = kwb.window_bounds_plain(keys.cpu(), n_part)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), n_part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDS_CASES)
+def test_window_bounds_is_two_kernels_and_no_memset(card, case):
+    """torch.profiler's records of window_bounds on each case's key
+    matrix: two kernels a call and no memset (apart from the twin
+    comparison, so a failure says which of the two it is)."""
+    from exon_tpu_torch.kernels import window_bounds as kwb
+
+    p, o = bounds_case(case)
+    keys = torch.from_numpy(np.stack([p, o, o // 3])).to(card)
     seen = _one_kernel(lambda: kwb.window_bounds(keys, 1), 5)
     assert len(seen) == 2 and all("bounds_" in k for k in seen), seen
     assert not any("memset" in k.lower() for k in seen), seen
